@@ -1,0 +1,132 @@
+"""Binned-SAH BVH construction (host side, NumPy).
+
+Host copy of ``path_tracer_tpu/scene/bvh.py``'s builder, behavior-compatible
+with the reference BLAS builder (``src/tlas/tlas_bvh/blas/blas_bvh.rs:62-136``):
+
+* split axis = longest axis of the node bounds,
+* primitives stably sorted by AABB-min along that axis,
+* equal-count candidate splits: ``bin_size = max(span / 64, 1)``, candidates at
+  ``j = (i+1) * bin_size``,
+* SAH = ``TRAVERSAL_COST + (j*SA(L) + (span-j)*SA(R)) * INTERSECTION_COST / SA(node)``,
+* leaf collapse when ``no_split_sah = INTERSECTION_COST * span`` beats the best
+  split, single-primitive fast-path leaves.
+
+The port's dense engine brute-forces every triangle, so only the builder's
+primitive permutation is used: it fixes the triangle order (SAH leaf order),
+which fixes the lowest-index tie rule and keeps consecutive triangles
+spatially clustered. Flattening to node arrays waits for the BVH-walk port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+DESIRED_BINS = 64
+TRAVERSAL_COST = 1.0
+INTERSECTION_COST = 2.0
+
+
+@dataclass
+class _Node:
+    bb_min: np.ndarray
+    bb_max: np.ndarray
+    # leaf: (start, count) into the permutation; internal: (left, right) node ids
+    is_leaf: bool
+    a: int
+    b: int
+
+
+def _surface_area(bb_min: np.ndarray, bb_max: np.ndarray) -> np.ndarray:
+    v = bb_max - bb_min
+    # 2 * dot(v, v.zxy) (boundingbox.rs:90-95)
+    return 2.0 * (v[..., 0] * v[..., 2] + v[..., 1] * v[..., 0] + v[..., 2] * v[..., 1])
+
+
+def build_sah_tree(aabb_min: np.ndarray, aabb_max: np.ndarray, max_leaf: int = 4):
+    """Build the SAH tree over primitives with the given AABBs.
+
+    Returns ``(nodes: list[_Node], perm: int64[T])`` where leaves index into
+    ``perm`` (the primitive reordering).
+
+    ``max_leaf`` caps leaf size: the reference's no-split collapse
+    (blas_bvh.rs:112-121) can emit arbitrarily large leaves, but the batched
+    traversal kernels unroll leaf loops, so oversized would-be leaves are
+    split regardless of SAH. Identical images, bounded unroll.
+    """
+    t = aabb_min.shape[0]
+    if t == 0:
+        raise ValueError("empty BVH")
+    perm = np.arange(t)
+    nodes: list[_Node] = []
+
+    # Iterative DFS matching the recursive reference builder. Each job is
+    # (start, end, placeholder_parent_slot); we allocate the node, then push
+    # children jobs. Children are contiguous subranges of `perm`.
+    # To wire child ids we process with an explicit stack of jobs carrying a
+    # callback slot: simpler scheme — build recursively with sys-style stack
+    # frames storing state.
+    def build(start: int, end: int) -> int:
+        span = end - start
+        idx = perm[start:end]
+        bmin = aabb_min[idx]
+        bmax = aabb_max[idx]
+        node_min = bmin.min(axis=0)
+        node_max = bmax.max(axis=0)
+
+        if span == 1:
+            nodes.append(_Node(node_min, node_max, True, start, 1))
+            return len(nodes) - 1
+
+        bb_sa = _surface_area(node_min, node_max)
+        extent = node_max - node_min
+        axis = int(np.argmax(extent))
+
+        order = np.argsort(bmin[:, axis], kind="stable")
+        perm[start:end] = idx[order]
+        bmin = bmin[order]
+        bmax = bmax[order]
+
+        # prefix/suffix accumulated boxes
+        pre_min = np.minimum.accumulate(bmin, axis=0)
+        pre_max = np.maximum.accumulate(bmax, axis=0)
+        suf_min = np.minimum.accumulate(bmin[::-1], axis=0)[::-1]
+        suf_max = np.maximum.accumulate(bmax[::-1], axis=0)[::-1]
+
+        bin_size = max(span // DESIRED_BINS, 1)
+        num_bins = span // bin_size - 1
+        if num_bins <= 0:
+            num_bins = 1 if span > 1 else 0
+            js = np.array([max(span // 2, 1)]) if num_bins else np.array([], dtype=np.int64)
+        else:
+            js = (np.arange(num_bins) + 1) * bin_size
+            js = js[js < span]
+
+        l_sa = _surface_area(pre_min[js - 1], pre_max[js - 1])
+        r_sa = _surface_area(suf_min[js], suf_max[js])
+        sah = TRAVERSAL_COST + (js * l_sa + (span - js) * r_sa) * INTERSECTION_COST / max(bb_sa, 1e-30)
+
+        best = int(np.argmin(sah))
+        best_split = int(js[best])
+        best_sah = float(sah[best])
+        no_split_sah = INTERSECTION_COST * span
+
+        if no_split_sah < best_sah and span <= max_leaf:
+            nodes.append(_Node(node_min, node_max, True, start, span))
+            return len(nodes) - 1
+
+        left = build(start, start + best_split)
+        right = build(start + best_split, end)
+        nodes.append(_Node(node_min, node_max, False, left, right))
+        return len(nodes) - 1
+
+    import sys
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 100000))
+    try:
+        root = build(0, t)
+    finally:
+        sys.setrecursionlimit(old_limit)
+    return nodes, perm, root

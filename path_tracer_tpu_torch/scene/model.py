@@ -1,0 +1,47 @@
+"""Model: a mesh + material + instance transforms.
+
+Host copy of ``path_tracer_tpu/scene/model.py``, which mirrors
+``Model::new`` (``src/tlas/tlas_bvh/blas/primitive/model.rs:27-52``): one
+material per model, a list of rigid instance matrices (scale is rejected,
+matching the reference's assert at ``model.rs:43``). The mesh is passed as
+triangle-soup arrays; OBJ loading waits for the port of JSON/OBJ scenes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from path_tracer_tpu_torch.scene.materials import Material
+
+IDENTITY = np.eye(3, 4, dtype=np.float32)
+
+
+def _check_rigid(matrix: np.ndarray) -> None:
+    r = matrix[:, :3]
+    if not np.allclose(r @ r.T, np.eye(3), atol=1e-4):
+        raise ValueError("Model matrix can only contain translation and rotation")
+
+
+@dataclass
+class Model:
+    material: Material
+    matrices: list = field(default_factory=lambda: [IDENTITY])
+    positions: np.ndarray | None = None  # [T,3,3]
+    normals: np.ndarray | None = None  # [T,3,3]
+
+    def __post_init__(self):
+        for m in self.matrices:
+            _check_rigid(np.asarray(m, np.float32))
+        if self.positions is None:
+            raise ValueError("Model needs triangle arrays (positions)")
+        self.positions = np.asarray(self.positions, np.float32)
+        if self.normals is None:
+            # face-normal fallback for procedurally passed geometry
+            fn = np.cross(
+                self.positions[:, 1] - self.positions[:, 0],
+                self.positions[:, 2] - self.positions[:, 0],
+            )
+            self.normals = np.repeat(fn[:, None, :], 3, axis=1).astype(np.float32)
+        self.normals = np.asarray(self.normals, np.float32)

@@ -1,0 +1,195 @@
+"""Scene assembly: models -> world triangle soup -> device tensor dict.
+
+Port of ``path_tracer_tpu/scene/scene.py``. The host build is the JAX
+package's, carried over: instances are baked to world space, the soup is
+reordered by the SAH builder's permutation (``bvh.build_sah_tree``), the
+emissive triangles form a light table with a power-weighted CDF
+(``src/scene.rs:21-35``, ``src/scene/light_sampler.rs``), and a scene with no
+environment image gets a 1x1 constant-0.006 one.
+
+`Scene.device` and `from_jax_scene` build the same tensor dict, one from the
+host scene and one from the JAX package's own device dict, so both packages
+can be fed identical tables:
+
+* ``tri``: ``normals_flat [T, 9]``, ``model_rows [T, 1]`` and ``dense`` (the
+  dense engine's ``aux`` table, `trace.dense_cuda`);
+* ``light`` (scenes with emitters): ``cdf``, ``rows`` (pdf, area, emitted rgb,
+  pad), ``normals_flat``, ``positions_flat`` and ``dense``;
+* ``mat``: ``rows`` (`materials.pack_material_rows`);
+* ``env``: ``[H, W, 3]``.
+
+Engine selection: every table up to ``DENSE_MAX_TRIS`` triangles, world or
+lights, goes through the dense kernels (this also covers the <=256-tri
+tables the TPU build sends to the flat stream of ``trace/sweep.py``, which
+runs the same naive-precision test with the same tie rule). Larger tables
+need the BVH walk, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from path_tracer_tpu_torch.core.constants import DEFAULT_BACKGROUND
+from path_tracer_tpu_torch.scene import triangle as tri_mod
+from path_tracer_tpu_torch.scene.bvh import build_sah_tree
+from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_materials
+from path_tracer_tpu_torch.scene.model import Model
+from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux
+
+SceneData = dict  # nested dict of tensors handed to the integrator
+
+
+def _sah_perm(positions: np.ndarray) -> np.ndarray:
+    bmin, bmax = tri_mod.aabbs(positions)
+    return build_sah_tree(bmin, bmax, max_leaf=4)[1]
+
+
+def _pack_tris(positions: np.ndarray, normals: np.ndarray) -> dict[str, np.ndarray]:
+    pre = tri_mod.precompute(positions)
+    pre["normals"] = normals.astype(np.float32)
+    pre["positions"] = positions.astype(np.float32)
+    return pre
+
+
+class Scene:
+    """Host-side scene: build once, then ``.device(device)`` for the renderer."""
+
+    def __init__(self, models: list[Model], env: np.ndarray | None = None):
+        self.models = models
+
+        world_pos, world_nrm, world_model = [], [], []
+        light_pos, light_nrm, light_mat = [], [], []
+
+        mat_table = pack_materials([m.material for m in models])
+
+        for model_id, model in enumerate(models):
+            emissive = bool(mat_table["is_emissive"][model_id])
+            for matrix in model.matrices:
+                p, n = tri_mod.transform(model.positions, model.normals, np.asarray(matrix, np.float32))
+                world_pos.append(p)
+                world_nrm.append(n)
+                world_model.append(np.full(p.shape[0], model_id, np.int32))
+                if emissive:
+                    light_pos.append(p)
+                    light_nrm.append(n)
+                    light_mat.append(np.full(p.shape[0], model_id, np.int32))
+
+        world_pos = np.concatenate(world_pos)
+        self.perm = perm = _sah_perm(world_pos)
+        world_model = np.concatenate(world_model)[perm]
+        self.tri = _pack_tris(world_pos[perm], np.concatenate(world_nrm)[perm])
+        # one material per model: material id == model id
+        self.tri["mat"] = world_model
+        self.tri["model"] = world_model
+
+        # Lights: emissive triangles only (scene.rs:23-28) with a
+        # power-weighted CDF (light weight = area * |emitted|, blas.rs:203-212).
+        self.has_lights = len(light_pos) > 0
+        if self.has_lights:
+            lp = np.concatenate(light_pos)
+            lperm = _sah_perm(lp)
+            lm = np.concatenate(light_mat)[lperm]
+            self.light = _pack_tris(lp[lperm], np.concatenate(light_nrm)[lperm])
+            self.light["mat"] = lm
+            emitted = mat_table["emitted"][lm]
+            weight = self.light["area"] * np.linalg.norm(emitted, axis=-1)
+            pdf = (weight / weight.sum()).astype(np.float32)
+            self.light["emitted"] = emitted.astype(np.float32)
+            self.light["pdf"] = pdf
+            self.light["cdf"] = np.cumsum(pdf).astype(np.float32)
+        else:
+            self.light = None
+
+        self.mat = mat_table
+        # which material models exist and whether any medium is attached:
+        # the integrator leaves the others out
+        self.active_mtypes = tuple(sorted(set(int(t) for t in mat_table["mtype"])))
+        self.has_volumes = bool(mat_table["has_volume"].any())
+
+        if env is None:
+            env = np.full((1, 1, 3), DEFAULT_BACKGROUND, np.float32)
+        self.env = np.asarray(env, np.float32)
+        self.num_world_tris = world_pos.shape[0]
+
+    def device(self, device) -> SceneData:
+        """The integrator's tensor dict on ``device`` (see the module note)."""
+        tri = {
+            "n0": self.tri["n0"], "d0": self.tri["d0"], "n1": self.tri["n1"],
+            "d1": self.tri["d1"], "n2": self.tri["n2"], "d2": self.tri["d2"],
+            "normals_flat": self.tri["normals"].reshape(-1, 9),
+            "model_rows": self.tri["model"].astype(np.float32)[:, None],
+        }
+        data = {"tri": tri, "mat": {"rows": pack_material_rows(self.mat)}, "env": self.env}
+        if self.has_lights:
+            lt = self.light["pdf"].shape[0]
+            lrows = np.zeros((lt, 8), np.float32)
+            lrows[:, 0] = self.light["pdf"]
+            lrows[:, 1] = self.light["area"]
+            lrows[:, 2:5] = self.light["emitted"]
+            data["light"] = {
+                "n0": self.light["n0"], "d0": self.light["d0"], "n1": self.light["n1"],
+                "d1": self.light["d1"], "n2": self.light["n2"], "d2": self.light["d2"],
+                "normals_flat": self.light["normals"].reshape(lt, 9),
+                "positions_flat": self.light["positions"].reshape(lt, 9),
+                "cdf": self.light["cdf"],
+                "rows": lrows,
+            }
+        return _upload(data, device)
+
+
+def _dense_table(tab: dict, with_shading: bool) -> dict:
+    """Dense engine tables for one triangle table (world or lights)."""
+    t = tab["n0"].shape[0]
+    if t > DENSE_MAX_TRIS:
+        raise NotImplementedError(
+            f"{t} triangles exceed the dense engine's {DENSE_MAX_TRIS}; scenes this "
+            "large need the BVH walk engine, which is not ported yet (ROADMAP.md)"
+        )
+    aux = pack_dense_aux(
+        tab,
+        tab["normals_flat"] if with_shading else None,
+        tab["model_rows"][:, 0] if with_shading else None,
+    )
+    return {"aux": aux}
+
+
+_PLANE_KEYS = ("n0", "d0", "n1", "d1", "n2", "d2")
+
+
+def _upload(data: dict, device) -> SceneData:
+    """Add the dense tables, drop the host-only plane arrays, move to ``device``."""
+    tri = data["tri"]
+    tri["dense"] = _dense_table(tri, with_shading=True)
+    if "light" in data:
+        data["light"]["dense"] = _dense_table(data["light"], with_shading=False)
+    for tab in (tri, data.get("light")):
+        for k in _PLANE_KEYS:
+            if tab is not None:
+                tab.pop(k)
+
+    def up(x):
+        if isinstance(x, dict):
+            return {k: up(v) for k, v in x.items()}
+        return torch.from_numpy(np.array(x, order="C")).to(device)
+
+    return up(data)
+
+
+def from_jax_scene(data: dict, device) -> SceneData:
+    """The port's tensor dict from the JAX package's ``Scene.device()``
+    dict, converted with ``np.asarray`` (nested dicts of arrays). Only
+    arrays the two packages share are read; the JAX engine tables (streams,
+    ``dense``, ``dense_pl``) are ignored and the dense tables rebuilt."""
+    a = lambda x: np.asarray(x)  # noqa: E731
+    jt = data["tri"]
+    tri = {k: a(jt[k]) for k in _PLANE_KEYS}
+    tri["normals_flat"] = a(jt["normals_flat"])
+    tri["model_rows"] = a(jt["model_rows"])
+    out = {"tri": tri, "mat": {"rows": a(data["mat"]["rows"])}, "env": a(data["env"])}
+    if "light" in data:
+        jl = data["light"]
+        out["light"] = {k: a(jl[k]) for k in _PLANE_KEYS}
+        for k in ("normals_flat", "positions_flat", "cdf", "rows"):
+            out["light"][k] = a(jl[k])
+    return _upload(out, device)

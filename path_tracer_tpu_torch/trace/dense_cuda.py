@@ -1,0 +1,309 @@
+"""Dense closest-hit / any-hit over one <=16K-triangle table: the CUDA
+kernels of ``csrc/dense_hit.cu``, their plain torch versions, and the table
+packing.
+
+Port of ``path_tracer_tpu/trace/dense_pallas.py`` (``_closest_kernel`` and
+``_any_kernel``, reached through ``dense_pl_closest_hit_shade`` and
+``dense_pl_any_hit``). Precision is ``intersect_naive`` Havel-Herout (no
+ray pre-translation), EPSILON < t < t_limit, lowest table index on ties.
+
+Each query has one wrapper. On a CPU tensor it runs the plain version; on a
+CUDA tensor it launches the kernel, or raises. ``LAUNCHES`` counts kernel
+launches per kernel, so a run can show that its queries went through them.
+
+The kernels are built at first use with ``nvcc`` into ``_build/`` beside
+this package, as a shared library with a plain C interface loaded through
+ctypes. They are compiled with ``-fmad=false`` and the plain versions
+evaluate the same expressions in the same order, one rounding per op, so
+both give the same bits (see the note at the top of ``dense_hit.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from path_tracer_tpu_torch.core.constants import EPSILON
+
+DENSE_MAX_TRIS = 16384
+AUX_COLS = 24  # n0(3) d0 n1(3) d1 n2(3) d2 | na nb nc (9) | model | pad(2)
+_BIG = 1e30  # "no winner" sentinel, as in dense_pallas
+_T_CLAMP = 3.0e38  # finite stand-in for an infinite t_limit
+# [rays, tris] pairs per step of the plain versions (bounds their memory)
+_PLAIN_PAIRS = 1 << 22
+
+LAUNCHES = {"closest": 0, "any": 0}
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "dense_hit.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+# --- table packing (host, NumPy) ---
+
+
+def pack_dense_aux(tri: dict, normals_flat=None, model=None) -> np.ndarray:
+    """Row-major ``[T, 24]`` table, one row per triangle: plane data (12) +
+    the three vertex shading normals (9) + model id (exact float) + pad (2).
+    Its rows are the first T rows of dense_pallas's aux table (which pads
+    to its chunk width; the kernels here need no padding).
+    ``normals_flat``/``model`` may be None (zeros) for geometry-only tables
+    such as the lights."""
+    n0 = np.asarray(tri["n0"], np.float32)
+    aux = np.zeros((n0.shape[0], AUX_COLS), np.float32)
+    aux[:, 0:3] = n0
+    aux[:, 3] = np.asarray(tri["d0"], np.float32)
+    aux[:, 4:7] = np.asarray(tri["n1"], np.float32)
+    aux[:, 7] = np.asarray(tri["d1"], np.float32)
+    aux[:, 8:11] = np.asarray(tri["n2"], np.float32)
+    aux[:, 11] = np.asarray(tri["d2"], np.float32)
+    if normals_flat is not None:
+        aux[:, 12:21] = np.asarray(normals_flat, np.float32)
+    if model is not None:
+        aux[:, 21] = np.asarray(model, np.float32)
+    return aux
+
+
+# --- kernel build and binding ---
+
+_LIB = None
+
+
+def build() -> Path:
+    """Compile ``dense_hit.cu`` (once per source and flags version) and
+    return the library path; nvcc's output (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside it with the suffix ``.log``.
+    Raises with nvcc's output if the build fails."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libdense_hit_{tag}.so"
+    if lib.exists():
+        return lib
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.dense_closest, lib.dense_any):
+            fn.argtypes = [i, p, i, p, p, p, i, p, p]
+            fn.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check_cuda(aux, origin, direction, t_limit):
+    for name, x in (("aux", aux), ("origin", origin), ("direction", direction),
+                    ("t_limit", t_limit)):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if x.device != origin.device:
+            raise ValueError("all tensors must be on one device")
+    n = origin.shape[0]
+    if aux.dim() != 2 or aux.shape[1] != AUX_COLS:
+        raise ValueError(f"aux must be [T, {AUX_COLS}], got {tuple(aux.shape)}")
+    if origin.shape != (n, 3) or direction.shape != (n, 3) or t_limit.shape != (n,):
+        raise ValueError("origin/direction must be [N, 3] and t_limit [N]")
+
+
+def _launch(fn, aux, origin, direction, t_limit, out):
+    dev = origin.device
+    err = fn(
+        dev.index, aux.data_ptr(), aux.shape[0], origin.data_ptr(),
+        direction.data_ptr(), t_limit.data_ptr(), origin.shape[0],
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+
+
+def closest_cuda(aux, origin, direction, t_limit) -> torch.Tensor:
+    """Kernel closest hit: ``[N, 8]`` rows (t, idx, u, v, n_raw xyz, model),
+    idx = -1 and zeros elsewhere on a miss. ``t_limit`` must be finite-clamped."""
+    _check_cuda(aux, origin, direction, t_limit)
+    fn = _lib().dense_closest
+    out = torch.empty((origin.shape[0], 8), dtype=torch.float32, device=origin.device)
+    LAUNCHES["closest"] += 1
+    _launch(fn, aux, origin, direction, t_limit, out)
+    return out
+
+
+def any_cuda(aux, origin, direction, t_limit) -> torch.Tensor:
+    """Kernel shadow test: bool ``[N]``."""
+    _check_cuda(aux, origin, direction, t_limit)
+    fn = _lib().dense_any
+    out = torch.empty(origin.shape[0], dtype=torch.bool, device=origin.device)
+    LAUNCHES["any"] += 1
+    _launch(fn, aux, origin, direction, t_limit, out)
+    return out
+
+
+# --- plain torch versions (same expressions, same order) ---
+
+
+def _ray_cols(origin, direction):
+    return [origin[:, k : k + 1] for k in range(3)] + [direction[:, k : k + 1] for k in range(3)]
+
+
+def _search_terms(aux, ox, oy, oz, dx, dy, dz):
+    """(det, td, ud, vd) as ``[n, T]`` for rays (``[n, 1]`` columns) x all
+    table rows, in dense_hit.cu's expression order."""
+    a = aux.T[:, None, :]  # [24, 1, T]
+    n0x, n0y, n0z, d0 = a[0], a[1], a[2], a[3]
+    n1x, n1y, n1z, d1 = a[4], a[5], a[6], a[7]
+    n2x, n2y, n2z, d2 = a[8], a[9], a[10], a[11]
+    det = dx * n0x + dy * n0y + dz * n0z
+    td = d0 - (ox * n0x + oy * n0y + oz * n0z)
+    ud = det * ((ox * n1x + oy * n1y + oz * n1z) + d1) + td * (dx * n1x + dy * n1y + dz * n1z)
+    vd = det * ((ox * n2x + oy * n2y + oz * n2z) + d2) + td * (dx * n2x + dy * n2y + dz * n2z)
+    return det, td, ud, vd
+
+
+def _same(a, b):
+    return (a >= 0.0) == (b >= 0.0)
+
+
+def _epilogue(aux, best, origin, direction):
+    """Winner's exact t/u/v, unnormalised normal and model id -> ``[n, 8]``."""
+    row = aux.index_select(0, best.clamp(min=0))
+    row = torch.where((best >= 0)[:, None], row, 0.0)
+    ox, oy, oz, dx, dy, dz = [c[:, 0] for c in _ray_cols(origin, direction)]
+    col = lambda k: row[:, k]  # noqa: E731
+    det = col(0) * dx + col(1) * dy + col(2) * dz
+    td = col(3) - (col(0) * ox + col(1) * oy + col(2) * oz)
+    px = det * ox + td * dx
+    py = det * oy + td * dy
+    pz = det * oz + td * dz
+    ud = col(4) * px + col(5) * py + col(6) * pz + det * col(7)
+    vd = col(8) * px + col(9) * py + col(10) * pz + det * col(11)
+    inv = 1.0 / torch.where(det == 0.0, 1.0, det)
+    t = td * inv
+    u = ud * inv
+    v = vd * inv
+    w = 1.0 - u - v
+    nx = w * col(12) + u * col(15) + v * col(18)
+    ny = w * col(13) + u * col(16) + v * col(19)
+    nz = w * col(14) + u * col(17) + v * col(20)
+    return torch.stack([t, best.to(t.dtype), u, v, nx, ny, nz, col(21)], dim=1)
+
+
+def closest_plain(aux, origin, direction, t_limit) -> torch.Tensor:
+    """Plain version of `closest_cuda` (any device, any float dtype: run in
+    float64 it is the precision oracle)."""
+    n, tp = origin.shape[0], aux.shape[0]
+    step = max(1, _PLAIN_PAIRS // max(tp, 1))
+    out = []
+    for s in range(0, n, step):
+        o, d, tl = origin[s : s + step], direction[s : s + step], t_limit[s : s + step]
+        ox, oy, oz, dx, dy, dz = _ray_cols(o, d)
+        det, td, ud, vd = _search_terms(aux, ox, oy, oz, dx, dy, dz)
+        c2 = _same(ud, det - ud)
+        c3 = _same(vd, det - ud - vd)
+        safe = torch.where(det == 0.0, 1.0, det)
+        r = 1.0 / safe
+        r = r * (2.0 - safe * r)  # one Newton step, as on the TPU
+        t = td * r
+        ok = c2 & c3 & (det != 0.0) & (t > EPSILON) & (t < tl[:, None])
+        tm = torch.where(ok, t, _BIG)
+        best_t = tm.min(dim=1).values
+        # first index attaining the minimum: the lowest index wins ties
+        first = torch.argmax((tm == best_t[:, None]).to(torch.uint8), dim=1)
+        best = torch.where(best_t < _BIG, first, -1)
+        out.append(_epilogue(aux, best, o, d))
+    if not out:
+        return torch.zeros((0, 8), dtype=origin.dtype, device=origin.device)
+    return torch.cat(out, dim=0)
+
+
+def any_plain(aux, origin, direction, t_limit) -> torch.Tensor:
+    """Plain version of `any_cuda`."""
+    n, tp = origin.shape[0], aux.shape[0]
+    step = max(1, _PLAIN_PAIRS // max(tp, 1))
+    valid = (
+        (t_limit > 0.0)
+        & torch.isfinite(origin).all(dim=1)
+        & torch.isfinite(direction).all(dim=1)
+    )
+    out = []
+    for s in range(0, n, step):
+        o, d, tl = origin[s : s + step], direction[s : s + step], t_limit[s : s + step, None]
+        det, td, ud, vd = _search_terms(aux, *_ray_cols(o, d))
+        c1 = _same(td - det * EPSILON, det * tl - td)
+        c2 = _same(ud, det - ud)
+        c3 = _same(vd, det - ud - vd)
+        out.append((c1 & c2 & c3 & (det != 0.0)).any(dim=1))
+    if not out:
+        return torch.zeros(0, dtype=torch.bool, device=origin.device)
+    return torch.cat(out) & valid
+
+
+# --- public queries (the dense_pl_* contract) ---
+
+
+def _rays(origin, direction, t_limit):
+    f32 = torch.float32
+    return (
+        origin.to(f32).contiguous(),
+        direction.to(f32).contiguous(),
+        torch.clamp(t_limit.to(f32), max=_T_CLAMP).contiguous(),
+    )
+
+
+def _closest_rows(aux, origin, direction, t_limit):
+    o, d, tl = _rays(origin, direction, t_limit)
+    if o.device.type == "cpu":
+        return closest_plain(aux, o, d, tl)
+    return closest_cuda(aux, o, d, tl)
+
+
+def dense_closest_hit_shade(eng: dict, origin, direction, t_limit):
+    """Closest hit + fused shading fetch. Returns ``(tri_idx i32, t, u, v,
+    normal_raw [N,3], model i32)``; on a miss idx = -1, t = t_limit,
+    u = v = 0. The normal is the unnormalised barycentric interpolation."""
+    out = _closest_rows(eng["aux"], origin, direction, t_limit)
+    best = out[:, 1].to(torch.int32)
+    hit = best >= 0
+    t = torch.where(hit, out[:, 0], t_limit)
+    u = torch.where(hit, out[:, 2], 0.0)
+    v = torch.where(hit, out[:, 3], 0.0)
+    return best, t, u, v, out[:, 4:7], out[:, 7].to(torch.int32)
+
+
+def dense_closest_hit(eng: dict, origin, direction, t_limit):
+    """``(tri_idx, t, u, v)``, the `traversal.closest_hit` contract."""
+    best, t, u, v, _, _ = dense_closest_hit_shade(eng, origin, direction, t_limit)
+    return best, t, u, v
+
+
+def dense_any_hit(eng: dict, origin, direction, t_limit) -> torch.Tensor:
+    """True where a hit with EPSILON < t < t_limit exists."""
+    o, d, tl = _rays(origin, direction, t_limit)
+    if o.device.type == "cpu":
+        return any_plain(eng["aux"], o, d, tl)
+    return any_cuda(eng["aux"], o, d, tl)

@@ -1,0 +1,69 @@
+"""Closest-hit and any-hit queries (port of the dense-engine dispatch in
+``path_tracer_tpu/trace/traversal.py:274-411``).
+
+Every table the port builds, world or lights, is a dense table (see
+`scene.scene.Scene.device`), so both queries go to the dense engine.
+`brute_force_closest` is the sequential O(T) oracle for tests.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from path_tracer_tpu_torch.core.constants import EPSILON
+from path_tracer_tpu_torch.trace.dense_cuda import dense_any_hit, dense_closest_hit
+
+
+def closest_hit(tri: dict, origin, direction, t_limit):
+    """Closest intersection of each ray with ``tri``'s geometry. Returns
+    ``(tri_idx, t, u, v)``; ``tri_idx == -1`` is a miss (t is the limit)."""
+    return dense_closest_hit(tri["dense"], origin, direction, t_limit)
+
+
+def any_hit(tri: dict, origin, direction, t_limit):
+    """True where an intersection with EPSILON < t < t_limit exists (the
+    shadow test, ``TLAS::any_intersect``)."""
+    return dense_any_hit(tri["dense"], origin, direction, t_limit)
+
+
+def _same_sign(a, b):
+    return (a >= 0.0) == (b >= 0.0)
+
+
+def _tri_intersect(rows, o, d, t_min, t_max):
+    """Havel-Herout test of each ray against its plane row ``rows [N, >=12]``
+    (``traversal._tri_intersect`` order). Returns (hit, t, u, v)."""
+    d0, d1, d2 = rows[:, 3], rows[:, 7], rows[:, 11]
+
+    def dot3(ax, ay, az, b):
+        return ax * b[:, 0] + ay * b[:, 1] + az * b[:, 2]
+
+    det = dot3(rows[:, 0], rows[:, 1], rows[:, 2], d)
+    td = d0 - dot3(rows[:, 0], rows[:, 1], rows[:, 2], o)
+    c1 = _same_sign(td - det * t_min, det * t_max - td)
+    px = det * o[:, 0] + td * d[:, 0]
+    py = det * o[:, 1] + td * d[:, 1]
+    pz = det * o[:, 2] + td * d[:, 2]
+    ud = rows[:, 4] * px + rows[:, 5] * py + rows[:, 6] * pz + det * d1
+    c2 = _same_sign(ud, det - ud)
+    vd = rows[:, 8] * px + rows[:, 9] * py + rows[:, 10] * pz + det * d2
+    c3 = _same_sign(vd, det - ud - vd)
+    inv_det = 1.0 / torch.where(det == 0.0, 1.0, det)
+    return c1 & c2 & c3 & (det != 0.0), td * inv_det, ud * inv_det, vd * inv_det
+
+
+def brute_force_closest(planes: torch.Tensor, origin, direction, t_limit):
+    """Sequential O(T) oracle: test every plane row ``[T, >=12]`` in order,
+    shrinking the window on each hit. Returns ``(tri_idx, t, u, v)``."""
+    n = origin.shape[0]
+    best = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
+    bu = torch.zeros(n, dtype=origin.dtype, device=origin.device)
+    bv = torch.zeros_like(bu)
+    t_max = t_limit.clone()
+    for i in range(planes.shape[0]):
+        h, t, u, v = _tri_intersect(planes[i].expand(n, -1), origin, direction, EPSILON, t_max)
+        t_max = torch.where(h, t, t_max)
+        best = torch.where(h, i, best)
+        bu = torch.where(h, u, bu)
+        bv = torch.where(h, v, bv)
+    return best, t_max, bu, bv
