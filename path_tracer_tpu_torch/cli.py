@@ -15,7 +15,7 @@ import time
 
 import torch
 
-SCENES = ("cornell_diffuse", "cornell_specular", "cornell_volume", "mesh_scene")
+SCENES = ("cornell_diffuse", "cornell_specular", "cornell_volume", "mesh_scene", "dragon_scene")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,7 +44,8 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     """Render; prints and returns a summary dict (``film`` is the final
-    ``[H, W, 4]`` tensor, the rest are the printed numbers)."""
+    ``[H, W, 4]`` tensor, ``phases`` the host seconds of scene build,
+    upload and trace, the rest are the printed numbers)."""
     args = build_parser().parse_args(argv)
 
     from path_tracer_tpu_torch import scenes
@@ -114,7 +115,7 @@ def main(argv=None) -> dict:
     }
     print(json.dumps(summary))
     print("  ".join(f"{k}: {v:.3f} s" for k, v in phases.items()))
-    return {**summary, "film": film}
+    return {**summary, "phases": phases, "film": film}
 
 
 if __name__ == "__main__":

@@ -33,8 +33,7 @@ from path_tracer_tpu_torch.core.vecmath import dot, normalize, ray_at
 from path_tracer_tpu_torch.integrator import bsdf as bsdf_mod
 from path_tracer_tpu_torch.scene.envmap import sample_environment
 from path_tracer_tpu_torch.scene.materials import unpack_material_rows
-from path_tracer_tpu_torch.trace.dense_cuda import dense_closest_hit_shade
-from path_tracer_tpu_torch.trace.traversal import any_hit, closest_hit
+from path_tracer_tpu_torch.trace.traversal import any_hit, closest_hit, closest_hit_shade
 
 # RNG stream ids (per bounce). Volume slots use VOLUME + k.
 _S_RR = 0
@@ -72,10 +71,11 @@ def _interp_position(positions_flat, idx, u, v):
 
 
 def _world_closest(scene, o, d, lim):
-    """World closest hit through the dense kernel, whose epilogue already
-    fetched the winner's shading normal and model id. Returns
-    ``(tri_idx, t, u, v, shade)``."""
-    ti, t, u, v, n_raw, model = dense_closest_hit_shade(scene["tri"]["dense"], o, d, lim)
+    """World closest hit through the walk kernel (world soups above 16,384
+    triangles, as ``path_tracer_tpu/integrator/wavefront.py:107-111``) or the
+    dense kernel; either epilogue already fetched the winner's shading
+    normal and model id. Returns ``(tri_idx, t, u, v, shade)``."""
+    ti, t, u, v, n_raw, model = closest_hit_shade(scene["tri"], o, d, lim)
     return ti, t, u, v, {"n_raw": n_raw, "model": model}
 
 

@@ -10,12 +10,13 @@ torch.profiler (CPU and CUDA activities). Prints one JSON object:
 * ``trace_s`` / ``mrays_per_s``: the render on its own (host clock ending
   in a synchronize), ``profiled_trace_s`` the same render under the
   profiler, which adds host time per op;
-* ``steps``: bounce steps (one any-hit launch per step);
+* ``steps``: bounce steps (one world any-hit launch per step, dense or walk);
 * ``device_busy_s``: the sum of the durations of every device event
   (kernels, copies, sets), all on one stream so none overlap;
 * ``idle_share``: 1 - busy / trace, against the unprofiled trace (the
   profiled one only inflates it);
-* ``dense``: total ms and launches of each dense kernel;
+* ``kernels``: total device ms and launches of each intersection kernel
+  (dense closest / any, walk closest / any);
 * ``kernels_per_step``: device kernels per bounce step, and ``top_ops`` the
   torch ops dispatched most often.
 
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from pathlib import Path
 
@@ -36,7 +38,19 @@ from torch.profiler import ProfilerActivity, profile
 from path_tracer_tpu_torch import scenes
 from path_tracer_tpu_torch.cli import SCENES
 from path_tracer_tpu_torch.integrator.wavefront import render_sample
-from path_tracer_tpu_torch.trace import dense_cuda
+from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+
+# profiler label -> the kernel's function name in csrc/
+KERNELS = {
+    "dense_closest": "closest_kernel", "dense_any": "any_kernel",
+    "walk_closest": "walk_closest_kernel", "walk_any": "walk_any_kernel",
+}
+
+
+def _function(event_name: str) -> str:
+    """``(anonymous namespace)::fn(args)`` or ``void ns::fn<...>(args)`` -> ``fn``."""
+    head = event_name.replace("(anonymous namespace)", "").split("(")[0].split("<")[0]
+    return re.split(r"[\s:]", head)[-1]
 
 
 def main(argv=None) -> dict:
@@ -72,19 +86,19 @@ def main(argv=None) -> dict:
     trace_s = time.perf_counter() - t0
     n_rays = float(rays[:, 0].sum())
 
-    steps0 = dense_cuda.LAUNCHES["any"]
+    steps0 = LAUNCHES["any"] + LAUNCHES["walk_any"]
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(args.spp)
     profiled_s = time.perf_counter() - t0
-    steps = dense_cuda.LAUNCHES["any"] - steps0
+    steps = LAUNCHES["any"] + LAUNCHES["walk_any"] - steps0
 
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
-    dense = {}
-    for name in ("closest_kernel", "any_kernel"):
-        ev = [e for e in dev_events if name in e.name]
-        dense[name] = {"ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3, "launches": len(ev)}
+    kernels = {}
+    for label, fn in KERNELS.items():
+        ev = [e for e in dev_events if _function(e.name) == fn]
+        kernels[label] = {"ms": sum(e.time_range.elapsed_us() for e in ev) / 1e3, "launches": len(ev)}
     n_kernels = sum(1 for e in dev_events if "emcpy" not in e.name and "emset" not in e.name)
     ops = sorted(
         (e for e in prof.key_averages() if e.key.startswith("aten::")),
@@ -95,7 +109,7 @@ def main(argv=None) -> dict:
         "trace_s": trace_s, "mrays_per_s": n_rays / trace_s / 1e6,
         "profiled_trace_s": profiled_s, "steps": steps,
         "device_busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / trace_s,
-        "dense": dense, "device_kernels": n_kernels,
+        "kernels": kernels, "device_kernels": n_kernels,
         "kernels_per_step": n_kernels / max(steps, 1),
         "top_ops": {e.key: e.count for e in ops[:12]},
     }

@@ -14,7 +14,9 @@ with the reference BLAS builder (``src/tlas/tlas_bvh/blas/blas_bvh.rs:62-136``):
 The port's dense engine brute-forces every triangle, so only the builder's
 primitive permutation is used: it fixes the triangle order (SAH leaf order),
 which fixes the lowest-index tie rule and keeps consecutive triangles
-spatially clustered. Flattening to node arrays waits for the BVH-walk port.
+spatially clustered. The walk engine (``trace/walk.py``) cuts the soup into
+chunks with `chunk_partition` and builds a tree over the chunk boxes with
+`build_sah_tree`.
 """
 
 from __future__ import annotations
@@ -130,3 +132,66 @@ def build_sah_tree(aabb_min: np.ndarray, aabb_max: np.ndarray, max_leaf: int = 4
     finally:
         sys.setrecursionlimit(old_limit)
     return nodes, perm, root
+
+
+def chunk_partition(aabb_min: np.ndarray, aabb_max: np.ndarray, chunk: int):
+    """Partition primitives into spatial chunks of <= ``chunk`` prims with the
+    same binned-SAH splitter as ``build_sah_tree`` but NO leaf collapse: every
+    node splits until its span fits one chunk. Used by the walk engine
+    (trace/walk.py), whose dense leaf tests want full, spatially tight chunks
+    rather than the reference's tiny SAH-optimal leaves (blas_bvh.rs:112-121).
+    A copy of the JAX package's ``chunk_partition_py``.
+
+    Returns ``(perm, starts, spans)`` — leaves in DFS (left-first) order;
+    chunk ``i`` holds prims ``perm[starts[i] : starts[i] + spans[i]]``.
+    """
+    t = aabb_min.shape[0]
+    if t == 0:
+        raise ValueError("empty chunk partition")
+    perm = np.arange(t)
+    starts: list[int] = []
+    spans: list[int] = []
+
+    def build(start: int, end: int) -> None:
+        span = end - start
+        if span <= chunk:
+            starts.append(start)
+            spans.append(span)
+            return
+        idx = perm[start:end]
+        bmin = aabb_min[idx]
+        bmax = aabb_max[idx]
+        node_min = bmin.min(axis=0)
+        node_max = bmax.max(axis=0)
+        axis = int(np.argmax(node_max - node_min))
+        order = np.argsort(bmin[:, axis], kind="stable")
+        perm[start:end] = idx[order]
+        bmin = bmin[order]
+        bmax = bmax[order]
+        pre_min = np.minimum.accumulate(bmin, axis=0)
+        pre_max = np.maximum.accumulate(bmax, axis=0)
+        suf_min = np.minimum.accumulate(bmin[::-1], axis=0)[::-1]
+        suf_max = np.maximum.accumulate(bmax[::-1], axis=0)[::-1]
+        bin_size = max(span // DESIRED_BINS, 1)
+        num_bins = span // bin_size - 1
+        if num_bins <= 0:
+            js = np.array([max(span // 2, 1)])
+        else:
+            js = (np.arange(num_bins) + 1) * bin_size
+            js = js[js < span]
+        l_sa = _surface_area(pre_min[js - 1], pre_max[js - 1])
+        r_sa = _surface_area(suf_min[js], suf_max[js])
+        sah = js * l_sa + (span - js) * r_sa
+        best_split = int(js[int(np.argmin(sah))])
+        build(start, start + best_split)
+        build(start + best_split, end)
+
+    import sys
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 100000))
+    try:
+        build(0, t)
+    finally:
+        sys.setrecursionlimit(old_limit)
+    return perm, np.asarray(starts), np.asarray(spans)

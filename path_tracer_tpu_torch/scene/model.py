@@ -5,6 +5,8 @@ Host copy of ``path_tracer_tpu/scene/model.py``, which mirrors
 material per model, a list of rigid instance matrices (scale is rejected,
 matching the reference's assert at ``model.rs:43``). The mesh is passed as
 triangle-soup arrays; OBJ loading waits for the port of JSON/OBJ scenes.
+`rigid_transform` and `rotation_y` build the instance matrices of the
+dragon scene.
 """
 
 from __future__ import annotations
@@ -16,6 +18,21 @@ import numpy as np
 from path_tracer_tpu_torch.scene.materials import Material
 
 IDENTITY = np.eye(3, 4, dtype=np.float32)
+
+
+def rigid_transform(rotation: np.ndarray | None = None, translation=None) -> np.ndarray:
+    """Build a ``[3,4]`` rigid transform from a 3x3 rotation and translation."""
+    m = np.eye(3, 4, dtype=np.float32)
+    if rotation is not None:
+        m[:, :3] = np.asarray(rotation, np.float32)
+    if translation is not None:
+        m[:, 3] = np.asarray(translation, np.float32)
+    return m
+
+
+def rotation_y(angle: float) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
 
 
 def _check_rigid(matrix: np.ndarray) -> None:

@@ -1,5 +1,5 @@
 """Procedural test geometry (host copy of the generators of
-``path_tracer_tpu/scene/procedural.py`` that the four ported scenes use).
+``path_tracer_tpu/scene/procedural.py`` that the ported scenes use).
 
 The reference renders OBJ assets that are not part of its repository
 (``models/cornell/*.obj``, ``src/main.rs:100-115``), so benchmark and test
@@ -120,3 +120,112 @@ def icosphere(center=(0.0, 0.0, 0.0), radius: float = 1.0, subdivisions: int = 3
     positions = (tri * radius + center).astype(np.float32)
     normals = tri.astype(np.float32)  # unit sphere points are their own normals
     return positions, normals
+
+
+def _param_soup(f, nu: int, nv: int, eps_u: float = None, eps_v: float = None):
+    """Triangle soup over a closed (u, v) parameter grid.
+
+    ``f(u, v)`` maps arrays in [0, 1) to points [..., 3]. Both directions
+    wrap. Smooth vertex normals come from central-difference partials —
+    analytic enough for shading, independent of triangulation. Returns
+    (positions [T, 3, 3], normals [T, 3, 3]) with T = 2 * nu * nv.
+    """
+    eps_u = eps_u if eps_u is not None else 0.25 / nu
+    eps_v = eps_v if eps_v is not None else 0.25 / nv
+    u = (np.arange(nu + 1, dtype=np.float64) / nu)[:, None]
+    v = (np.arange(nv + 1, dtype=np.float64) / nv)[None, :]
+    u = np.broadcast_to(u, (nu + 1, nv + 1))
+    v = np.broadcast_to(v, (nu + 1, nv + 1))
+    p = f(u, v)  # [nu+1, nv+1, 3]
+    du = f(u + eps_u, v) - f(u - eps_u, v)
+    dv = f(u, v + eps_v) - f(u, v - eps_v)
+    n = np.cross(du, dv)
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+
+    # two triangles per cell, consistent winding
+    p00, p10 = p[:-1, :-1], p[1:, :-1]
+    p01, p11 = p[:-1, 1:], p[1:, 1:]
+    n00, n10 = n[:-1, :-1], n[1:, :-1]
+    n01, n11 = n[:-1, 1:], n[1:, 1:]
+    t1p = np.stack([p00, p10, p11], axis=2)
+    t2p = np.stack([p00, p11, p01], axis=2)
+    t1n = np.stack([n00, n10, n11], axis=2)
+    t2n = np.stack([n00, n11, n01], axis=2)
+    positions = np.concatenate([t1p, t2p], axis=2).reshape(-1, 3, 3)
+    normals = np.concatenate([t1n, t2n], axis=2).reshape(-1, 3, 3)
+    # drop degenerate cells (zero-area triangles at parameterization pinches)
+    e1 = positions[:, 1] - positions[:, 0]
+    e2 = positions[:, 2] - positions[:, 0]
+    area2 = np.linalg.norm(np.cross(e1, e2), axis=-1)
+    keep = area2 > 1e-12 * float(np.abs(positions).max() or 1.0)
+    return positions[keep].astype(np.float32), normals[keep].astype(np.float32)
+
+
+def bumpy_sphere(center=(0.0, 0.0, 0.0), radius: float = 1.0,
+                 nu: int = 192, nv: int = 192, bump: float = 0.12, seed: int = 7):
+    """Harmonically displaced sphere — a non-convex "Stanford-bunny-class"
+    stress mesh (2*nu*nv tris; 192x192 -> ~73K) whose lumpy surface defeats
+    convex-shape shortcuts in traversal benchmarks."""
+    rng = np.random.default_rng(seed)
+    coef = rng.standard_normal((6, 5))
+
+    def f(u, v):
+        theta = u * 2.0 * np.pi          # longitude
+        phi = v * np.pi                  # latitude [0, pi], wraps harmlessly
+        sx = np.sin(phi) * np.cos(theta)
+        sy = np.cos(phi)
+        sz = np.sin(phi) * np.sin(theta)
+        r = 1.0
+        for k in range(coef.shape[0]):
+            a, b, c, d, e = coef[k]
+            r = r + (bump / (k + 1.5)) * np.sin(
+                (k + 2) * theta * np.round(np.abs(a) + 1)
+                + (k + 1) * phi * np.round(np.abs(b) + 1) + c
+            ) * np.cos((k + 1) * phi + d)
+        p = np.stack([sx, sy, sz], axis=-1) * (radius * r)[..., None]
+        return p + np.asarray(center, np.float64)
+
+    return _param_soup(f, nu, nv)
+
+
+def knot(center=(0.0, 0.0, 0.0), scale: float = 1.0, tube: float = 0.35,
+         nu: int = 1024, nv: int = 432, p: int = 2, q: int = 3,
+         bump: float = 0.12, seed: int = 11):
+    """Displaced (p, q) torus-knot tube — the "dragon-class" stress mesh
+    (2*nu*nv tris; 1024x432 -> ~885K). Long, twisty, self-occluding geometry
+    standing in for the reference's dragon.obj (main.rs:100-117); the
+    harmonic displacement adds bunny/dragon-like surface detail."""
+    rng = np.random.default_rng(seed)
+    coef = rng.standard_normal((5, 3))
+
+    def f(u, v):
+        t = u * 2.0 * np.pi
+        # (p, q) torus knot on a torus of radii (2, 1)
+        r0 = np.cos(q * t) + 2.0
+        cx = r0 * np.cos(p * t)
+        cy = r0 * np.sin(p * t)
+        cz = -np.sin(q * t)
+        c = np.stack([cx, cy, cz], axis=-1)
+        # finite-difference tangent frame
+        dt = 1e-4
+        t2 = t + dt
+        r2 = np.cos(q * t2) + 2.0
+        c2 = np.stack([r2 * np.cos(p * t2), r2 * np.sin(p * t2), -np.sin(q * t2)], axis=-1)
+        tang = c2 - c
+        tang /= np.maximum(np.linalg.norm(tang, axis=-1, keepdims=True), 1e-20)
+        up = np.zeros_like(c)
+        up[..., 2] = 1.0
+        side = np.cross(tang, up)
+        side /= np.maximum(np.linalg.norm(side, axis=-1, keepdims=True), 1e-20)
+        norm = np.cross(side, tang)
+        phi = v * 2.0 * np.pi
+        r_tube = tube * np.ones_like(t)
+        for k in range(coef.shape[0]):
+            a, b, cc = coef[k]
+            r_tube = r_tube + tube * (bump / (k + 1.2)) * np.sin(
+                (k + 1) * phi + np.round(np.abs(a) * 3 + 1) * t + cc
+            )
+        off = side * (np.cos(phi) * r_tube)[..., None] + norm * (np.sin(phi) * r_tube)[..., None]
+        return (c + off) * scale + np.asarray(center, np.float64)
+
+    return _param_soup(f, nu, nv)

@@ -11,8 +11,9 @@ environment image gets a 1x1 constant-0.006 one.
 host scene and one from the JAX package's own device dict, so both packages
 can be fed identical tables:
 
-* ``tri``: ``normals_flat [T, 9]``, ``model_rows [T, 1]`` and ``dense`` (the
-  dense engine's ``aux`` table, `trace.dense_cuda`);
+* ``tri``: ``normals_flat [T, 9]``, ``model_rows [T, 1]`` and either
+  ``dense`` (the dense engine's ``aux`` table, `trace.dense_cuda`) or
+  ``walk`` (the walk engine's tables, `trace.walk.pack_walk`);
 * ``light`` (scenes with emitters): ``cdf``, ``rows`` (pdf, area, emitted rgb,
   pad), ``normals_flat``, ``positions_flat`` and ``dense``;
 * ``mat``: ``rows`` (`materials.pack_material_rows`);
@@ -21,8 +22,11 @@ can be fed identical tables:
 Engine selection: every table up to ``DENSE_MAX_TRIS`` triangles, world or
 lights, goes through the dense kernels (this also covers the <=256-tri
 tables the TPU build sends to the flat stream of ``trace/sweep.py``, which
-runs the same naive-precision test with the same tie rule). Larger tables
-need the BVH walk, which is not ported yet.
+runs the same naive-precision test with the same tie rule). A larger world
+soup goes through the walk kernels, up to ``WALK_PARTS_MAX_TRIS``, as the
+JAX package's TPU build sends it to its walk engine
+(``path_tracer_tpu/scene/scene.py:269-301``); its chunk boxes come from the
+host scene's ``positions``. The lights stay on the dense kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from path_tracer_tpu_torch.scene.bvh import build_sah_tree
 from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_materials
 from path_tracer_tpu_torch.scene.model import Model
 from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux
+from path_tracer_tpu_torch.trace.walk import pack_walk
 
 SceneData = dict  # nested dict of tensors handed to the integrator
 
@@ -119,6 +124,7 @@ class Scene:
             "d1": self.tri["d1"], "n2": self.tri["n2"], "d2": self.tri["d2"],
             "normals_flat": self.tri["normals"].reshape(-1, 9),
             "model_rows": self.tri["model"].astype(np.float32)[:, None],
+            "positions": self.tri["positions"],
         }
         data = {"tri": tri, "mat": {"rows": pack_material_rows(self.mat)}, "env": self.env}
         if self.has_lights:
@@ -143,8 +149,7 @@ def _dense_table(tab: dict, with_shading: bool) -> dict:
     t = tab["n0"].shape[0]
     if t > DENSE_MAX_TRIS:
         raise NotImplementedError(
-            f"{t} triangles exceed the dense engine's {DENSE_MAX_TRIS}; scenes this "
-            "large need the BVH walk engine, which is not ported yet (ROADMAP.md)"
+            f"{t} light triangles exceed the dense engine's {DENSE_MAX_TRIS}"
         )
     aux = pack_dense_aux(
         tab,
@@ -158,9 +163,14 @@ _PLANE_KEYS = ("n0", "d0", "n1", "d1", "n2", "d2")
 
 
 def _upload(data: dict, device) -> SceneData:
-    """Add the dense tables, drop the host-only plane arrays, move to ``device``."""
+    """Add the engine tables, drop the host-only plane and position arrays,
+    move to ``device``."""
     tri = data["tri"]
-    tri["dense"] = _dense_table(tri, with_shading=True)
+    if tri["n0"].shape[0] > DENSE_MAX_TRIS:
+        tri["walk"] = pack_walk(tri, tri["normals_flat"], tri["model_rows"][:, 0], tri["positions"])
+    else:
+        tri["dense"] = _dense_table(tri, with_shading=True)
+    tri.pop("positions")
     if "light" in data:
         data["light"]["dense"] = _dense_table(data["light"], with_shading=False)
     for tab in (tri, data.get("light")):
@@ -180,12 +190,13 @@ def from_jax_scene(data: dict, device) -> SceneData:
     """The port's tensor dict from the JAX package's ``Scene.device()``
     dict, converted with ``np.asarray`` (nested dicts of arrays). Only
     arrays the two packages share are read; the JAX engine tables (streams,
-    ``dense``, ``dense_pl``) are ignored and the dense tables rebuilt."""
+    ``dense``, ``dense_pl``, ``walk``) are ignored and the port's dense or
+    walk tables rebuilt (the walk's from ``tri["positions"]``)."""
     a = lambda x: np.asarray(x)  # noqa: E731
     jt = data["tri"]
     tri = {k: a(jt[k]) for k in _PLANE_KEYS}
-    tri["normals_flat"] = a(jt["normals_flat"])
-    tri["model_rows"] = a(jt["model_rows"])
+    for k in ("normals_flat", "model_rows", "positions"):
+        tri[k] = a(jt[k])
     out = {"tri": tri, "mat": {"rows": a(data["mat"]["rows"])}, "env": a(data["env"])}
     if "light" in data:
         jl = data["light"]

@@ -1,8 +1,9 @@
 """Standard scenes for tests and benchmarks, mirroring BASELINE.json configs.
 
-Host copy of the first four scenes of ``path_tracer_tpu/scenes.py``
-(many_instance_scene, dragon_scene and env_sphere_scene wait for the port
-of their engines).
+Host copy of the scenes of ``path_tracer_tpu/scenes.py`` that the port
+renders: the four Cornell-family scenes (dense engine) and dragon_scene
+(walk engine). many_instance_scene and env_sphere_scene wait for their
+ports (ROADMAP.md).
 
 The reference's scene is hard-coded Rust against OBJ assets that are not in
 its repository (``src/main.rs:74-127``); these constructors produce the
@@ -15,6 +16,8 @@ Scene space follows the classic Cornell layout: x in [-278, 278], y in
 
 from __future__ import annotations
 
+import numpy as np
+
 from path_tracer_tpu_torch.camera import Camera
 from path_tracer_tpu_torch.scene import procedural
 from path_tracer_tpu_torch.scene.materials import (
@@ -26,7 +29,7 @@ from path_tracer_tpu_torch.scene.materials import (
     Specular,
     Volume,
 )
-from path_tracer_tpu_torch.scene.model import Model
+from path_tracer_tpu_torch.scene.model import Model, rigid_transform, rotation_y
 from path_tracer_tpu_torch.scene.scene import Scene
 
 # Reference Cornell palette (main.rs:82-92)
@@ -92,3 +95,57 @@ def mesh_scene(subdivisions: int = 4, aspect: float = 1.0) -> tuple[Scene, Camer
     p, n = procedural.icosphere((0.0, 200.0, 0.0), 160.0, subdivisions)
     models.append(Model(GGXMetal((0.8, 0.6, 0.2), 0.3), positions=p, normals=n))
     return Scene(models), cornell_camera(aspect)
+
+
+def procedural_sky(h: int = 2048) -> np.ndarray:
+    """Synthetic 4K-class equirect HDR: gradient sky + ground + sun disk
+    with a soft halo — stands in for the reference's 4K studio env
+    (main.rs:75, image_helper.rs:61-88) at the same resolution/cost."""
+    w = h * 2
+    v = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]   # 0 top
+    u = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    theta = v * np.pi                  # polar from +y
+    phi = u * 2.0 * np.pi
+    # sky gradient: zenith blue -> horizon warm white; ground brown
+    sy = np.cos(theta) * np.ones_like(phi)   # [h, w]; +1 up, -1 down
+    up = np.clip(sy, 0.0, 1.0)
+    horizon = np.exp(-np.abs(sy) * 6.0)
+    sky = (
+        up[..., None] * np.float32([0.22, 0.38, 0.9])
+        + horizon[..., None] * np.float32([1.1, 0.95, 0.78])
+    )
+    ground = np.float32([0.25, 0.2, 0.16]) * (0.4 + 0.6 * np.clip(-sy, 0, 1))[..., None]
+    img = np.where((sy > 0)[..., None], sky, ground).astype(np.float32)
+    # sun: 2 degree disk at 35 deg elevation + halo
+    sun_dir = np.float32([np.cos(0.61) * np.cos(1.1), np.sin(0.61),
+                          np.cos(0.61) * np.sin(1.1)])
+    d = np.stack([np.sin(theta) * np.cos(phi) * np.ones_like(v),
+                  np.cos(theta) * np.ones_like(u),
+                  np.sin(theta) * np.sin(phi) * np.ones_like(v)], axis=-1)
+    cos_s = np.clip(d @ sun_dir, -1.0, 1.0)
+    ang = np.arccos(cos_s)
+    img += np.float32([800.0, 700.0, 550.0]) * (ang < 0.018)[..., None]
+    img += np.float32([4.0, 3.2, 2.2]) * np.exp(-ang * 14.0)[..., None]
+    # the loader linearizes with gamma 2.2 (image_helper.rs:75-80); encode so
+    # the round-trip lands on the values above
+    return img ** (1.0 / 2.2)
+
+
+def dragon_scene(nu: int = 768, nv: int = 288, env_h: int = 2048,
+                 aspect: float = 1.0) -> tuple[Scene, Camera]:
+    """The reference's showcase configuration (main.rs:100-117): Cornell
+    shell + TWO instances of a dragon-class mesh (2*nu*nv tris each; 442,368
+    at the defaults, 884,748 world tris baked — dragon.obj scale) in brown
+    GGX glass with an absorbing/scattering medium (main.rs:80,87), under a
+    4K-class equirect env map (main.rs:75). Its world queries go through the
+    walk engine (``trace/walk.py``)."""
+    models = _cornell_shell()
+    vol = Volume(absorption=(0.4, 0.62, 0.7), k=0.1, c=1.0 / 200.0, g=0.6)
+    glass = GGXDielectric((0.95, 0.95, 0.95), 0.2, 1.5, vol)
+    p, n = procedural.knot(scale=42.0, nu=nu, nv=nv)
+    mats = [
+        rigid_transform(rotation_y(0.7), (-120.0, 160.0, -20.0)),
+        rigid_transform(rotation_y(2.3), (130.0, 390.0, 40.0)),
+    ]
+    models.append(Model(glass, matrices=mats, positions=p, normals=n))
+    return Scene(models, env=procedural_sky(env_h)), cornell_camera(aspect)

@@ -8,29 +8,25 @@ Port of ``path_tracer_tpu/trace/dense_pallas.py`` (``_closest_kernel`` and
 ray pre-translation), EPSILON < t < t_limit, lowest table index on ties.
 
 Each query has one wrapper. On a CPU tensor it runs the plain version; on a
-CUDA tensor it launches the kernel, or raises. ``LAUNCHES`` counts kernel
-launches per kernel, so a run can show that its queries went through them.
+CUDA tensor it launches the kernel, or raises. ``LAUNCHES`` (shared with the
+walk kernels, `trace.cuda_lib`) counts kernel launches per kernel, so a run
+can show that its queries went through them.
 
-The kernels are built at first use with ``nvcc`` into ``_build/`` beside
-this package, as a shared library with a plain C interface loaded through
-ctypes. They are compiled with ``-fmad=false`` and the plain versions
-evaluate the same expressions in the same order, one rounding per op, so
-both give the same bits (see the note at the top of ``dense_hit.cu``).
+The kernels are built at first use by `trace.cuda_lib`. They are compiled
+with ``-fmad=false`` and the plain versions evaluate the same expressions in
+the same order, one rounding per op, so both give the same bits (see the
+note at the top of ``dense_hit.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from path_tracer_tpu_torch.core.constants import EPSILON
+from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES, load
 
 DENSE_MAX_TRIS = 16384
 AUX_COLS = 24  # n0(3) d0 n1(3) d1 n2(3) d2 | na nb nc (9) | model | pad(2)
@@ -39,15 +35,6 @@ _T_CLAMP = 3.0e38  # finite stand-in for an infinite t_limit
 # [rays, tris] pairs per step of the plain versions (bounds their memory)
 _PLAIN_PAIRS = 1 << 22
 
-LAUNCHES = {"closest": 0, "any": 0}
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dense_hit.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 
 # --- table packing (host, NumPy) ---
@@ -75,45 +62,13 @@ def pack_dense_aux(tri: dict, normals_flat=None, model=None) -> np.ndarray:
     return aux
 
 
-# --- kernel build and binding ---
-
-_LIB = None
-
-
-def build() -> Path:
-    """Compile ``dense_hit.cu`` (once per source and flags version) and
-    return the library path; nvcc's output (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside it with the suffix ``.log``.
-    Raises with nvcc's output if the build fails."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libdense_hit_{tag}.so"
-    if lib.exists():
-        return lib
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+# --- kernel binding ---
 
 
 def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.dense_closest, lib.dense_any):
-            fn.argtypes = [i, p, i, p, p, p, i, p, p]
-            fn.restype = i
-        _LIB = lib
-    return _LIB
+    p, i = ctypes.c_void_p, ctypes.c_int
+    sig = [i, p, i, p, p, p, i, p, p]
+    return load("dense_hit", {"dense_closest": sig, "dense_any": sig})
 
 
 def _check_cuda(aux, origin, direction, t_limit):

@@ -1,8 +1,9 @@
-"""Closest-hit and any-hit queries (port of the dense-engine dispatch in
+"""Closest-hit and any-hit queries (port of the engine dispatch in
 ``path_tracer_tpu/trace/traversal.py:274-411``).
 
-Every table the port builds, world or lights, is a dense table (see
-`scene.scene.Scene.device`), so both queries go to the dense engine.
+A triangle table (see `scene.scene.Scene.device`) carries either ``walk``
+tables (world soups above 16,384 triangles) or ``dense`` ones (everything
+else, lights included); both queries go to that engine.
 `brute_force_closest` is the sequential O(T) oracle for tests.
 """
 
@@ -11,18 +12,31 @@ from __future__ import annotations
 import torch
 
 from path_tracer_tpu_torch.core.constants import EPSILON
-from path_tracer_tpu_torch.trace.dense_cuda import dense_any_hit, dense_closest_hit
+from path_tracer_tpu_torch.trace.dense_cuda import dense_any_hit, dense_closest_hit_shade
+from path_tracer_tpu_torch.trace.walk import walk_any_hit, walk_closest_hit_shade
+
+
+def closest_hit_shade(tri: dict, origin, direction, t_limit):
+    """Closest intersection plus the winner's shading fetch: ``(tri_idx, t,
+    u, v, normal_raw [N,3], model)``; ``tri_idx == -1`` is a miss (t is the
+    limit, u = v = 0)."""
+    if "walk" in tri:
+        return walk_closest_hit_shade(tri["walk"], origin, direction, t_limit)
+    return dense_closest_hit_shade(tri["dense"], origin, direction, t_limit)
 
 
 def closest_hit(tri: dict, origin, direction, t_limit):
     """Closest intersection of each ray with ``tri``'s geometry. Returns
     ``(tri_idx, t, u, v)``; ``tri_idx == -1`` is a miss (t is the limit)."""
-    return dense_closest_hit(tri["dense"], origin, direction, t_limit)
+    best, t, u, v, _, _ = closest_hit_shade(tri, origin, direction, t_limit)
+    return best, t, u, v
 
 
 def any_hit(tri: dict, origin, direction, t_limit):
     """True where an intersection with EPSILON < t < t_limit exists (the
     shadow test, ``TLAS::any_intersect``)."""
+    if "walk" in tri:
+        return walk_any_hit(tri["walk"], origin, direction, t_limit)
     return dense_any_hit(tri["dense"], origin, direction, t_limit)
 
 

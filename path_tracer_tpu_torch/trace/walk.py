@@ -1,0 +1,560 @@
+"""Walk engine: ordered, gated closest hit and any hit over spatial chunks
+of <=128 triangles, for world soups above the dense engine's 16,384
+triangles. The CUDA kernels of ``csrc/walk_hit.cu``, their plain torch
+versions, the host packing, and the public queries.
+
+Port of ``path_tracer_tpu/trace/walk.py`` (``_walk_closest_kernel`` and
+``_walk_any_kernel``, reached through ``walk_closest_hit_shade`` and
+``walk_any_hit``):
+
+* Host packing (`pack_walk`, bit-equal to the JAX tables it keeps): the soup
+  is cut into spatially tight chunks by `scene.bvh.chunk_partition`, a SAH
+  tree over the chunk boxes lays the chunks out in leaf order, and each of
+  the eight direction octants gets a front-to-back chunk order
+  (``ord_oct``) with the chunk boxes permuted into it (``cb_oct``). ``aux``
+  holds one row per padded slot (12 plane floats, 9 vertex-normal floats,
+  the model id); pad slots are zero rows that never hit. The JAX package's
+  MXU-shaped plane table ``w`` and its ``PT_WALK_MASK_LAYOUT`` twins are not
+  carried over: the kernels read the planes from ``aux``. One engine holds
+  the whole soup: the JAX package splits soups above 196,608 triangles into
+  parts because of the TPU's 16 MB of VMEM, which Hopper does not have.
+* Around the kernels (plain torch ops, as they were plain XLA): the
+  ``t_limit`` clamp to the exit of the scene's root box (`_exit_clamp`), the
+  32-bit coherence sort key (`_coherence_order`, int64 words masked to 32
+  bits) with a stable argsort, and the unsort. The any-hit query is not
+  sorted (the JAX default ``WALK_SORT_ANY=0``).
+* The kernels take the sorted rays in blocks of 128, gate every chunk box
+  against the block's conservative ray bounds, visit the survivors in the
+  octant order of the block's first ray, and skip an entry whose
+  conservative entry t fails the block's live window
+  (``te <= win*1.00002 + 1e-5``). Closest: best t and the padded slot of
+  the winner; ties go to the first visited chunk, then the lowest lane.
+  Any hit: the division-free sign test, early exit once every live lane of
+  the block is occluded.
+* Plain versions: one dense pass over every slot, ungated. The gates and
+  the window are conservative, so the closest winner is the slot at the
+  minimum t that comes first in the ray's block octant order (rank =
+  position in ``ord_oct`` * 128 + lane): the walk's winner, ties included.
+
+Each kernel has one wrapper: a CPU tensor runs the plain version, a CUDA
+tensor launches the kernel or raises. ``LAUNCHES["walk_closest"]`` and
+``LAUNCHES["walk_any"]`` count the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from path_tracer_tpu_torch.core.constants import EPSILON
+from path_tracer_tpu_torch.scene.bvh import build_sah_tree, chunk_partition
+from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES, load
+from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue, _same
+
+CH_W = 128  # chunk capacity (tris per leaf test)
+SBLK = 128  # rays per block
+WALK_PARTS_MAX_TRIS = 1_572_864  # the engine's limit
+# live t-window admit test: te <= win * WIN_MUL + WIN_ADD
+WIN_MUL = 1.00002
+WIN_ADD = 1e-5
+_BIG = 1e30  # "no winner" sentinel
+_T_CLAMP = 3.0e38  # finite stand-in for an infinite t_limit
+_KEY_OBITS = 15  # origin morton bits of the coherence key (5 per axis)
+# [rays, slots] pairs per step of the plain versions (bounds their memory)
+_PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 25}
+
+
+# --- host packing (NumPy) ---
+
+
+def _octant_orders(nodes, root, k) -> np.ndarray:
+    """Front-to-back DFS leaf order per direction octant, [8, k] i32.
+
+    At each internal node the child whose box center is nearer along the
+    octant's dominant separating axis is visited first — the static
+    resolution of the reference's per-ray near-child push (blas.rs:133-162).
+    Octant bit encoding matches _coherence_order: bit2 x<0, bit1 y<0,
+    bit0 z<0.
+    """
+    orders = np.empty((8, k), np.int32)
+    for o in range(8):
+        sign = np.array(
+            [-1.0 if o & 4 else 1.0,
+             -1.0 if o & 2 else 1.0,
+             -1.0 if o & 1 else 1.0]
+        )
+        out = []
+        stack = [root]
+        while stack:
+            n = nodes[stack.pop()]
+            if n.is_leaf:
+                out.append(n.a)  # span-1 leaf: start == layout slot
+                continue
+            a, b = nodes[n.a], nodes[n.b]
+            ca = (a.bb_min + a.bb_max) * sign
+            cb = (b.bb_min + b.bb_max) * sign
+            axis = int(np.argmax(np.abs(cb - ca)))
+            a_first = ca[axis] <= cb[axis]
+            near, far = (n.a, n.b) if a_first else (n.b, n.a)
+            stack.append(far)
+            stack.append(near)
+        orders[o] = out
+    return orders
+
+
+def _ragged_arange(spans: np.ndarray) -> np.ndarray:
+    """[0..spans[0]) ++ [0..spans[1]) ++ ... as one flat int64 array."""
+    total = int(spans.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    seg0 = np.zeros(len(spans), np.int64)
+    seg0[1:] = np.cumsum(spans[:-1])
+    return np.arange(total, dtype=np.int64) - np.repeat(seg0, spans)
+
+
+def pack_walk(tri: dict, normals_flat, model, positions) -> dict:
+    """Pack the walk-engine tables (host numpy).
+
+    Returns ``cb_oct`` [8, 6, kq] per-octant PERMUTED chunk AABBs (rows lo
+    xyz | hi xyz; padded columns are 2e30 point boxes); ``ord_oct`` [8, kq]
+    per-octant front-to-back chunk orders (layout slots, 0 for pads);
+    ``aux`` [nchunks*CH_W, AUX_COLS] plane + shading rows in padded slot
+    order (zero pad rows); ``origmap`` [nchunks*CH_W] i32 original soup
+    index per slot (0 for pads); ``sort_lo``/``sort_scale`` [3] scene-bounds
+    quantizers for the coherence sort; ``root_lo``/``root_hi`` the scene
+    box for the t_limit exit clamp. ``kq`` = 128 * ceil(nchunks/128).
+    """
+    pos = np.asarray(positions, np.float32)
+    t = pos.shape[0]
+    if t > WALK_PARTS_MAX_TRIS:
+        raise ValueError(f"walk engine caps at {WALK_PARTS_MAX_TRIS} tris, got {t}")
+    bmin = pos.min(axis=1)
+    bmax = pos.max(axis=1)
+    perm, starts, spans = chunk_partition(bmin, bmax, CH_W)
+    k = len(starts)
+    pad = 1e-4 * float(np.abs(pos).max(initial=1.0)) + 1e-6
+
+    # chunk AABBs in partition DFS order — chunks tile [0, t) contiguously
+    cmin = np.minimum.reduceat(bmin[perm], starts, axis=0) - pad
+    cmax = np.maximum.reduceat(bmax[perm], starts, axis=0) + pad
+
+    # global SAH tree over chunk boxes; chunks laid out in tree leaf order
+    # (leaf c_idx == layout slot because every leaf has span 1)
+    nodes, perm2, root = build_sah_tree(cmin, cmax, max_leaf=1)
+    ord_oct = _octant_orders(nodes, root, k)
+
+    # original soup index per padded layout slot (vectorized ragged scatter)
+    S = k * CH_W
+    slots = np.full(S, -1, np.int64)
+    gc = np.asarray(perm2)
+    seg_spans = np.asarray(spans)[gc]
+    within = _ragged_arange(seg_spans)
+    rows = np.repeat(np.arange(k, dtype=np.int64) * CH_W, seg_spans) + within
+    src = np.repeat(np.asarray(starts)[gc], seg_spans) + within
+    slots[rows] = perm[src]
+    valid = slots >= 0
+    idx = slots[valid]
+
+    def fld(name):
+        return np.asarray(tri[name], np.float32)
+
+    aux = np.zeros((S, AUX_COLS), np.float32)
+    a = aux[valid]
+    a[:, 0:3] = fld("n0")[idx]
+    a[:, 3] = fld("d0")[idx]
+    a[:, 4:7] = fld("n1")[idx]
+    a[:, 7] = fld("d1")[idx]
+    a[:, 8:11] = fld("n2")[idx]
+    a[:, 11] = fld("d2")[idx]
+    if normals_flat is not None:
+        a[:, 12:21] = np.asarray(normals_flat, np.float32)[idx]
+    if model is not None:
+        a[:, 21] = np.asarray(model)[idx]
+    aux[valid] = a
+
+    # chunk boxes in LAYOUT order, then per-octant permuted + padded
+    cb_lo = cmin[perm2].astype(np.float32)
+    cb_hi = cmax[perm2].astype(np.float32)
+    kq = ((k + 127) // 128) * 128
+    cb_oct = np.full((8, 6, kq), 2.0e30, np.float32)
+    ord_pad = np.zeros((8, kq), np.int32)
+    for o in range(8):
+        po = ord_oct[o]
+        cb_oct[o, 0:3, :k] = cb_lo[po].T
+        cb_oct[o, 3:6, :k] = cb_hi[po].T
+        ord_pad[o, :k] = po
+
+    scene_lo = bmin.min(axis=0)
+    scene_hi = bmax.max(axis=0)
+    extent = np.maximum(scene_hi - scene_lo, 1e-6)
+    return {
+        "cb_oct": cb_oct,
+        "ord_oct": ord_pad,
+        "aux": aux,
+        "origmap": np.maximum(slots, 0).astype(np.int32),
+        "sort_lo": scene_lo.astype(np.float32),
+        "sort_scale": (1.0 / extent).astype(np.float32),
+        # root box for the per-ray t_limit exit clamp: a ray that misses or
+        # exits the scene box stops holding its block's live t-window open
+        "root_lo": (scene_lo - pad).astype(np.float32),
+        "root_hi": (scene_hi + pad).astype(np.float32),
+    }
+
+
+def num_chunks(eng: dict) -> int:
+    return eng["aux"].shape[0] // CH_W
+
+
+# --- around the kernels (torch ops) ---
+
+
+def _valid(origin, direction, t_limit):
+    """Live lanes: t_limit > 0 and a finite origin and direction."""
+    return (
+        (t_limit > 0.0)
+        & torch.isfinite(origin).all(dim=1)
+        & torch.isfinite(direction).all(dim=1)
+    )
+
+
+def _exit_clamp(eng, origin, direction, t_limit):
+    """Clamp per-ray t_limit to the scene root-box EXIT t (with conservative
+    slack); rays that miss the box entirely become dead (t_limit 0). Sound:
+    no triangle lies beyond the root box, and without this one miss ray per
+    block pins the live t-window at its full t_limit forever."""
+    lo, hi = eng["root_lo"], eng["root_hi"]
+    d0 = direction == 0.0
+    inv = 1.0 / torch.where(d0, 1.0, direction)
+    t1 = (lo - origin) * inv
+    t2 = (hi - origin) * inv
+    inside = (origin >= lo) & (origin <= hi)
+    hi_a = torch.where(d0, torch.where(inside, _BIG, -_BIG), torch.maximum(t1, t2))
+    lo_a = torch.where(d0, torch.where(inside, -_BIG, _BIG), torch.minimum(t1, t2))
+    tf = hi_a.min(dim=1).values
+    tn = torch.clamp(lo_a.max(dim=1).values, min=0.0)
+    texit = torch.where(tf >= tn, tf * 1.0001 + 1e-4, 0.0)
+    return torch.minimum(t_limit, texit)
+
+
+def _spread3(x):
+    """Interleave an 8-bit value into every 3rd bit (morton part1by2)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _spread2(x):
+    """Interleave an 8-bit value into every 2nd bit (morton part1by1)."""
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    x = (x | (x << 1)) & 0x55555555
+    return x
+
+
+def _coherence_order(eng, origin, direction, t_limit):
+    """Stable sort order of the 32-bit key: direction octant (3) | origin
+    morton (15: 5/axis) | direction-octahedral morton (14: 7+7). Keys are
+    int64 holding the uint32 values; invalid lanes sort to the back."""
+    i64 = torch.int64
+    q = torch.clamp((origin - eng["sort_lo"]) * eng["sort_scale"], 0.0, 1.0)
+    bx, by, bz = (_KEY_OBITS + 2) // 3, (_KEY_OBITS + 1) // 3, _KEY_OBITS // 3
+    valid = _valid(origin, direction, t_limit)
+    # NaN lanes are invalid: zero them so the casts below stay defined
+    q = torch.where(valid[:, None], q, 0.0)
+    cx = (q[:, 0] * float((1 << bx) - 1)).to(i64)
+    cy = (q[:, 1] * float((1 << by) - 1)).to(i64)
+    cz = (q[:, 2] * float((1 << bz) - 1)).to(i64)
+    om = (_spread3(cx) << 2) | (_spread3(cy) << 1) | _spread3(cz)
+    ad = torch.where(valid[:, None], direction.abs(), 0.0)
+    s = ad[:, 0] + ad[:, 1] + ad[:, 2]
+    s = torch.where(s > 0, s, 1.0)
+    u = (ad[:, 0] / s * 127.0).to(i64)
+    v = (ad[:, 1] / s * 127.0).to(i64)
+    dm = (_spread2(u) << 1) | _spread2(v)
+    key = (_octant(direction) << 29) | (om << 14) | dm
+    key = torch.where(valid, key, 0xFFFFFFFF)
+    return torch.argsort(key, stable=True)
+
+
+def _unsort_rows(x, order):
+    """Undo the permutation ``order`` on the leading axis of ``x``."""
+    out = torch.empty_like(x)
+    out[order] = x
+    return out
+
+
+def _lanes(origin, direction, t_limit):
+    """The kernels' lane values: invalid lanes zeroed with t_limit 0 (zero
+    direction -> det == 0 -> no hit anywhere), t_limit clamped finite."""
+    valid = _valid(origin, direction, t_limit)
+    o = torch.where(valid[:, None], origin, 0.0)
+    d = torch.where(valid[:, None], direction, 0.0)
+    tl = torch.where(valid, torch.clamp(t_limit, max=_T_CLAMP), 0.0)
+    return o, d, tl
+
+
+def _octant(direction):
+    """Direction octant: bit2 x<0, bit1 y<0, bit0 z<0 (int64)."""
+    neg = (direction < 0).to(torch.int64)
+    return (neg[:, 0] << 2) | (neg[:, 1] << 1) | neg[:, 2]
+
+
+def _block_octant(direction):
+    """Octant of the first ray of each ray's block of SBLK (raw direction;
+    the octant steers visit order, never correctness)."""
+    first = (torch.arange(direction.shape[0], device=direction.device) // SBLK) * SBLK
+    return _octant(direction.index_select(0, first))
+
+
+# --- kernel binding ---
+
+
+def _lib():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return load("walk_hit", {
+        "walk_closest": [i, p, p, p, i, i, p, p, p, i, p, p, p, p],
+        "walk_any": [i, p, p, p, i, i, p, p, p, i, p, p, p],
+    })
+
+
+def _check_cuda(eng, origin, direction, t_limit):
+    dev = origin.device
+    for name, x, dtype in (
+        ("aux", eng["aux"], torch.float32), ("cb_oct", eng["cb_oct"], torch.float32),
+        ("ord_oct", eng["ord_oct"], torch.int32), ("origin", origin, torch.float32),
+        ("direction", direction, torch.float32), ("t_limit", t_limit, torch.float32),
+    ):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.device != dev:
+            raise ValueError("all tensors must be on one device")
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype}")
+    aux, cb, od = eng["aux"], eng["cb_oct"], eng["ord_oct"]
+    if aux.data_ptr() % 16:
+        raise ValueError("aux must be 16-byte aligned (the kernels read it as float4)")
+    if aux.dim() != 2 or aux.shape[1] != AUX_COLS or aux.shape[0] % CH_W:
+        raise ValueError(f"aux must be [k*{CH_W}, {AUX_COLS}], got {tuple(aux.shape)}")
+    kq = od.shape[-1]
+    if od.shape != (8, kq) or cb.shape != (8, 6, kq) or num_chunks(eng) > kq:
+        raise ValueError("ord_oct must be [8, kq] and cb_oct [8, 6, kq], kq >= chunks")
+    n = origin.shape[0]
+    if origin.shape != (n, 3) or direction.shape != (n, 3) or t_limit.shape != (n,):
+        raise ValueError("origin/direction must be [N, 3] and t_limit [N]")
+
+
+def _tables(eng):
+    return (eng["aux"].data_ptr(), eng["cb_oct"].data_ptr(), eng["ord_oct"].data_ptr(),
+            num_chunks(eng), eng["ord_oct"].shape[1])
+
+
+def _check_stats(eng, origin, stats):
+    if stats is not None and (stats.device != origin.device or stats.dtype != torch.int64
+                              or stats.shape != (4 + num_chunks(eng),)):
+        raise ValueError("stats must be an int64 [4 + chunks] tensor on the rays' device")
+    return None if stats is None else stats.data_ptr()
+
+
+def closest_cuda(eng, origin, direction, t_limit, stats=None):
+    """Kernel closest hit over rays in sorted order (raw origin/direction,
+    exit-clamped t_limit). Returns ``(best_t [N] f32, slot [N] i32)``,
+    best_t = 1e30 and slot = -1 on a miss. ``stats``, a zeroed int64 CUDA
+    tensor [4 + chunks], receives (blocks with a live lane, chunks visited,
+    gated survivors skipped by the live window, lanes testing a visited
+    chunk) summed over blocks, then a 1 for every chunk visited."""
+    _check_cuda(eng, origin, direction, t_limit)
+    stats_ptr = _check_stats(eng, origin, stats)
+    fn = _lib().walk_closest
+    n = origin.shape[0]
+    best_t = torch.empty(n, dtype=torch.float32, device=origin.device)
+    slot = torch.empty(n, dtype=torch.int32, device=origin.device)
+    dev = origin.device
+    LAUNCHES["walk_closest"] += 1
+    err = fn(dev.index, *_tables(eng), origin.data_ptr(), direction.data_ptr(),
+             t_limit.data_ptr(), n, best_t.data_ptr(), slot.data_ptr(), stats_ptr,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"walk_closest launch failed: cudaError {err}")
+    return best_t, slot
+
+
+def any_cuda(eng, origin, direction, t_limit, stats=None):
+    """Kernel shadow test (raw origin/direction, exit-clamped t_limit): bool
+    ``[N]``, False on dead and non-finite lanes. ``stats`` as for
+    `closest_cuda`."""
+    _check_cuda(eng, origin, direction, t_limit)
+    stats_ptr = _check_stats(eng, origin, stats)
+    fn = _lib().walk_any
+    n = origin.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=origin.device)
+    dev = origin.device
+    LAUNCHES["walk_any"] += 1
+    err = fn(dev.index, *_tables(eng), origin.data_ptr(), direction.data_ptr(),
+             t_limit.data_ptr(), n, out.data_ptr(), stats_ptr,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"walk_any launch failed: cudaError {err}")
+    return out
+
+
+# --- plain torch versions (same expressions, same order, ungated) ---
+
+
+def _walk_terms(planes, o, d):
+    """p-form Havel-Herout terms (det, td, ud, vd) as ``[n, S]`` for rays
+    ``o, d [n, 3]`` x plane rows ``[S, >=12]``, in walk_hit.cu's (and the
+    JAX ``_chunk_terms``) expression order."""
+    a = planes.T[:, None, :]  # [cols, 1, S]
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    det = a[0] * dx + a[1] * dy + a[2] * dz
+    td = a[3] - (a[0] * ox + a[1] * oy + a[2] * oz)
+    px = det * ox + td * dx
+    py = det * oy + td * dy
+    pz = det * oz + td * dz
+    ud = a[4] * px + a[5] * py + a[6] * pz + det * a[7]
+    vd = a[8] * px + a[9] * py + a[10] * pz + det * a[11]
+    return det, td, ud, vd
+
+
+def _rank_table(eng, device):
+    """``[8, S]`` visit rank of every slot in each octant's order:
+    position in ``ord_oct`` * CH_W + lane."""
+    k = num_chunks(eng)
+    ordk = eng["ord_oct"][:, :k].to(device=device, dtype=torch.int64)
+    inv = torch.empty_like(ordk)
+    inv.scatter_(1, ordk, torch.arange(k, device=device).expand(8, k))
+    s = torch.arange(k * CH_W, device=device)
+    return inv[:, s // CH_W] * CH_W + s % CH_W
+
+
+def _live_steps(eng, origin, direction, t_limit):
+    """The plain versions' work list: the lane values of the live lanes only
+    (a dead lane cannot hit), their row indices, and steps of them bounded
+    by the pairs budget."""
+    o, d, tl = _lanes(origin, direction, t_limit)
+    live = (tl > 0.0).nonzero()[:, 0]
+    planes = eng["aux"][:, :12].to(origin.dtype)
+    step = max(1, _PLAIN_PAIRS[origin.device.type] // planes.shape[0])
+    o, d, tl = o[live], d[live], tl[live]
+    return planes, live, [(o[s : s + step], d[s : s + step], tl[s : s + step, None], s)
+                          for s in range(0, live.numel(), step)]
+
+
+def closest_plain(eng, origin, direction, t_limit):
+    """Plain version of `closest_cuda` (any device, any float dtype: run in
+    float64 it is the precision oracle)."""
+    n, dev = origin.shape[0], origin.device
+    planes, live, steps = _live_steps(eng, origin, direction, t_limit)
+    oct_live = _block_octant(direction)[live]
+    rank = _rank_table(eng, dev) if steps else None
+    best_t = torch.full((n,), _BIG, dtype=origin.dtype, device=dev)
+    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for o, d, tl, s in steps:
+        det, td, ud, vd = _walk_terms(planes, o, d)
+        c2 = _same(ud, det - ud)
+        c3 = _same(vd, det - ud - vd)
+        safe = torch.where(det == 0.0, 1.0, det)
+        r = 1.0 / safe
+        r = r * (2.0 - safe * r)  # one Newton step, as on the TPU
+        t = td * r
+        ok = c2 & c3 & (det != 0.0) & (t > EPSILON) & (t < tl)
+        tm = torch.where(ok, t, _BIG)
+        bt = tm.min(dim=1).values
+        at_min = tm == bt[:, None]
+        first = torch.argmax(at_min.to(torch.uint8), dim=1)
+        # a tie (two slots at the minimum t): the first in visit order wins
+        tie = ((at_min.sum(dim=1) > 1) & (bt < _BIG)).nonzero()[:, 0]
+        if tie.numel():
+            cand = torch.where(at_min[tie], rank[oct_live[s + tie]], rank.shape[1])
+            first[tie] = cand.argmin(dim=1)
+        rows = live[s : s + o.shape[0]]
+        best_t[rows] = bt
+        slot[rows] = torch.where(bt < _BIG, first, -1).to(torch.int32)
+    return best_t, slot
+
+
+def any_plain(eng, origin, direction, t_limit):
+    """Plain version of `any_cuda`: an ungated OR over every slot."""
+    planes, live, steps = _live_steps(eng, origin, direction, t_limit)
+    out = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+    for o, d, tl, s in steps:
+        det, td, ud, vd = _walk_terms(planes, o, d)
+        c1 = _same(td - det * EPSILON, det * tl - td)
+        c2 = _same(ud, det - ud)
+        c3 = _same(vd, det - ud - vd)
+        out[live[s : s + o.shape[0]]] = (c1 & c2 & c3 & (det != 0.0)).any(dim=1)
+    return out
+
+
+# --- public queries (the JAX walk_* contracts) ---
+
+
+def _f32(origin, direction, t_limit):
+    f32 = torch.float32
+    return origin.to(f32).contiguous(), direction.to(f32).contiguous(), t_limit.to(f32).contiguous()
+
+
+def _sorted_rays(eng, origin, direction, t_limit):
+    """(order, sorted origin, sorted direction, sorted exit-clamped
+    t_limit): the kernels' inputs. The key reads the caller's t_limit, as
+    the JAX package sorts before it clamps."""
+    order = _coherence_order(eng, origin, direction, t_limit)
+    o_s = origin.index_select(0, order).contiguous()
+    d_s = direction.index_select(0, order).contiguous()
+    tl_s = _exit_clamp(eng, o_s, d_s, t_limit.index_select(0, order)).contiguous()
+    return order, o_s, d_s, tl_s
+
+
+def walk_closest_hit_shade(eng: dict, origin, direction, t_limit):
+    """Closest hit + shading attributes: ``(tri_idx i32, t, u, v,
+    normal_raw [N,3], model i32)`` — tri_idx in ORIGINAL soup order, -1 on
+    a miss (t = t_limit, u = v = 0, zero normal and model)."""
+    o, d, tl = _f32(origin, direction, t_limit)
+    order, o_s, d_s, tl_s = _sorted_rays(eng, o, d, tl)
+    if o.device.type == "cpu":
+        _, slot = closest_plain(eng, o_s, d_s, tl_s)
+    else:
+        _, slot = closest_cuda(eng, o_s, d_s, tl_s)
+    slot = _unsort_rows(slot, order)
+    out = _epilogue(eng["aux"], slot, o, d)
+    hit = slot >= 0
+    t = torch.where(hit, out[:, 0], tl)
+    u = torch.where(hit, out[:, 2], 0.0)
+    v = torch.where(hit, out[:, 3], 0.0)
+    orig = torch.where(hit, eng["origmap"].index_select(0, slot.clamp(min=0)), -1)
+    return orig, t, u, v, out[:, 4:7], out[:, 7].to(torch.int32)
+
+
+def walk_any_hit(eng: dict, origin, direction, t_limit) -> torch.Tensor:
+    """True where a hit with EPSILON < t < t_limit exists (unsorted rays)."""
+    o, d, tl = _f32(origin, direction, t_limit)
+    tl = _exit_clamp(eng, o, d, tl).contiguous()
+    if o.device.type == "cpu":
+        return any_plain(eng, o, d, tl)
+    return any_cuda(eng, o, d, tl)
+
+
+def walk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") -> dict:
+    """Gate economics of one ``query`` ("closest" or "any") on the card, with
+    the public query's ray order (the closest hit's coherence sort; any hit
+    unsorted): ``blocks`` (with a live lane), ``visits`` (chunks tested by a
+    block), ``skipped`` (gated survivors the live window skipped),
+    ``lane_visits`` (lanes testing a visited chunk: live, and for any hit
+    not yet occluded), summed over blocks, and ``chunks`` (distinct chunks
+    visited). A port of the JAX ``walk_stats``; CUDA tensors only."""
+    o, d, tl = _f32(origin, direction, t_limit)
+    stats = torch.zeros(4 + num_chunks(eng), dtype=torch.int64, device=o.device)
+    if query == "closest":
+        _, o_s, d_s, tl_s = _sorted_rays(eng, o, d, tl)
+        closest_cuda(eng, o_s, d_s, tl_s, stats=stats)
+    else:
+        any_cuda(eng, o, d, _exit_clamp(eng, o, d, tl).contiguous(), stats=stats)
+    blocks, visits, skipped, lane_visits = (int(x) for x in stats[:4].cpu())
+    return {"blocks": blocks, "visits": visits, "skipped": skipped,
+            "lane_visits": lane_visits, "chunks": int(stats[4:].sum())}

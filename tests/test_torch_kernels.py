@@ -1,5 +1,5 @@
-"""The CUDA kernels of ``path_tracer_tpu_torch/csrc/dense_hit.cu`` against
-their plain torch versions, on the card.
+"""The CUDA kernels of ``path_tracer_tpu_torch/csrc/dense_hit.cu`` and
+``walk_hit.cu`` against their plain torch versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 nothing of JAX, so it runs on a machine that has only the port's
@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from path_tracer_tpu_torch.scene import procedural
 from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.trace import dense_cuda as dc
+from path_tracer_tpu_torch.trace import walk
 
 
 @pytest.fixture
@@ -94,3 +96,102 @@ def test_kernel_rejects_bad_inputs(case):
         dc.any_cuda(aux, o, d.t().contiguous().t(), tl)
     with pytest.raises(ValueError):
         dc.closest_cuda(aux[:, :12].contiguous(), o, d, tl)
+
+
+@pytest.fixture
+def walk_case(cuda):
+    """The walk tables of a 9,248-triangle bumpy sphere and 1,024 rays (half
+    aimed at it from outside, half from inside) with dead, finite-limit and
+    NaN lanes, sorted and clamped as the public query hands them to the
+    kernels."""
+    rng = np.random.default_rng(11)
+    pos, nrm = procedural.bumpy_sphere(nu=68, nv=68)
+    model = rng.integers(0, 5, pos.shape[0])
+    tables = walk.pack_walk(tri_mod.precompute(pos), nrm.reshape(-1, 9), model, pos)
+    eng = {k: torch.from_numpy(v).to(cuda) for k, v in tables.items()}
+    n = 1024
+    o1 = rng.normal(size=(n // 2, 3))
+    o1 = 3.0 * o1 / np.linalg.norm(o1, axis=1, keepdims=True)
+    o = np.concatenate([o1, rng.uniform(-1, 1, (n // 2, 3))]).astype(np.float32)
+    d = np.concatenate([-o1 + 0.15 * rng.normal(size=(n // 2, 3)), rng.normal(size=(n // 2, 3))])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tl = np.full(n, np.inf, np.float32)
+    tl[:64] = 0.0
+    tl[64:128] = rng.uniform(0.5, 3.0, 64)
+    o[128:136] = np.nan
+    d[136:144] = np.nan
+    o, d, tl = (torch.from_numpy(x).to(cuda) for x in (o, d, tl))
+    _, o_s, d_s, tl_s = walk._sorted_rays(eng, o, d, tl)
+    return eng, (o, d, tl), (o_s, d_s, tl_s)
+
+
+def test_walk_closest_kernel_equals_plain(walk_case):
+    eng, _, rays = walk_case
+    n0 = dc.LAUNCHES["walk_closest"]
+    kt, ks = walk.closest_cuda(eng, *rays)
+    assert dc.LAUNCHES["walk_closest"] == n0 + 1
+    pt, ps = walk.closest_plain(eng, *rays)
+    assert (ks >= 0).sum() > 300
+    assert torch.equal(ks, ps) and torch.equal(kt, pt)
+    dead = ~walk._valid(*rays)
+    assert (ks[dead] == -1).all()
+
+
+def test_walk_any_kernel_equals_plain(walk_case):
+    eng, _, (o, d, tl) = walk_case
+    kt, ks = walk.closest_cuda(eng, o, d, tl)
+    for scale in (0.99, 1.01):
+        lim = torch.where(ks >= 0, kt * scale, tl).contiguous()
+        n0 = dc.LAUNCHES["walk_any"]
+        k = walk.any_cuda(eng, o, d, lim)
+        assert dc.LAUNCHES["walk_any"] == n0 + 1
+        assert torch.equal(k, walk.any_plain(eng, o, d, lim))
+        hit = ks >= 0
+        assert bool(k[hit].all()) if scale > 1 else not bool(k[hit].any())
+    assert not walk.any_cuda(eng, o, d, tl)[~walk._valid(o, d, tl)].any()
+
+
+def test_walk_queries_on_card_equal_cpu(walk_case):
+    """The public walk queries launch the kernels on CUDA tensors and give
+    the same bits as the plain versions on CPU tensors."""
+    eng, (o, d, tl), _ = walk_case
+    eng_cpu = {k: v.cpu() for k, v in eng.items()}
+    n0 = dict(dc.LAUNCHES)
+    gpu = walk.walk_closest_hit_shade(eng, o, d, tl)
+    cpu = walk.walk_closest_hit_shade(eng_cpu, o.cpu(), d.cpu(), tl.cpu())
+    ok = (torch.isfinite(o).all(1) & torch.isfinite(d).all(1)).cpu()
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu()[ok], b[ok])
+    assert torch.equal(walk.walk_any_hit(eng, o, d, tl).cpu(),
+                       walk.walk_any_hit(eng_cpu, o.cpu(), d.cpu(), tl.cpu()))
+    assert dc.LAUNCHES["walk_closest"] == n0["walk_closest"] + 1
+    assert dc.LAUNCHES["walk_any"] == n0["walk_any"] + 1
+
+
+def test_walk_kernel_rejects_bad_inputs(walk_case):
+    eng, _, (o, d, tl) = walk_case
+    with pytest.raises(ValueError):
+        walk.closest_cuda(eng, o.double(), d, tl)
+    with pytest.raises(ValueError):
+        walk.any_cuda(eng, o, d.t().contiguous().t(), tl)
+    with pytest.raises(ValueError):
+        walk.closest_cuda({**eng, "ord_oct": eng["ord_oct"].long()}, o, d, tl)
+    with pytest.raises(ValueError):
+        walk.any_cuda({**eng, "aux": eng["aux"][:-1].contiguous()}, o, d, tl)
+
+
+def test_walk_stats_counts(walk_case):
+    """The counters of both walk kernels: live blocks, visits, lanes testing
+    a visited chunk (at most 128 per visit), distinct chunks; the results
+    of a counted launch equal an uncounted one's."""
+    eng, (o, d, tl), (o_s, d_s, tl_s) = walk_case
+    k = walk.num_chunks(eng)
+    for query in ("closest", "any"):
+        s = walk.walk_stats(eng, o, d, tl, query=query)
+        assert 0 < s["blocks"] <= 8 and 0 < s["chunks"] <= k
+        assert s["visits"] >= s["chunks"] and 0 < s["lane_visits"] <= 128 * s["visits"]
+    stats = torch.zeros(4 + k, dtype=torch.int64, device=o.device)
+    assert all(torch.equal(a, b) for a, b in zip(walk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats),
+                                                 walk.closest_cuda(eng, o_s, d_s, tl_s)))
+    with pytest.raises(ValueError):
+        walk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats[:-1])

@@ -1,7 +1,8 @@
 """The whole slice: the port's ``render_sample`` against the JAX package's on
 identical scene tables, with the JAX side running the Pallas dense kernels
 in interpret mode inside its bounce loop (its scene dict gets ``dense_pl``
-as ``Scene.device()`` builds it on a TPU). 16x16, 2 spp, 8 bounces.
+as ``Scene.device()`` builds it on a TPU, or ``walk`` for a world soup above
+16,384 triangles). 16x16, 2 spp, 8 bounces.
 
 Pixel-exact equality is not expected: XLA fuses products and sums into FMAs
 and its transcendentals differ from torch's in the last bit, which moves
@@ -17,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.integrator.wavefront import render_sample as jrender
+from path_tracer_tpu.trace import walk as jwalk
 from path_tracer_tpu.trace.dense_pallas import pack_dense_pl, pack_dense_pl_aux, pack_dense_pl_cab
 from path_tracer_tpu_torch import scenes as tscenes
 from path_tracer_tpu_torch.camera import ray_directions
@@ -43,9 +46,26 @@ def _jax_scene_with_dense_pl(sh):
     return jd
 
 
-def _render_both(name, **kw):
+def _jax_scene_with_walk(sh):
+    """The JAX device dict with its walk engine, as ``Scene.device()``
+    packs it on a TPU (``tests/test_walk_integration.py``)."""
+    jd = sh.device()
+    t = sh.num_world_tris
+    jd["tri"]["walk"] = {
+        k: jnp.asarray(v)
+        for k, v in jwalk.pack_walk(sh.tri, sh.tri["normals"].reshape(t, 9), sh.tri["model"],
+                                    sh.tri["positions"]).items()
+    }
+    return jd
+
+
+# dragon_scene cut to 24,588 world tris: above the dense engine's 16,384
+DRAGON_KW = {"nu": 96, "nv": 64, "env_h": 32}
+
+
+def _render_both(name, engine=_jax_scene_with_dense_pl, **kw):
     sh, cam = getattr(jscenes, name)(**kw)
-    jd = _jax_scene_with_dense_pl(sh)
+    jd = engine(sh)
     ndc, org = cam.view_proj_inverse(), cam.origin
     args = dict(max_bounces=BOUNCES, spp=SPP, mtypes=sh.active_mtypes, any_volumes=sh.has_volumes)
     j = jrender(jd, jnp.asarray(ndc), jnp.asarray(org), 0, W, H, **args)
@@ -73,6 +93,37 @@ def test_render_sample_volume_matches_jax():
     """cornell_volume: the nested-media stack, free flight, HG scattering and
     Beer-Lambert absorption inside the loop."""
     _assert_slice_agrees(*_render_both("cornell_volume"))
+
+
+def test_render_sample_walk_matches_jax():
+    """dragon_scene's world queries through the walk engine on both sides:
+    GGX glass with an absorbing, scattering medium under an equirect sky.
+    The JAX tables come from its NumPy chunk partition, the port's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        j, t = _render_both("dragon_scene", engine=_jax_scene_with_walk, **DRAGON_KW)
+    _assert_slice_agrees(j, t)
+
+
+def test_from_jax_scene_walk_tables():
+    """A >16K-triangle scene builds walk tables instead of raising, and
+    ``from_jax_scene`` of the JAX dict gives the same tensors, bit for bit,
+    as the port's own ``Scene.device``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        jsh, _ = jscenes.dragon_scene(**DRAGON_KW)
+    tsh, _ = tscenes.dragon_scene(**DRAGON_KW)
+    assert tsh.num_world_tris == jsh.num_world_tris == 24588
+    port = tsh.device("cpu")
+    assert "walk" in port["tri"] and "dense" not in port["tri"]
+    assert "dense" in port["light"]
+    ported = from_jax_scene(jax.tree_util.tree_map(np.asarray, jsh.device()), "cpu")
+    assert ported["tri"]["walk"].keys() == port["tri"]["walk"].keys()
+    for k, v in port["tri"]["walk"].items():
+        assert torch.equal(ported["tri"]["walk"][k], v), k
+    for k in ("normals_flat", "model_rows"):
+        assert torch.equal(ported["tri"][k], port["tri"][k]), k
+    torch.testing.assert_close(ported["env"], port["env"], rtol=0, atol=0)
 
 
 def test_shade_epilogue_matches_gathered_normals():

@@ -176,3 +176,24 @@ def test_sample_environment_matches(shape):
     t = tenv.sample_environment(torch.from_numpy(env), torch.from_numpy(d)).numpy()
     # atan2/asin may differ by an ulp, which the uv -> texel scale magnifies
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5)
+
+
+def test_large_sky_plain_bilinear_matches_jax_quad():
+    """A sky above the JAX package's quad-table threshold (65,536 texels;
+    dragon_scene's is 2048x4096) goes through the port's plain bilinear
+    path, which gives the JAX quad-table fetch's values: the same texels and
+    the same blend (within XLA's fused multiply-adds), on the same uv."""
+    env = tscenes.procedural_sky(256)
+    np.testing.assert_array_equal(env, jscenes.procedural_sky(256))
+    h, w = env.shape[:2]
+    assert h * w >= 65536
+    sh, _ = tscenes.cornell_diffuse()
+    sh.env = env
+    assert sh.device("cpu")["env"].shape == (h, w, 3)  # no quad table in the port
+    r = np.random.default_rng(5)
+    u = r.uniform(0.0, 1.0, 4096).astype(np.float32)
+    v = r.uniform(0.0, 1.0, 4096).astype(np.float32)
+    j = np.asarray(jenv.get_pixel_bilinear_quad(jenv.build_quad_table(env), h, w, u, v))
+    np.testing.assert_array_equal(j, np.asarray(jenv.get_pixel_bilinear(env, u, v)))
+    t = tenv.get_pixel_bilinear(torch.from_numpy(env), torch.from_numpy(u), torch.from_numpy(v))
+    np.testing.assert_allclose(t.numpy(), j, rtol=1e-6, atol=1e-6)
