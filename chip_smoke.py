@@ -29,7 +29,30 @@ Phases (any failure raises and the script exits non-zero without the final
 8. the offline render of ``dragon_scene`` at 1024x576, 4 spp, 64 bounces
    through the CLI, with host build seconds, bounce steps and launch counts;
 9. ``dragon_scene(nu=96, nv=64, env_h=64)`` (24,588 tris, the walk engine)
-   at 32x32, 4 spp on the CPU and on the card: image means within 1%.
+   at 32x32, 4 spp on the CPU and on the card: image means within 1%;
+10. (with phase 2) ``iwalk_hit.cu``, built in the same call, its ptxas lines;
+11. the two-level kernels against their plain versions on the full
+    two-level dragon tables (made from phase 6's models; 10,070 virtual
+    chunks): vwalk on 32,768 camera + 32,768 random rays with inf / 0 / NaN
+    lanes, the float64 plain version on 4,096 of them, iwalk on 4,096, both
+    any-hits; and the vwalk public query against the baked walk's on the
+    same rays (hit flags, t);
+12. the two-level kernels timed at the render's shapes: vwalk on the
+    two-level dragon (589,824 camera, 589,824 bounce, 1,179,648 shadow
+    rays), iwalk on 4,096 of the dragon's bounce and shadow rays, and iwalk
+    on ``many_instance_scene`` at 1920x1080 (2,073,600 camera and bounce
+    rays, 4,147,200 shadow rays), each compared with its plain version on
+    16,384 rays (4,096 for the dragon's iwalk), with gate entries visited
+    and chunks staged per block;
+13. ``dragon_scene --two-level`` through the CLI at 1024x576, 4 spp: host
+    build, engine table bytes against the baked walk's, trace, bounce
+    steps, launch counts (vwalk > 0, walk 0);
+14. ``many_instance_scene --two-level`` through the CLI at 1920x1080, 4 spp
+    (vwalk), then one in-process render of it with ``engine="iwalk"`` at
+    1920x1080, 1 spp;
+15. ``many_instance_scene(grid=3, subdivisions=1)`` two-level at 32x32,
+    4 spp: CPU against the card for both engines, and two-level against
+    baked on the card: image means within 1%.
 
 Each render's launch counts are set to 0 just before it and read just
 after. ``bound_ms`` is the least time the card could take for the same work:
@@ -43,8 +66,12 @@ triangles of every chunk it enters before its own closest hit (or its
 limit on a miss); a live shadow ray with an occluder tests the real
 triangles of the one chunk that holds its closest occluder, one without
 tests those of every chunk its segment enters. The box tests are not
-charged (a tree over the boxes needs a few per ray). No one PyTorch call
-computes these queries, so ``library_ms`` is null.
+charged (a tree over the boxes needs a few per ray). A two-level query
+(vwalk or iwalk: the same function) needs the same pairs counted against
+the virtual chunks' world boxes, plus 30 operations per (ray, instance)
+whose chunks it enters (the object-space transform); its bytes count each
+needed OBJECT chunk's planes once, however many instances share it. No one
+PyTorch call computes these queries, so ``library_ms`` is null.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -76,16 +103,28 @@ PLAIN_RAYS = 16384  # walk plain versions at the render's shapes
 PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # float32 operations per ray x triangle pair, counted from the sources
-FLOPS = {"closest": 47, "any": 46, "walk_closest": 42, "walk_any": 41}
+FLOPS = {"closest": 47, "any": 46, "walk_closest": 42, "walk_any": 41,
+         "vwalk_closest": 42, "vwalk_any": 41, "iwalk_closest": 42, "iwalk_any": 41}
+XFORM_FLOPS = 30  # the object-space transform of one ray (iwalk_hit.cu obj_ray)
 DEVICE = "cuda"
 DENSE_SRC = "path_tracer_tpu_torch/csrc/dense_hit.cu"
 WALK_SRC = "path_tracer_tpu_torch/csrc/walk_hit.cu"
+IWALK_SRC = "path_tracer_tpu_torch/csrc/iwalk_hit.cu"
 REPLACES = {
     "closest": "path_tracer_tpu/trace/dense_pallas.py:391",
     "any": "path_tracer_tpu/trace/dense_pallas.py:503",
     "walk_closest": "path_tracer_tpu/trace/walk.py:821",
     "walk_any": "path_tracer_tpu/trace/walk.py:919",
+    "vwalk_closest": "path_tracer_tpu/trace/iwalk.py:1042",
+    "vwalk_any": "path_tracer_tpu/trace/iwalk.py:1116",
+    "iwalk_closest": "path_tracer_tpu/trace/iwalk.py:340",
+    "iwalk_any": "path_tracer_tpu/trace/iwalk.py:422",
 }
+MANY_W, MANY_H, MANY_SPP = 1920, 1080, 4  # BASELINE config 5's film
+TWO_CAMERA, TWO_RANDOM = (256, 128), 32768  # phase 11's camera film and random rays
+SUBSET = 4096  # the float64 and iwalk subsets of the dragon's rays
+T_REL = 1e-5  # two-level vs baked t
+BAKED_AGREE = 0.999  # two-level vs baked hit flags and t
 
 
 def check(ok, what) -> None:
@@ -302,55 +341,74 @@ def phase_dense(dc, scene, cam, dev, card):
     return errs, results
 
 
-def render_cli(scene_name, spp, card, keys):
-    """One offline render through the CLI, launch counts zeroed just before
-    and read just after; checks the film and that ``keys`` launched."""
-    from path_tracer_tpu_torch import cli
+def zero_launches():
     from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
     for key in LAUNCHES:
         LAUNCHES[key] = 0
-    t0 = time.perf_counter()
-    res = cli.main([
-        "--scene", scene_name, "--width", str(WIDTH), "--height", str(HEIGHT),
-        "--spp", str(spp), "--max-bounces", str(MAX_BOUNCES),
-        "--out", str(OUT_DIR / f"smoke_{scene_name}.png"), "--device", DEVICE,
-    ])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    film = res["film"]
-    check(film.shape == (HEIGHT, WIDTH, 4), tuple(film.shape))
+    return LAUNCHES
+
+
+def check_film(film, width, height, spp) -> float:
+    """A rendered film's checks; returns its mean radiance per sample."""
+    check(film.shape == (height, width, 4), tuple(film.shape))
     check(bool(torch.isfinite(film).all()), "film has non-finite values")
     mean = film[..., :3].mean().item() / spp
     check(mean > 0.0, mean)
     check(bool((film[..., 3] == spp).all()), "sample count in the film's alpha")
+    return mean
+
+
+def render_cli(scene_name, spp, card, keys, width=WIDTH, height=HEIGHT, two_level=False,
+               absent=()):
+    """One offline render through the CLI, launch counts zeroed just before
+    and read just after; checks the film, that ``keys`` launched and that
+    ``absent`` did not."""
+    from path_tracer_tpu_torch import cli
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    tag = "_two_level" if two_level else ""
+    LAUNCHES = zero_launches()
+    t0 = time.perf_counter()
+    res = cli.main([
+        "--scene", scene_name, "--width", str(width), "--height", str(height),
+        "--spp", str(spp), "--max-bounces", str(MAX_BOUNCES),
+        "--out", str(OUT_DIR / f"smoke_{scene_name}{tag}.png"), "--device", DEVICE,
+        *(["--two-level"] if two_level else []),
+    ])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    mean = check_film(res["film"], width, height, spp)
     ph = res["phases"]
-    print(f"render {scene_name} {WIDTH}x{HEIGHT} {spp} spp: {seconds:.2f} s end to end, "
+    print(f"render {scene_name}{' --two-level' if two_level else ''} {width}x{height} {spp} spp "
+          f"(engine {res['engine']}): {seconds:.2f} s end to end, "
           f"host build {ph['scene build'] + ph['upload']:.2f} s (scene {ph['scene build']:.2f} s, "
           f"upload {ph['upload']:.2f} s), trace {res['trace_s']:.2f} s, "
           f"{res['mrays_per_s']:.4f} Mrays/s, {res['spp_per_s']:.4f} spp/s, "
           f"mean radiance {mean:.5f}, launches {launches} ({card})")
     check(all(launches[k] > 0 for k in keys), (keys, launches))
+    check(all(launches[k] == 0 for k in absent), (absent, launches))
     return launches, res
 
 
-def cross_backend(make, width, height, spp):
-    """The same render on the CPU (plain versions) and on the card."""
+def cross_backend(make, width, height, spp, engine=None):
+    """The same render on the CPU (plain versions) and on the card; returns
+    the card's image mean."""
     from path_tracer_tpu_torch.integrator.wavefront import render
 
     means = {}
     for dev in ("cpu", DEVICE):
         sh, cam = make()
         t0 = time.perf_counter()
-        film = render(sh, cam, width, height, spp, dev, max_bounces=MAX_BOUNCES)
+        film = render(sh, cam, width, height, spp, dev, max_bounces=MAX_BOUNCES, engine=engine)
         means[dev] = film[..., :3].mean().item()
-        print(f"  {width}x{height} {spp} spp on {dev}: mean {means[dev]:.6f} "
-              f"({time.perf_counter() - t0:.1f} s)")
+        print(f"  {width}x{height} {spp} spp on {dev}{f' ({engine})' if engine else ''}: "
+              f"mean {means[dev]:.6f} ({time.perf_counter() - t0:.1f} s)")
     rel = abs(means[DEVICE] - means["cpu"]) / means["cpu"]
     print(f"  cross-backend mean rel diff {rel:.5f} (limit {MEAN_TOL})")
     check(rel <= MEAN_TOL, rel)
+    return means[DEVICE]
 
 
 # --- the walk kernels (dragon_scene) ---
@@ -385,29 +443,31 @@ def chunk_spans(walk, eng):
     return (eng["aux"][:, :12] != 0).any(1).view(k, walk.CH_W).sum(1)
 
 
-def needed_walk_work(walk, eng, o, d, t_limit, t_stop, stop_chunk=None):
-    """(ray x triangle pairs, distinct chunks, their real triangles) that a
-    walk query on these rays needs, from each ray's own slab test against
-    every chunk box: a live ray needs the real triangles of every chunk it
-    enters at t <= ``t_stop``. With ``stop_chunk`` (a shadow query), a ray
-    whose entry is >= 0 (the layout chunk of its closest occluder) needs
-    only that chunk's triangles."""
-    spans = chunk_spans(walk, eng)
-    k, dev = spans.numel(), o.device
-    cols = eng["ord_oct"][0, :k].long()  # octant 0's box columns, in layout chunks
-    lo = eng["cb_oct"][0, 0:3, :k].T.contiguous()
-    hi = eng["cb_oct"][0, 3:6, :k].T.contiguous()
-    span_col = spans[cols]
+def needed_work(walk, lo, hi, span, o, d, t_limit, t_stop, stop_col=None, col_inst=None):
+    """What a query on these rays needs, from each ray's own slab test
+    against every gate box (columns of ``lo``/``hi`` [E, 3], ``span`` [E]
+    real triangles each): a live ray needs the real triangles of every box
+    it enters at t <= ``t_stop``. With ``stop_col`` (a shadow query), a ray
+    whose entry is >= 0 (the column of its closest occluder) needs only that
+    box's triangles. Returns (ray x triangle pairs, the used-column mask,
+    the (ray, instance) transforms: the distinct ``col_inst`` [E] of each
+    ray's entered boxes, 0 without ``col_inst``)."""
+    e, dev = span.numel(), o.device
     live = walk._valid(o, d, t_limit)
-    used = torch.zeros(k, dtype=torch.bool, device=dev)
-    pairs = 0
-    if stop_chunk is not None:
-        occ = live & (stop_chunk >= 0)
-        pairs += int(spans[stop_chunk[occ].long()].sum())
-        used[stop_chunk[occ].long()] = True
+    used = torch.zeros(e, dtype=torch.bool, device=dev)
+    pairs = xforms = 0
+    if stop_col is not None:
+        occ = live & (stop_col >= 0)
+        pairs += int(span[stop_col[occ].long()].sum())
+        used[stop_col[occ].long()] = True
+        xforms += int(occ.sum()) if col_inst is not None else 0
         live = live & ~occ
+    onehot = None
+    if col_inst is not None:
+        onehot = torch.zeros(e, int(col_inst.max()) + 1, device=dev)
+        onehot[torch.arange(e, device=dev), col_inst.long()] = 1.0
     rows = live.nonzero()[:, 0]
-    step = max(1, (1 << 25) // k)
+    step = max(1, (1 << 25) // e)
     for s in range(0, rows.numel(), step):
         r = rows[s : s + step]
         oo, dd, ts = o[r, None, :], d[r, None, :], t_stop[r, None]
@@ -418,9 +478,29 @@ def needed_walk_work(walk, eng, o, d, t_limit, t_stop, stop_chunk=None):
         near = torch.where(d0, torch.where(inside, -1e30, 1e30), torch.minimum(t1, t2)).amax(2)
         far = torch.where(d0, torch.where(inside, 1e30, -1e30), torch.maximum(t1, t2)).amin(2)
         enter = (near <= far) & (far >= 0.0) & (near <= ts)
-        pairs += int(torch.where(enter, span_col, 0).sum())
-        used[cols[enter.any(0)]] = True
-    return pairs, int(used.sum()), int(spans[used].sum())
+        pairs += int(torch.where(enter, span, 0).sum())
+        used |= enter.any(0)
+        if onehot is not None:
+            xforms += int(((enter.float() @ onehot) > 0).sum())
+    return pairs, used, xforms
+
+
+def needed_walk_work(walk, eng, o, d, t_limit, t_stop, stop_chunk=None):
+    """(ray x triangle pairs, distinct chunks, their real triangles) that a
+    walk query on these rays needs (`needed_work` over the chunk boxes;
+    ``stop_chunk`` the layout chunk of each shadow ray's closest occluder)."""
+    spans = chunk_spans(walk, eng)
+    k = spans.numel()
+    cols = eng["ord_oct"][0, :k].long()  # octant 0's box columns, in layout chunks
+    col_of = torch.empty_like(cols)
+    col_of[cols] = torch.arange(k, device=cols.device)
+    stop_col = None
+    if stop_chunk is not None:
+        stop_col = torch.where(stop_chunk >= 0, col_of[stop_chunk.clamp(min=0).long()], -1)
+    pairs, used, _ = needed_work(
+        walk, eng["cb_oct"][0, 0:3, :k].T.contiguous(), eng["cb_oct"][0, 3:6, :k].T.contiguous(),
+        spans[cols], o, d, t_limit, t_stop, stop_col)
+    return pairs, int(used.sum()), int(spans[cols][used].sum())
 
 
 def walk_bound(n, out_bytes, need, key):
@@ -542,6 +622,287 @@ def phase_walk(walk, scene, cam, dev, card):
     return errs, results
 
 
+# --- the two-level kernels (two-level dragon_scene, many_instance_scene) ---
+
+
+def check_two_level_closest(label, k, p, nan_lane) -> float:
+    """Kernel (best_t, slot, inst) against plain on the same sorted rays;
+    returns max |t kernel - t plain| over the lanes whose winners agree."""
+    same = (k[1] == p[1]) & (k[2] == p[2])
+    agree = same.float().mean().item()
+    err = (k[0][same].double() - p[0][same].double()).abs().max().item() if bool(same.any()) else 0.0
+    print(f"{label}: {k[1].shape[0]} rays, winners (slot, instance) equal to plain {agree:.6f}, "
+          f"max |t kernel - t plain| {err:.3g}, hits {(p[1] >= 0).float().mean().item():.3f}")
+    check(agree >= WINNER_AGREE, (label, agree))
+    check(bool((k[1][nan_lane] == -1).all()) and bool((k[2][nan_lane] == -1).all()),
+          f"{label}: NaN lanes must report no hit")
+    return err
+
+
+def two_level_need(walk, veng, o, d, t_limit, t_stop, stop=None):
+    """`needed_work` of a two-level query over the vwalk tables' virtual
+    chunk boxes; ``stop`` = (slot, inst) of each shadow ray's closest
+    occluder (-1: none). Returns (pairs, transforms, virtual chunks, real
+    triangles of the distinct object chunks, instances) needed."""
+    g = veng["gates"]
+    v = veng["ord_oct"][0, :g].long()  # octant 0's box columns, in layout slots
+    vg, vi = veng["vglob"][v].long(), veng["vinst"][v].long()
+    spans = (veng["aux"][:, :12] != 0).any(1).view(-1, walk.CH_W).sum(1)
+    stop_col = None
+    if stop is not None:
+        slot, inst = stop
+        key = vi * spans.numel() + vg
+        order = torch.argsort(key)
+        q = inst.long().clamp(min=0) * spans.numel() + slot.long().clamp(min=0) // walk.CH_W
+        pos = torch.searchsorted(key[order], q).clamp(max=g - 1)
+        stop_col = torch.where(slot >= 0, order[pos], -1)
+    lo = veng["cb_oct"][0, 0:3, :g].T.contiguous()
+    hi = veng["cb_oct"][0, 3:6, :g].T.contiguous()
+    pairs, used, xforms = needed_work(walk, lo, hi, spans[vg], o, d, t_limit, t_stop, stop_col, vi)
+    return (pairs, xforms, int(used.sum()), int(spans[torch.unique(vg[used])].sum()),
+            int(torch.unique(vi[used]).numel()))
+
+
+def two_level_bound(n, out_bytes, need, key):
+    """Least time of one two-level query on n rays from `two_level_need`'s
+    count: the pairs' and transforms' float32 operations; the rays in and
+    out, the needed object chunks' plane rows (48 B per real triangle), the
+    virtual chunk boxes (24 B) and instance transforms (48 B) read once."""
+    pairs, xforms, vch, tris, insts = need
+    return bound_ms(pairs * FLOPS[key] + xforms * XFORM_FLOPS,
+                    n * (28 + out_bytes) + tris * 48 + vch * 24 + insts * 48)
+
+
+def phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev, card):
+    """Phase 11: the two-level dragon (made from the baked host scene's
+    models) through both engines, against their plain versions, float64,
+    and the baked walk."""
+    from path_tracer_tpu_torch.scene.scene import Scene
+
+    t0 = time.perf_counter()
+    sh2 = Scene(sh.models, env=sh.env, two_level=True)
+    t1 = time.perf_counter()
+    scene2 = sh2.device(DEVICE)
+    veng = scene2["twolevel"]["iwalk"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ieng = iwalk.upload(sh2.twolevel.tables("iwalk"), dev)
+    torch.cuda.synchronize()
+    geo = sh2.twolevel
+    mib = lambda nbytes: f"{nbytes / 2**20:.1f} MiB"  # noqa: E731
+    walk_bytes = sum(v.numel() * v.element_size() for v in walk_eng.values())
+    print(f"two-level dragon: {geo.num_object_tris} object tris, {geo.num_chunks} object chunks, "
+          f"{geo.num_virtual_chunks} virtual chunks, {geo.num_instances} instances; host scene "
+          f"with vwalk packing {t1 - t0:.2f} s, upload {t2 - t1:.2f} s, iwalk packing and "
+          f"upload {time.perf_counter() - t2:.2f} s; tables on the card: vwalk "
+          f"{mib(iwalk.table_bytes(veng))}, iwalk {mib(iwalk.table_bytes(ieng))}, baked walk "
+          f"{mib(walk_bytes)}")
+    rng = np.random.default_rng(5678)
+    o_cam, d_cam = camera_rays(cam, *TWO_CAMERA, dev)
+    o_rnd = rng.uniform((-278, 0, -278), (278, 555, 278), (TWO_RANDOM, 3)).astype(np.float32)
+    o = torch.cat([o_cam, torch.as_tensor(o_rnd, device=dev)])
+    d = torch.cat([d_cam, unit_rows(rng, TWO_RANDOM, dev)])
+    n = o.shape[0]
+    tl = torch.full((n,), math.inf, device=dev)
+    lanes = edge_lanes(rng, o, d, tl, dev)
+    order, o_s, d_s, tl_s = walk._sorted_rays(veng, o, d, tl)
+    nan_s = ~(torch.isfinite(o_s).all(1) & torch.isfinite(d_s).all(1))
+    k = iwalk.closest_cuda(veng, o_s, d_s, tl_s)
+    p = iwalk.closest_plain(veng, o_s, d_s, tl_s)
+    errs = {"vwalk_closest": check_two_level_closest("vwalk closest mixed", k, p, nan_s)}
+    rows = whole_blocks(rng, walk._valid(o_s, d_s, tl_s), SUBSET // 128)
+    eng64 = {**veng, "aux": veng["aux"].double(), "inst_f": veng["inst_f"].double()}
+    p64 = iwalk.closest_plain(eng64, o_s[rows].double(), d_s[rows].double(), tl_s[rows].double())
+    oracle_agree = ((k[1][rows] == p64[1]) & (k[2][rows] == p64[2])).float().mean().item()
+    print(f"vwalk closest mixed: winners equal to the float64 plain version {oracle_agree:.6f} "
+          f"on {rows.numel()} rays")
+    check(oracle_agree >= ORACLE_AGREE, oracle_agree)
+    sub = (o_s[rows].contiguous(), d_s[rows].contiguous(), tl_s[rows].contiguous())
+    ik_ms, ik = time_ms(lambda: iwalk.closest_cuda(ieng, *sub), 1)
+    ip = iwalk.closest_plain(ieng, *sub)
+    errs["iwalk_closest"] = check_two_level_closest("iwalk closest mixed subset", ik, ip, nan_s[rows])
+    check(bool((ik[1] == k[1][rows]).all()), "iwalk and vwalk winners on the subset")
+    print(f"  iwalk closest on the {rows.numel()}-ray subset: {ik_ms:.3f} ms ({card})")
+    # any hit: limits around each ray's closest t (unsorted rays), plus the edge lanes
+    hit_t = torch.empty_like(k[0])
+    hit_t[order] = torch.where(k[1] >= 0, k[0], 1000.0)
+    scale = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+    tl_any = torch.where(torch.isinf(tl), hit_t * scale, tl)
+    tl_any[torch.as_tensor(lanes[1152:1664], device=dev)] = math.inf
+    tl_anyc = walk._exit_clamp(veng, o, d, tl_any).contiguous()
+    ka = iwalk.any_cuda(veng, o, d, tl_anyc)
+    pa = iwalk.any_plain(veng, o, d, tl_anyc)
+    errs["vwalk_any"] = check_any("vwalk mixed", ka, pa, o, d, tl_any)
+    ra = torch.as_tensor(np.sort(rng.choice(n, min(SUBSET, n), replace=False)), device=dev)
+    kia = iwalk.any_cuda(ieng, o[ra], d[ra], tl_anyc[ra])
+    errs["iwalk_any"] = check_any("iwalk mixed subset", kia, iwalk.any_plain(ieng, o[ra], d[ra], tl_anyc[ra]),
+                                  o[ra], d[ra], tl_any[ra])
+    # the public query against the baked walk's on the same rays
+    bw = walk.walk_closest_hit_shade(walk_eng, o, d, tl)
+    tw = iwalk.iwalk_closest_hit_shade(veng, o, d, tl)
+    hb, ht = bw[0] >= 0, tw[0] >= 0
+    flags = (hb == ht).float().mean().item()
+    both = hb & ht
+    dt = (tw[1] - bw[1]).abs()[both]
+    t_rel = (dt <= T_REL * bw[1].abs()[both]).float().mean().item()
+    # float32 world coordinates carry an absolute error of about an ulp of
+    # the coordinate (baked vertices round in world space, two-level ones in
+    # object space), so t is held relative to the hit point's scale
+    scale = torch.maximum(bw[1].abs(), (o + d * bw[1][:, None]).abs().amax(1))[both]
+    t_ok = (dt <= T_REL * scale).float().mean().item()
+    print(f"vwalk vs baked walk on {n} rays: hit flags equal {flags:.6f}; of {int(both.sum())} "
+          f"common hits, t within rel {T_REL:g} of t on {t_rel:.6f}, of the hit point's scale "
+          f"on {t_ok:.6f}")
+    check(flags >= BAKED_AGREE and t_ok >= BAKED_AGREE, (flags, t_ok))
+    return errs, sh2, scene2, veng, ieng
+
+
+def render_shapes(iwalk, walk, eng, scene, cam, w, h, rng, dev):
+    """The render's ray shapes on ``eng``: camera rays (sorted), bounce rays
+    in random directions from the camera hits (sorted), 2N shadow rays
+    toward the lights (pixel order, unsorted). Returns {name: (query,
+    kernel inputs, public query inputs)} and each shadow ray's closest
+    occluder (slot, inst) on the shadow rays sorted."""
+    o_f, d_f = camera_rays(cam, w, h, dev)
+    nf = o_f.shape[0]
+    tl_f = torch.full((nf,), math.inf, device=dev)
+    order_f, o_fs, d_fs, tl_fs = walk._sorted_rays(eng, o_f, d_f, tl_f)
+    ct, cs, _ = iwalk.closest_cuda(eng, o_fs, d_fs, tl_fs)
+    hit_s = cs >= 0
+    p_hit = o_fs + d_fs * torch.where(hit_s, ct, 0.0)[:, None]  # camera hits, sorted order
+    d_b = unit_rows(rng, nf, dev)
+    tl_b = torch.where(hit_s, math.inf, 0.0)
+    _, o_bs, d_bs, tl_bs = walk._sorted_rays(eng, p_hit, d_b, tl_b)
+    hit_px = torch.empty_like(p_hit)
+    hit_px[order_f] = p_hit  # back to pixel order, as the integrator holds them
+    hit_pxm = torch.empty_like(hit_s)
+    hit_pxm[order_f] = hit_s
+    o_sh = torch.cat([hit_px, hit_px]).contiguous()
+    vec = light_targets(rng, scene, 2 * nf, dev) - o_sh
+    dist = vec.norm(dim=1)
+    d_sh = (vec / dist[:, None]).contiguous()
+    tl_sh = torch.where(torch.cat([hit_pxm, hit_pxm]), dist * (1 - 5e-4), 0.0)
+    tl_shc = walk._exit_clamp(eng, o_sh, d_sh, tl_sh).contiguous()
+    _, o_ss, d_ss, tl_ss = walk._sorted_rays(eng, o_sh, d_sh, tl_sh)
+    _, occ_slot, occ_inst = iwalk.closest_cuda(eng, o_ss, d_ss, tl_ss)
+    shapes = {
+        "camera": ("closest", (o_fs, d_fs, tl_fs), (o_f, d_f, tl_f)),
+        "bounce": ("closest", (o_bs, d_bs, tl_bs), (p_hit, d_b, tl_b)),
+        "shadow": ("any", (o_sh, d_sh, tl_shc), (o_sh, d_sh, tl_sh)),
+    }
+    return shapes, (o_ss, d_ss, tl_ss, occ_slot, occ_inst)
+
+
+def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, plain_rays=PLAIN_RAYS,
+                   reps=(5, 2, 2)):
+    """Each shape of `render_shapes` on ``eng``'s kernel, timed with CUDA
+    events, compared with the plain version on ``plain_rays`` of its rays,
+    with its gate counters and its need (`two_level_need` over ``veng``,
+    the vwalk tables of the same scene) and bound."""
+    name = iwalk.engine_name(eng)
+    results = {}
+    for (shape, (query, (qo, qd, qt), public)), rep in zip(shapes.items(), reps):
+        nq, key = qo.shape[0], f"{name}_{query}"
+        if query == "closest":
+            km, k = time_ms(lambda: iwalk.closest_cuda(eng, qo, qd, qt), rep)
+            rows = whole_blocks(rng, walk._valid(qo, qd, qt), plain_rays // 128)
+            pm, p = time_ms(lambda: iwalk.closest_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            nan_r = ~(torch.isfinite(qo[rows]).all(1) & torch.isfinite(qd[rows]).all(1))
+            err = check_two_level_closest(f"{label} {shape}", [x[rows] for x in k], p, nan_r)
+            need = two_level_need(walk, veng, qo, qd, qt, torch.where(k[1] >= 0, k[0], qt))
+            out_bytes = 12
+        else:
+            km, ka = time_ms(lambda: iwalk.any_cuda(eng, qo, qd, qt), rep)
+            live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
+            rows = torch.as_tensor(np.sort(rng.choice(live, min(plain_rays, live.size), replace=False)),
+                                   device=qo.device)
+            pm, pa = time_ms(lambda: iwalk.any_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            err = check_any(f"{label} {shape}", ka[rows], pa, qo[rows], qd[rows], qt[rows])
+            o_ss, d_ss, tl_ss, occ_slot, occ_inst = occluders
+            need = two_level_need(walk, veng, o_ss, d_ss, tl_ss, tl_ss, (occ_slot, occ_inst))
+            out_bytes = 1
+        stats = iwalk.iwalk_stats(eng, *public, query=query)
+        bms, by = two_level_bound(nq, out_bytes, need, key)
+        blocks = max(stats["blocks"], 1)
+        results[shape] = {"key": key, "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
+                          "rays": nq, "plain_rays": rows.numel(), "err": err, "stats": stats,
+                          "needed_pairs": need[0]}
+        print(f"time {label} {shape}: kernel {km:.3f} ms at {nq} rays, plain {pm:.3f} ms at "
+              f"{rows.numel()} rays, bound {bms:.4f} ms ({by}) from {need[0]} needed pairs and "
+              f"{need[1]} transforms in {need[2]} virtual chunks ({need[3]} object tris, {need[4]} "
+              f"instances); pairs the kernel tested {stats['lane_visits'] * 128}; blocks with a "
+              f"live lane {stats['blocks']}, gate entries visited per block "
+              f"{stats['visits'] / blocks:.1f}, chunks staged per block {stats['stagings'] / blocks:.1f}, "
+              f"skipped by the window per block {stats['skipped'] / blocks:.1f}, distinct entries "
+              f"{stats['entries']} of {eng['gates']} ({card})")
+    return results
+
+
+def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, card):
+    """Phase 12: vwalk at the dragon's render shapes, iwalk on 4,096 of its
+    bounce and shadow rays, iwalk at many_instance_scene's 1920x1080."""
+    rng = np.random.default_rng(8765)
+    shapes, occ = render_shapes(iwalk, walk, veng, scene2, cam, WIDTH, HEIGHT, rng, dev)
+    res = {"dragon": time_two_level(iwalk, walk, veng, veng, shapes, occ, "vwalk dragon", rng, card)}
+    # iwalk on whole blocks of the dragon's bounce rays and on shadow rays
+    sub = {}
+    for name in ("bounce", "shadow"):
+        query, rays, _ = shapes[name]
+        qo, qd, qt = rays
+        if query == "closest":
+            rows = whole_blocks(rng, walk._valid(qo, qd, qt), SUBSET // 128)
+        else:
+            live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
+            rows = torch.as_tensor(np.sort(rng.choice(live, min(SUBSET, live.size), replace=False)),
+                                   device=dev)
+        r = tuple(x[rows].contiguous() for x in rays)
+        sub[name] = (query, r, r)
+    # the subset's shadow rays, sorted, and each one's closest occluder
+    _, o_q, d_q, tl_q = walk._sorted_rays(ieng, *sub["shadow"][1])
+    occ_sub = (o_q, d_q, tl_q, *iwalk.closest_cuda(ieng, o_q, d_q, tl_q)[1:])
+    res["dragon_iwalk"] = time_two_level(iwalk, walk, ieng, veng, sub, occ_sub, "iwalk dragon subset",
+                                         rng, card, plain_rays=SUBSET, reps=(1, 1))
+    t0 = time.perf_counter()
+    sh_m, cam_m = scenes.many_instance_scene(aspect=MANY_W / MANY_H, two_level=True)
+    scene_m = sh_m.device(DEVICE, engine="iwalk")
+    ieng_m = scene_m["twolevel"]["iwalk"]
+    veng_m = sh_m.twolevel.device(DEVICE)["iwalk"]
+    print(f"many_instance_scene two-level: {sh_m.twolevel.num_instances} instances, "
+          f"{sh_m.twolevel.num_chunks} object chunks, {sh_m.twolevel.num_virtual_chunks} virtual "
+          f"chunks, default engine {sh_m.twolevel.engine}, host build and both packings "
+          f"{time.perf_counter() - t0:.2f} s")
+    shapes_m, occ_m = render_shapes(iwalk, walk, ieng_m, scene_m, cam_m, MANY_W, MANY_H, rng, dev)
+    res["many"] = time_two_level(iwalk, walk, ieng_m, veng_m, shapes_m, occ_m, "iwalk many_instance",
+                                 rng, card)
+    return res, sh_m, cam_m
+
+
+def render_iwalk_in_process(sh_m, cam_m, card):
+    """Phase 14, second half: many_instance_scene with engine="iwalk" at
+    1920x1080, 1 spp, launch counts zeroed just before and read just after."""
+    from path_tracer_tpu_torch.integrator.wavefront import render_sample
+
+    scene = sh_m.device(DEVICE, engine="iwalk")
+    ndc = torch.as_tensor(cam_m.view_proj_inverse(), device=DEVICE)
+    org = torch.as_tensor(cam_m.origin, device=DEVICE)
+    LAUNCHES = zero_launches()
+    t0 = time.perf_counter()
+    rad, _, _, rays = render_sample(
+        scene, ndc, org, 0, MANY_W, MANY_H, max_bounces=MAX_BOUNCES, has_lights="light" in scene,
+        spp=1, mtypes=sh_m.active_mtypes, any_volumes=sh_m.has_volumes)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    film = torch.cat([rad, torch.ones((rad.shape[0], 1), device=DEVICE)], 1).reshape(MANY_H, MANY_W, 4)
+    mean = check_film(film, MANY_W, MANY_H, 1)
+    print(f"render many_instance_scene two-level in process (engine iwalk) {MANY_W}x{MANY_H} 1 spp: "
+          f"trace {trace_s:.2f} s, {float(rays[:, 0].sum()) / trace_s / 1e6:.4f} Mrays/s, bounce "
+          f"steps {launches['iwalk_any']}, mean radiance {mean:.5f}, launches {launches} ({card})")
+    check(launches["iwalk_closest"] > 0 and launches["iwalk_any"] > 0, launches)
+    check(launches["vwalk_closest"] == 0 and launches["walk_closest"] == 0, launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -554,10 +915,10 @@ def main() -> int:
     from path_tracer_tpu_torch import scenes
     from path_tracer_tpu_torch.trace import cuda_lib
     from path_tracer_tpu_torch.trace import dense_cuda as dc
-    from path_tracer_tpu_torch.trace import walk
+    from path_tracer_tpu_torch.trace import iwalk, walk
 
     t0 = time.perf_counter()
-    libs = cuda_lib.build("dense_hit", "walk_hit")
+    libs = cuda_lib.build("dense_hit", "walk_hit", "iwalk_hit")
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in libs)})")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -580,29 +941,68 @@ def main() -> int:
           f"upload with walk packing {time.perf_counter() - t1:.1f} s")
     walk_errs, walk_t = phase_walk(walk, scene, cam, dev, card)
     errs.update(walk_errs)
+    walk_eng = scene["tri"]["walk"]  # phase 11 holds the two-level dragon against it
     del scene
+    print(f"phases 6-7: {time.perf_counter() - t0:.1f} s")
     walk_launches, res = render_cli("dragon_scene", DRAGON_SPP, card,
                                     ("walk_closest", "walk_any", "closest"))
     print(f"dragon_scene bounce steps: {walk_launches['walk_any']} (one any-hit per step)")
     print("dragon_scene(nu=96, nv=64, env_h=64):")
     cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4)
 
+    t0 = time.perf_counter()
+    two_errs, sh2, scene2, veng, ieng = phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev,
+                                                               card)
+    errs.update(two_errs)
+    del walk_eng, sh
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    two_t, sh_m, cam_m = phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev,
+                                                card)
+    for rs in two_t.values():
+        for r in rs.values():
+            errs[r["key"]] = max(errs[r["key"]], r["err"])
+    del scene2, veng, ieng, sh2
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    vwalk_launches, _ = render_cli(
+        "dragon_scene", DRAGON_SPP, card, ("vwalk_closest", "vwalk_any", "closest"), two_level=True,
+        absent=("walk_closest", "walk_any", "iwalk_closest", "iwalk_any"))
+    print(f"dragon_scene --two-level bounce steps: {vwalk_launches['vwalk_any']} (one any-hit per step)")
+    many_launches, _ = render_cli(
+        "many_instance_scene", MANY_SPP, card, ("vwalk_closest", "vwalk_any", "closest"),
+        width=MANY_W, height=MANY_H, two_level=True,
+        absent=("walk_closest", "walk_any", "iwalk_closest", "iwalk_any"))
+    print(f"many_instance_scene --two-level bounce steps: {many_launches['vwalk_any']}")
+    iwalk_launches = render_iwalk_in_process(sh_m, cam_m, card)
+    del sh_m
+    print("many_instance_scene(grid=3, subdivisions=1) two-level:")
+    small = lambda: scenes.many_instance_scene(grid=3, subdivisions=1, two_level=True)  # noqa: E731
+    means = {e: cross_backend(small, 32, 32, 4, engine=e) for e in ("vwalk", "iwalk")}
+    baked = cross_backend(lambda: scenes.many_instance_scene(grid=3, subdivisions=1), 32, 32, 4)
+    rel = abs(means["vwalk"] - baked) / baked
+    print(f"  two-level (vwalk) vs baked on the card: mean rel diff {rel:.5f} (limit {MEAN_TOL})")
+    check(rel <= MEAN_TOL, rel)
+
     rows = {
         "closest": dense_t["closest"], "any": dense_t["any"],
         "walk_closest": walk_t["bounce"], "walk_any": walk_t["shadow"],
+        "vwalk_closest": two_t["dragon"]["bounce"], "vwalk_any": two_t["dragon"]["shadow"],
+        "iwalk_closest": two_t["many"]["bounce"], "iwalk_any": two_t["many"]["shadow"],
     }
     launches = {**{k: dense_launches[k] for k in ("closest", "any")},
-                **{k: walk_launches[k] for k in ("walk_closest", "walk_any")}}
+                **{k: walk_launches[k] for k in ("walk_closest", "walk_any")},
+                **{k: vwalk_launches[k] for k in ("vwalk_closest", "vwalk_any")},
+                **{k: iwalk_launches[k] for k in ("iwalk_closest", "iwalk_any")}}
     kernels = []
     for key, r in rows.items():
-        walk_key = key.startswith("walk")
+        src = {"walk": WALK_SRC, "vwalk": IWALK_SRC, "iwalk": IWALK_SRC}.get(key.split("_")[0], DENSE_SRC)
         kernels.append({
-            "name": key if walk_key else f"dense_{key}", "route": "cuda",
-            "source": WALK_SRC if walk_key else DENSE_SRC, "replaces": REPLACES[key],
+            "name": key if "_" in key else f"dense_{key}", "route": "cuda",
+            "source": src, "replaces": REPLACES[key],
             "launches": launches[key], "max_abs_err": errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "rays": r["rays"],
-            "plain_rays": PLAIN_RAYS if walk_key else r["rays"],
+            "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -3,7 +3,10 @@
 Port of ``path_tracer_tpu/cli.py``: a named scene, progressive rendering in
 batches of up to 32 samples with optional checkpoints, resumable renders,
 and a tonemapped PNG. ``--device`` picks the torch device (default ``cuda``;
-with no card it raises rather than falling back to the CPU).
+with no card it raises rather than falling back to the CPU). ``--two-level``
+keeps shared object-space tables plus instance transforms instead of baking
+instances to world space, and traces through the two-level kernels (vwalk,
+or iwalk above vwalk's cap); the engine is printed.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import time
 
 import torch
 
-SCENES = ("cornell_diffuse", "cornell_specular", "cornell_volume", "mesh_scene", "dragon_scene")
+SCENES = ("cornell_diffuse", "cornell_specular", "cornell_volume", "mesh_scene",
+          "many_instance_scene", "dragon_scene")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,6 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="render.png")
     p.add_argument("--checkpoint", default=None, help="checkpoint .npz path (resume if exists)")
     p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--two-level", action="store_true",
+                   help="keep shared object-space tables + instance transforms (two-level "
+                        "traversal) instead of baking instances to world")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     return p
 
@@ -51,6 +58,7 @@ def main(argv=None) -> dict:
     from path_tracer_tpu_torch import scenes
     from path_tracer_tpu_torch.film import load_checkpoint, save_checkpoint, save_png
     from path_tracer_tpu_torch.integrator.wavefront import render_sample
+    from path_tracer_tpu_torch.trace import iwalk
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -58,7 +66,8 @@ def main(argv=None) -> dict:
 
     phases = {}
     t0 = time.perf_counter()
-    scene_host, cam = getattr(scenes, args.scene)(aspect=args.width / args.height)
+    scene_host, cam = getattr(scenes, args.scene)(aspect=args.width / args.height,
+                                                  two_level=args.two_level)
     phases["scene build"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -67,6 +76,12 @@ def main(argv=None) -> dict:
     org = torch.as_tensor(cam.origin, device=device)
     _sync(device)
     phases["upload"] = time.perf_counter() - t0
+    engine = None
+    if "twolevel" in scene:
+        eng = scene["twolevel"]["iwalk"]
+        engine = iwalk.engine_name(eng)
+        print(f"two-level engine: {engine} ({eng['gates']} gate entries, "
+              f"{iwalk.table_bytes(eng) / 2**20:.1f} MiB of tables)")
 
     start = 0
     film = torch.zeros((args.height, args.width, 4), dtype=torch.float32, device=device)
@@ -108,7 +123,7 @@ def main(argv=None) -> dict:
         save_checkpoint(args.checkpoint, film, args.spp)
     save_png(args.out, film)
     summary = {
-        "out": args.out, "spp": args.spp, "device": str(device),
+        "out": args.out, "spp": args.spp, "device": str(device), "engine": engine,
         "mrays_per_s": rays_total / trace_s / 1e6 if trace_s > 0 else 0.0,
         "spp_per_s": samples / trace_s if trace_s > 0 else 0.0,
         "trace_s": trace_s,

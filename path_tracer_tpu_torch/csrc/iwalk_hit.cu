@@ -1,0 +1,351 @@
+// Two-level closest-hit and any-hit for Hopper: shared object-space chunk
+// tables walked through per-instance rigid transforms (scenes built with
+// two_level=True).
+//
+// Replaces, in path_tracer_tpu/trace/iwalk.py (contract:
+// iwalk_closest_hit_shade / iwalk_any_hit there):
+//   vwalk_closest_kernel  <- _vwalk_closest_kernel
+//   vwalk_any_kernel      <- _vwalk_any_kernel
+//   iwalk_closest_kernel  <- _iwalk_closest_kernel
+//   iwalk_any_kernel      <- _iwalk_any_kernel
+//
+// Tables (trace/iwalk.py pack_vwalk / pack_iwalk):
+//   aux     [K*128, 24] f32, the OBJECT-space plane rows of every model's
+//           chunks (chunk c at rows c*128 .. c*128+127), shared by all the
+//           instances of a model
+//   inst_f  [I, 12] f32, each instance's inverse rigid transform: rotation
+//           rows r0..r8, translation r9..r11
+//   cb_oct  [8, 6, kq] f32, gate boxes in each octant's front-to-back order
+//   ord_oct [8, kq] i32, that order
+// vwalk: a gate entry is a virtual chunk, one (instance, object chunk)
+//   pair, with the world box of the object chunk's 8 transformed corners;
+//   vinst/vglob [kq] i32 give the instance and the object chunk of each
+//   layout slot.
+// iwalk: a gate entry is an instance (its world box); inst_c [I, 2] i32 is
+//   the object chunk range [c0, c1) that an admitted instance brute-walks.
+//
+// Design: walk_hit.cu's, from walk_common.cuh. One block of 128 threads per
+// block of 128 sorted rays; the block reduces its world-space ray bounds,
+// gates 128 entries at a time with a warp ballot and visits the survivors
+// in the octant order of its first ray, skipping an entry whose entry t
+// fails the live window. On a visit every thread transforms its own ray
+// into the instance's object space with the 12 inst_f floats (a broadcast
+// load: every lane reads the same address), in _obj_rays' order; rigid, so
+// t needs no rescale and the window and the winner compare stay in world
+// t. The block stages the object chunk's 128 plane rows (three float4
+// each) and every thread tests them. vwalk stages one chunk per visit;
+// iwalk stages every chunk of the instance's range, reducing the window
+// after each chunk, and the any-hit leaves the range once every live lane
+// is occluded. Dead lanes and blocks behave as in walk_hit.cu.
+//
+// What bounds it: FP32 ALU per staged ray x triangle pair (closest 42 ops,
+// any 41, as in walk_hit.cu), plus the transform (30 ops per ray per
+// visit) and the gate scan (~40 ops per box per block). iwalk tests every
+// chunk of an admitted instance: on a 442,368-triangle knot (5,033 chunks)
+// one admitted instance costs a block 5,033 stagings, so iwalk is far slower
+// than vwalk there and is the engine only above vwalk's virtual-chunk cap
+// (or on request).
+//
+// Outputs. Closest: best t, the object-global slot (chunk*128 + lane) and
+// the instance, or (1e30, -1, -1) on a miss. Any: one flag per ray.
+//
+// Counters. With a non-null ``stats`` ([5 + entries] u64, zeroed by the
+// caller) each block adds stats[0..3] as in walk_hit.cu (blocks with a live
+// lane, gate entries visited, survivors the window skipped, lanes testing
+// a staged chunk, summed over stagings), its staged chunks to stats[4], and
+// sets stats[5 + e] for every gate entry e it visits. Off on the main path.
+//
+// Floating point: -fmad=false; the transform and the pair test repeat the
+// plain torch versions' (trace/iwalk.py) expressions in their order, so
+// winner and t equal the plain version's bit for bit.
+
+#include "walk_common.cuh"
+
+namespace {
+
+// Ray r in the object space of instance i (iwalk.py _obj_rays order);
+// t_limit and validity carry over unchanged (rigid transform).
+__device__ __forceinline__ Ray obj_ray(const Ray& r, const float* __restrict__ inst_f, int i) {
+  const float* f = inst_f + (size_t)i * 12;
+  float m[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) m[j] = __ldg(f + j);
+  Ray q = r;
+  q.ox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[9];
+  q.oy = m[3] * r.ox + m[4] * r.oy + m[5] * r.oz + m[10];
+  q.oz = m[6] * r.ox + m[7] * r.oy + m[8] * r.oz + m[11];
+  q.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
+  q.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
+  q.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
+  return q;
+}
+
+// Add the staged chunks of a block (stats[4]).
+__device__ __forceinline__ void count_stagings(unsigned long long* stats, int anyv,
+                                               unsigned long long stagings) {
+  if (stats != nullptr && threadIdx.x == 0 && anyv) atomicAdd(stats + 4, stagings);
+}
+
+__device__ __forceinline__ void write_closest(int n, float best, int slot, int inst,
+                                              float* __restrict__ out_t,
+                                              int* __restrict__ out_slot,
+                                              int* __restrict__ out_inst) {
+  const int ray = blockIdx.x * SBLK + threadIdx.x;
+  if (ray < n) {
+    out_t[ray] = best;
+    out_slot[ray] = slot;
+    out_inst[ray] = slot >= 0 ? inst : -1;
+  }
+}
+
+__global__ void __launch_bounds__(SBLK)
+vwalk_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct,
+                     const int* __restrict__ ord_oct, const int* __restrict__ vinst,
+                     const int* __restrict__ vglob, const float* __restrict__ inst_f, int k,
+                     int kq, const float* __restrict__ orig, const float* __restrict__ dir,
+                     const float* __restrict__ tlim, int n, float* __restrict__ out_t,
+                     int* __restrict__ out_slot, int* __restrict__ out_inst,
+                     unsigned long long* __restrict__ stats) {
+  __shared__ Shared sh;
+  const Ray r = load_ray(orig, dir, tlim, n, sh);
+  block_bounds(r, sh);
+
+  float best = BIG;
+  int slot = -1, inst = -1;
+  unsigned long long visits = 0, skips = 0, lanes = 0;
+  if (sh.bb.anyv) {
+    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
+    float win = sh.bb.tmax;  // uniform across the block
+    for (int base = 0; base < k; base += SBLK) {
+      gate_batch(cb_oct, k, kq, base, sh);
+      for (int w = 0; w < WARPS; ++w) {
+        unsigned m = sh.bits[w];
+        while (m) {
+          const int q = w * 32 + __ffs(m) - 1;
+          m &= m - 1;
+          if (!admits(sh.te[q], win)) {
+            ++skips;
+            continue;
+          }
+          ++visits;
+          const int v = ord[base + q];
+          const int i = vinst[v], c = vglob[v];
+          if (stats != nullptr) lanes += mark(stats + 5, v, r.valid);
+          stage(aux, c, sh);
+          if (r.valid && closest_chunk(obj_ray(r, inst_f, i), sh, c, best, slot)) inst = i;
+          win = fminf(win, block_max(fminf(best, r.tl), sh));
+        }
+      }
+    }
+  }
+  write_closest(n, best, slot, inst, out_t, out_slot, out_inst);
+  count(stats, sh.bb.anyv, visits, skips, lanes);
+  count_stagings(stats, sh.bb.anyv, visits);
+}
+
+__global__ void __launch_bounds__(SBLK)
+vwalk_any_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct,
+                 const int* __restrict__ ord_oct, const int* __restrict__ vinst,
+                 const int* __restrict__ vglob, const float* __restrict__ inst_f, int k, int kq,
+                 const float* __restrict__ orig, const float* __restrict__ dir,
+                 const float* __restrict__ tlim, int n, uint8_t* __restrict__ out,
+                 unsigned long long* __restrict__ stats) {
+  __shared__ Shared sh;
+  const Ray r = load_ray(orig, dir, tlim, n, sh);
+  block_bounds(r, sh);
+
+  bool occ = false;
+  unsigned long long visits = 0, skips = 0, lanes = 0;
+  if (sh.bb.anyv) {
+    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
+    float win = sh.bb.tmax;  // uniform; <= 0 once every live lane is occluded
+    for (int base = 0; base < k && win > 0.0f; base += SBLK) {
+      gate_batch(cb_oct, k, kq, base, sh);
+      for (int w = 0; w < WARPS && win > 0.0f; ++w) {
+        unsigned m = sh.bits[w];
+        while (m && win > 0.0f) {
+          const int q = w * 32 + __ffs(m) - 1;
+          m &= m - 1;
+          if (!admits(sh.te[q], win)) {
+            ++skips;
+            continue;
+          }
+          ++visits;
+          const int v = ord[base + q];
+          if (stats != nullptr) lanes += mark(stats + 5, v, r.valid && !occ);
+          stage(aux, vglob[v], sh);
+          if (r.valid && !occ) occ = any_chunk(obj_ray(r, inst_f, vinst[v]), sh);
+          win = fminf(win, block_max(occ ? 0.0f : r.tl, sh));
+        }
+      }
+    }
+  }
+  const int ray = blockIdx.x * SBLK + threadIdx.x;
+  if (ray < n) out[ray] = occ ? 1 : 0;
+  count(stats, sh.bb.anyv, visits, skips, lanes);
+  count_stagings(stats, sh.bb.anyv, visits);
+}
+
+__global__ void __launch_bounds__(SBLK)
+iwalk_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct,
+                     const int* __restrict__ ord_oct, const int* __restrict__ inst_c,
+                     const float* __restrict__ inst_f, int k, int kq,
+                     const float* __restrict__ orig, const float* __restrict__ dir,
+                     const float* __restrict__ tlim, int n, float* __restrict__ out_t,
+                     int* __restrict__ out_slot, int* __restrict__ out_inst,
+                     unsigned long long* __restrict__ stats) {
+  __shared__ Shared sh;
+  const Ray r = load_ray(orig, dir, tlim, n, sh);
+  block_bounds(r, sh);
+
+  float best = BIG;
+  int slot = -1, inst = -1;
+  unsigned long long visits = 0, skips = 0, lanes = 0, stagings = 0;
+  if (sh.bb.anyv) {
+    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
+    float win = sh.bb.tmax;  // uniform across the block
+    for (int base = 0; base < k; base += SBLK) {
+      gate_batch(cb_oct, k, kq, base, sh);
+      for (int w = 0; w < WARPS; ++w) {
+        unsigned m = sh.bits[w];
+        while (m) {
+          const int q = w * 32 + __ffs(m) - 1;
+          m &= m - 1;
+          if (!admits(sh.te[q], win)) {  // once per instance, as on the TPU
+            ++skips;
+            continue;
+          }
+          ++visits;
+          const int i = ord[base + q];
+          const Ray o = obj_ray(r, inst_f, i);
+          for (int c = inst_c[2 * i]; c < inst_c[2 * i + 1]; ++c) {
+            if (stats != nullptr) lanes += mark(stats + 5, i, r.valid);
+            ++stagings;
+            stage(aux, c, sh);
+            if (r.valid && closest_chunk(o, sh, c, best, slot)) inst = i;
+            win = fminf(win, block_max(fminf(best, r.tl), sh));
+          }
+        }
+      }
+    }
+  }
+  write_closest(n, best, slot, inst, out_t, out_slot, out_inst);
+  count(stats, sh.bb.anyv, visits, skips, lanes);
+  count_stagings(stats, sh.bb.anyv, stagings);
+}
+
+__global__ void __launch_bounds__(SBLK)
+iwalk_any_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct,
+                 const int* __restrict__ ord_oct, const int* __restrict__ inst_c,
+                 const float* __restrict__ inst_f, int k, int kq,
+                 const float* __restrict__ orig, const float* __restrict__ dir,
+                 const float* __restrict__ tlim, int n, uint8_t* __restrict__ out,
+                 unsigned long long* __restrict__ stats) {
+  __shared__ Shared sh;
+  const Ray r = load_ray(orig, dir, tlim, n, sh);
+  block_bounds(r, sh);
+
+  bool occ = false;
+  unsigned long long visits = 0, skips = 0, lanes = 0, stagings = 0;
+  if (sh.bb.anyv) {
+    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
+    float win = sh.bb.tmax;  // uniform; <= 0 once every live lane is occluded
+    for (int base = 0; base < k && win > 0.0f; base += SBLK) {
+      gate_batch(cb_oct, k, kq, base, sh);
+      for (int w = 0; w < WARPS && win > 0.0f; ++w) {
+        unsigned m = sh.bits[w];
+        while (m && win > 0.0f) {
+          const int q = w * 32 + __ffs(m) - 1;
+          m &= m - 1;
+          if (!admits(sh.te[q], win)) {
+            ++skips;
+            continue;
+          }
+          ++visits;
+          const int i = ord[base + q];
+          const Ray o = obj_ray(r, inst_f, i);
+          for (int c = inst_c[2 * i]; c < inst_c[2 * i + 1] && win > 0.0f; ++c) {
+            if (stats != nullptr) lanes += mark(stats + 5, i, r.valid && !occ);
+            ++stagings;
+            stage(aux, c, sh);
+            if (r.valid && !occ) occ = any_chunk(o, sh);
+            win = fminf(win, block_max(occ ? 0.0f : r.tl, sh));
+          }
+        }
+      }
+    }
+  }
+  const int ray = blockIdx.x * SBLK + threadIdx.x;
+  if (ray < n) out[ray] = occ ? 1 : 0;
+  count(stats, sh.bb.anyv, visits, skips, lanes);
+  count_stagings(stats, sh.bb.anyv, stagings);
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Pointers are device pointers; the stream
+// is the caller's cudaStream_t. Each returns cudaGetLastError() after the
+// launch (0 = success); nothing synchronises. ``stats`` may be null. ``k``
+// is the number of gate entries (virtual chunks for vwalk, instances for
+// iwalk), ``kq`` the columns of cb_oct / ord_oct.
+extern "C" int vwalk_closest(int device, const float* aux, const float* cb_oct,
+                             const int* ord_oct, const int* vinst, const int* vglob,
+                             const float* inst_f, int k, int kq, const float* orig,
+                             const float* dir, const float* tlim, int n, float* out_t,
+                             int* out_slot, int* out_inst, unsigned long long* stats,
+                             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int blocks = (n + SBLK - 1) / SBLK;
+    vwalk_closest_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
+        aux, cb_oct, ord_oct, vinst, vglob, inst_f, k, kq, orig, dir, tlim, n, out_t,
+        out_slot, out_inst, stats);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vwalk_any(int device, const float* aux, const float* cb_oct,
+                         const int* ord_oct, const int* vinst, const int* vglob,
+                         const float* inst_f, int k, int kq, const float* orig,
+                         const float* dir, const float* tlim, int n, uint8_t* out,
+                         unsigned long long* stats, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int blocks = (n + SBLK - 1) / SBLK;
+    vwalk_any_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
+        aux, cb_oct, ord_oct, vinst, vglob, inst_f, k, kq, orig, dir, tlim, n, out, stats);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int iwalk_closest(int device, const float* aux, const float* cb_oct,
+                             const int* ord_oct, const int* inst_c, const float* inst_f,
+                             int k, int kq, const float* orig, const float* dir,
+                             const float* tlim, int n, float* out_t, int* out_slot,
+                             int* out_inst, unsigned long long* stats, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int blocks = (n + SBLK - 1) / SBLK;
+    iwalk_closest_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
+        aux, cb_oct, ord_oct, inst_c, inst_f, k, kq, orig, dir, tlim, n, out_t, out_slot,
+        out_inst, stats);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int iwalk_any(int device, const float* aux, const float* cb_oct,
+                         const int* ord_oct, const int* inst_c, const float* inst_f, int k,
+                         int kq, const float* orig, const float* dir, const float* tlim,
+                         int n, uint8_t* out, unsigned long long* stats, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0) {
+    const int blocks = (n + SBLK - 1) / SBLK;
+    iwalk_any_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
+        aux, cb_oct, ord_oct, inst_c, inst_f, k, kq, orig, dir, tlim, n, out, stats);
+  }
+  return (int)cudaGetLastError();
+}

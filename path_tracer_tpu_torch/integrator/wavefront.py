@@ -70,23 +70,31 @@ def _interp_position(positions_flat, idx, u, v):
     return rows[:, 0:3] * w[:, None] + rows[:, 3:6] * u[:, None] + rows[:, 6:9] * v[:, None]
 
 
+def _world(scene):
+    """The world's geometry table: the two-level engine's, or the baked
+    triangle table's (empty in two-level mode)."""
+    return scene.get("twolevel", scene["tri"])
+
+
 def _world_closest(scene, o, d, lim):
-    """World closest hit through the walk kernel (world soups above 16,384
-    triangles, as ``path_tracer_tpu/integrator/wavefront.py:107-111``) or the
-    dense kernel; either epilogue already fetched the winner's shading
-    normal and model id. Returns ``(tri_idx, t, u, v, shade)``."""
-    ti, t, u, v, n_raw, model = closest_hit_shade(scene["tri"], o, d, lim)
+    """World closest hit through the two-level kernels (scenes built with
+    ``two_level=True``, as ``path_tracer_tpu/integrator/wavefront.py:93-101``),
+    the walk kernel (world soups above 16,384 triangles, ``:107-111``) or the
+    dense kernel; each epilogue already fetched the winner's shading normal
+    (world space) and model id. Returns ``(tri_idx, t, u, v, shade)``."""
+    ti, t, u, v, n_raw, model = closest_hit_shade(_world(scene), o, d, lim)
     return ti, t, u, v, {"n_raw": n_raw, "model": model}
 
 
 def _world_any(scene, o, d, lim):
-    return any_hit(scene["tri"], o, d, lim)
+    return any_hit(_world(scene), o, d, lim)
 
 
 def _hit_normal(scene, idx, u, v, direction, shade=None):
     """Shading normal flipped against the ray + front_facing flag
     (primitive.rs:160-170). With a ``shade`` dict the interpolation already
-    happened in the kernel; without one it is gathered here."""
+    happened in the kernel's epilogue (the only way on a two-level scene);
+    without one it is gathered here from the baked table."""
     if shade is not None:
         n = normalize(shade["n_raw"], eps=1e-20)
     else:
@@ -498,12 +506,14 @@ def render(
     enable_nee: bool = True,
     start_sample: int = 0,
     film=None,
+    engine: str | None = None,
 ):
     """Progressive multi-sample render on ``device``. Returns the HDR film
     ``[H, W, 4]`` (rgb sum + sample count in alpha, the layout of
     ``accumulate.wgsl``). Pass ``film`` to resume; samples go in batches of
-    32, so a caller can checkpoint between them."""
-    scene = scene_host.device(device)
+    32, so a caller can checkpoint between them. ``engine`` picks a
+    two-level scene's engine (`Scene.device`)."""
+    scene = scene_host.device(device, engine)
     ndc_to_world = torch.as_tensor(camera.view_proj_inverse(), device=device)
     origin = torch.as_tensor(camera.origin, device=device)
     if film is None:

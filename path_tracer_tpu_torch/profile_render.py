@@ -10,17 +10,20 @@ torch.profiler (CPU and CUDA activities). Prints one JSON object:
 * ``trace_s`` / ``mrays_per_s``: the render on its own (host clock ending
   in a synchronize), ``profiled_trace_s`` the same render under the
   profiler, which adds host time per op;
-* ``steps``: bounce steps (one world any-hit launch per step, dense or walk);
+* ``steps``: bounce steps (one world any-hit launch per step: dense, walk,
+  vwalk or iwalk);
 * ``device_busy_s``: the sum of the durations of every device event
   (kernels, copies, sets), all on one stream so none overlap;
 * ``idle_share``: 1 - busy / trace, against the unprofiled trace (the
   profiled one only inflates it);
 * ``kernels``: total device ms and launches of each intersection kernel
-  (dense closest / any, walk closest / any);
+  (dense, walk, vwalk and iwalk closest / any);
 * ``kernels_per_step``: device kernels per bounce step, and ``top_ops`` the
   torch ops dispatched most often.
 
-The profiler's tables go to ``<out-dir>/profile_<scene>.txt``.
+``--two-level`` builds the scene in two-level mode (``engine`` in the
+output names the engine). The profiler's tables go to
+``<out-dir>/profile_<scene>[_two_level].txt``.
 """
 
 from __future__ import annotations
@@ -38,13 +41,17 @@ from torch.profiler import ProfilerActivity, profile
 from path_tracer_tpu_torch import scenes
 from path_tracer_tpu_torch.cli import SCENES
 from path_tracer_tpu_torch.integrator.wavefront import render_sample
+from path_tracer_tpu_torch.trace import iwalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
 
 # profiler label -> the kernel's function name in csrc/
 KERNELS = {
     "dense_closest": "closest_kernel", "dense_any": "any_kernel",
     "walk_closest": "walk_closest_kernel", "walk_any": "walk_any_kernel",
+    "vwalk_closest": "vwalk_closest_kernel", "vwalk_any": "vwalk_any_kernel",
+    "iwalk_closest": "iwalk_closest_kernel", "iwalk_any": "iwalk_any_kernel",
 }
+ANY_KEYS = ("any", "walk_any", "vwalk_any", "iwalk_any")  # one launch per bounce step
 
 
 def _function(event_name: str) -> str:
@@ -60,14 +67,17 @@ def main(argv=None) -> dict:
     p.add_argument("--height", type=int, default=576)
     p.add_argument("--spp", type=int, default=8)
     p.add_argument("--max-bounces", type=int, default=64)
+    p.add_argument("--two-level", action="store_true", help="build the scene two-level")
     p.add_argument("--out-dir", default="profile_out")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_render needs a CUDA card")
     dev = torch.device("cuda")
 
-    sh, cam = getattr(scenes, args.scene)(aspect=args.width / args.height)
+    sh, cam = getattr(scenes, args.scene)(aspect=args.width / args.height,
+                                          two_level=args.two_level)
     scene = sh.device(dev)
+    engine = iwalk.engine_name(scene["twolevel"]["iwalk"]) if "twolevel" in scene else None
     ndc = torch.as_tensor(cam.view_proj_inverse(), device=dev)
     org = torch.as_tensor(cam.origin, device=dev)
 
@@ -86,12 +96,12 @@ def main(argv=None) -> dict:
     trace_s = time.perf_counter() - t0
     n_rays = float(rays[:, 0].sum())
 
-    steps0 = LAUNCHES["any"] + LAUNCHES["walk_any"]
+    steps0 = sum(LAUNCHES[k] for k in ANY_KEYS)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(args.spp)
     profiled_s = time.perf_counter() - t0
-    steps = LAUNCHES["any"] + LAUNCHES["walk_any"] - steps0
+    steps = sum(LAUNCHES[k] for k in ANY_KEYS) - steps0
 
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
@@ -105,7 +115,8 @@ def main(argv=None) -> dict:
         key=lambda e: -e.count,
     )
     summary = {
-        "scene": args.scene, "width": args.width, "height": args.height, "spp": args.spp,
+        "scene": args.scene, "engine": engine, "width": args.width, "height": args.height,
+        "spp": args.spp,
         "trace_s": trace_s, "mrays_per_s": n_rays / trace_s / 1e6,
         "profiled_trace_s": profiled_s, "steps": steps,
         "device_busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / trace_s,
@@ -117,7 +128,7 @@ def main(argv=None) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     table_cpu = prof.key_averages().table(sort_by="count", row_limit=40)
-    (out_dir / f"profile_{args.scene}.txt").write_text(
+    (out_dir / f"profile_{args.scene}{'_two_level' if args.two_level else ''}.txt").write_text(
         f"{json.dumps(summary, indent=1)}\n\n{table}\n\n{table_cpu}\n")
     print(json.dumps(summary))
     return summary

@@ -17,7 +17,10 @@ can be fed identical tables:
 * ``light`` (scenes with emitters): ``cdf``, ``rows`` (pdf, area, emitted rgb,
   pad), ``normals_flat``, ``positions_flat`` and ``dense``;
 * ``mat``: ``rows`` (`materials.pack_material_rows`);
-* ``env``: ``[H, W, 3]``.
+* ``env``: ``[H, W, 3]``;
+* ``twolevel`` (scenes built with ``two_level=True``): ``{"iwalk": the
+  two-level engine's tables}`` (`scene.twolevel_scene`); ``tri`` is then
+  empty.
 
 Engine selection: every table up to ``DENSE_MAX_TRIS`` triangles, world or
 lights, goes through the dense kernels (this also covers the <=256-tri
@@ -27,6 +30,13 @@ soup goes through the walk kernels, up to ``WALK_PARTS_MAX_TRIS``, as the
 JAX package's TPU build sends it to its walk engine
 (``path_tracer_tpu/scene/scene.py:269-301``); its chunk boxes come from the
 host scene's ``positions``. The lights stay on the dense kernels.
+
+Two-level mode keeps each model's chunk tables in object space, shared by
+its instances, and traces the world through the vwalk or iwalk kernels
+(`scene.twolevel_scene`). The JAX package builds the baked world soup and
+its SAH tree in that mode too and then drops them
+(``path_tracer_tpu/scene/scene.py:337-343``); the port does not build them.
+The light tables stay world-space and dense.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.bvh import build_sah_tree
 from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_materials
 from path_tracer_tpu_torch.scene.model import Model
+from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry
+from path_tracer_tpu_torch.trace import iwalk
 from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux
 from path_tracer_tpu_torch.trace.walk import pack_walk
 
@@ -60,8 +72,13 @@ def _pack_tris(positions: np.ndarray, normals: np.ndarray) -> dict[str, np.ndarr
 class Scene:
     """Host-side scene: build once, then ``.device(device)`` for the renderer."""
 
-    def __init__(self, models: list[Model], env: np.ndarray | None = None):
+    def __init__(self, models: list[Model], env: np.ndarray | None = None,
+                 two_level: bool = False):
+        """``two_level=True`` keeps each model's tables in object space,
+        shared by its instances, instead of baking instances to world (see
+        the module note)."""
         self.models = models
+        self.two_level = two_level
 
         world_pos, world_nrm, world_model = [], [], []
         light_pos, light_nrm, light_mat = [], [], []
@@ -71,6 +88,8 @@ class Scene:
         for model_id, model in enumerate(models):
             emissive = bool(mat_table["is_emissive"][model_id])
             for matrix in model.matrices:
+                if two_level and not emissive:
+                    continue  # only the lights are baked
                 p, n = tri_mod.transform(model.positions, model.normals, np.asarray(matrix, np.float32))
                 world_pos.append(p)
                 world_nrm.append(n)
@@ -80,13 +99,19 @@ class Scene:
                     light_nrm.append(n)
                     light_mat.append(np.full(p.shape[0], model_id, np.int32))
 
-        world_pos = np.concatenate(world_pos)
-        self.perm = perm = _sah_perm(world_pos)
-        world_model = np.concatenate(world_model)[perm]
-        self.tri = _pack_tris(world_pos[perm], np.concatenate(world_nrm)[perm])
-        # one material per model: material id == model id
-        self.tri["mat"] = world_model
-        self.tri["model"] = world_model
+        if two_level:
+            self.twolevel = TwoLevelGeometry(models)
+            self.tri = None
+            self.num_world_tris = sum(m.positions.shape[0] * len(m.matrices) for m in models)
+        else:
+            world_pos = np.concatenate(world_pos)
+            self.perm = perm = _sah_perm(world_pos)
+            world_model = np.concatenate(world_model)[perm]
+            self.tri = _pack_tris(world_pos[perm], np.concatenate(world_nrm)[perm])
+            # one material per model: material id == model id
+            self.tri["mat"] = world_model
+            self.tri["model"] = world_model
+            self.num_world_tris = world_pos.shape[0]
 
         # Lights: emissive triangles only (scene.rs:23-28) with a
         # power-weighted CDF (light weight = area * |emitted|, blas.rs:203-212).
@@ -115,17 +140,22 @@ class Scene:
         if env is None:
             env = np.full((1, 1, 3), DEFAULT_BACKGROUND, np.float32)
         self.env = np.asarray(env, np.float32)
-        self.num_world_tris = world_pos.shape[0]
 
-    def device(self, device) -> SceneData:
-        """The integrator's tensor dict on ``device`` (see the module note)."""
-        tri = {
-            "n0": self.tri["n0"], "d0": self.tri["d0"], "n1": self.tri["n1"],
-            "d1": self.tri["d1"], "n2": self.tri["n2"], "d2": self.tri["d2"],
-            "normals_flat": self.tri["normals"].reshape(-1, 9),
-            "model_rows": self.tri["model"].astype(np.float32)[:, None],
-            "positions": self.tri["positions"],
-        }
+    def device(self, device, engine: str | None = None) -> SceneData:
+        """The integrator's tensor dict on ``device`` (see the module note).
+        ``engine`` names a two-level engine ("vwalk" or "iwalk"; default:
+        `TwoLevelGeometry.choose`'s)."""
+        if engine is not None and not self.two_level:
+            raise ValueError("engine= names a two-level engine; this scene is baked")
+        tri = {}
+        if not self.two_level:
+            tri = {
+                "n0": self.tri["n0"], "d0": self.tri["d0"], "n1": self.tri["n1"],
+                "d1": self.tri["d1"], "n2": self.tri["n2"], "d2": self.tri["d2"],
+                "normals_flat": self.tri["normals"].reshape(-1, 9),
+                "model_rows": self.tri["model"].astype(np.float32)[:, None],
+                "positions": self.tri["positions"],
+            }
         data = {"tri": tri, "mat": {"rows": pack_material_rows(self.mat)}, "env": self.env}
         if self.has_lights:
             lt = self.light["pdf"].shape[0]
@@ -141,7 +171,10 @@ class Scene:
                 "cdf": self.light["cdf"],
                 "rows": lrows,
             }
-        return _upload(data, device)
+        out = _upload(data, device)
+        if self.two_level:
+            out["twolevel"] = self.twolevel.device(device, engine)
+        return out
 
 
 def _dense_table(tab: dict, with_shading: bool) -> dict:
@@ -166,16 +199,17 @@ def _upload(data: dict, device) -> SceneData:
     """Add the engine tables, drop the host-only plane and position arrays,
     move to ``device``."""
     tri = data["tri"]
-    if tri["n0"].shape[0] > DENSE_MAX_TRIS:
-        tri["walk"] = pack_walk(tri, tri["normals_flat"], tri["model_rows"][:, 0], tri["positions"])
-    else:
-        tri["dense"] = _dense_table(tri, with_shading=True)
-    tri.pop("positions")
+    if tri:  # empty in two-level mode
+        if tri["n0"].shape[0] > DENSE_MAX_TRIS:
+            tri["walk"] = pack_walk(tri, tri["normals_flat"], tri["model_rows"][:, 0], tri["positions"])
+        else:
+            tri["dense"] = _dense_table(tri, with_shading=True)
+        tri.pop("positions")
     if "light" in data:
         data["light"]["dense"] = _dense_table(data["light"], with_shading=False)
     for tab in (tri, data.get("light")):
         for k in _PLANE_KEYS:
-            if tab is not None:
+            if tab:
                 tab.pop(k)
 
     def up(x):
@@ -191,16 +225,30 @@ def from_jax_scene(data: dict, device) -> SceneData:
     dict, converted with ``np.asarray`` (nested dicts of arrays). Only
     arrays the two packages share are read; the JAX engine tables (streams,
     ``dense``, ``dense_pl``, ``walk``) are ignored and the port's dense or
-    walk tables rebuilt (the walk's from ``tri["positions"]``)."""
+    walk tables rebuilt (the walk's from ``tri["positions"]``). A two-level
+    dict (empty ``tri``) must hold a single-part vwalk or iwalk engine in
+    ``twolevel["iwalk"]``, whose kept tables are carried over as they are;
+    the JAX gather machine's tables and multi-part engines raise."""
     a = lambda x: np.asarray(x)  # noqa: E731
     jt = data["tri"]
-    tri = {k: a(jt[k]) for k in _PLANE_KEYS}
-    for k in ("normals_flat", "model_rows", "positions"):
-        tri[k] = a(jt[k])
+    tri = {}
+    if jt:
+        tri = {k: a(jt[k]) for k in _PLANE_KEYS}
+        for k in ("normals_flat", "model_rows", "positions"):
+            tri[k] = a(jt[k])
     out = {"tri": tri, "mat": {"rows": a(data["mat"]["rows"])}, "env": a(data["env"])}
     if "light" in data:
         jl = data["light"]
         out["light"] = {k: a(jl[k]) for k in _PLANE_KEYS}
         for k in ("normals_flat", "positions_flat", "cdf", "rows"):
             out["light"][k] = a(jl[k])
-    return _upload(out, device)
+    ported = _upload(out, device)
+    if "twolevel" in data:
+        eng = data["twolevel"].get("iwalk")
+        if eng is None or "parts" in eng:
+            raise NotImplementedError(
+                "the port runs single-part vwalk / iwalk engines only (no gather "
+                "phase machine, no parts)")
+        keep = iwalk.VWALK_TABLES if "vinst" in eng else iwalk.IWALK_TABLES
+        ported["twolevel"] = {"iwalk": iwalk.upload({k: a(eng[k]) for k in keep}, device)}
+    return ported

@@ -1,9 +1,13 @@
 """Standard scenes for tests and benchmarks, mirroring BASELINE.json configs.
 
 Host copy of the scenes of ``path_tracer_tpu/scenes.py`` that the port
-renders: the four Cornell-family scenes (dense engine) and dragon_scene
-(walk engine). many_instance_scene and env_sphere_scene wait for their
-ports (ROADMAP.md).
+renders: the four Cornell-family scenes and many_instance_scene (dense
+engine), and dragon_scene (walk engine). env_sphere_scene waits for its
+port (ROADMAP.md). Every constructor takes ``two_level``: with True the
+scene keeps shared object-space tables plus instance transforms (the
+two-level engines) instead of baking instances to world space; the JAX
+CLI rebuilds a baked scene for that, the port builds it so from the start
+and skips the baked soup's SAH build.
 
 The reference's scene is hard-coded Rust against OBJ assets that are not in
 its repository (``src/main.rs:74-127``); these constructors produce the
@@ -57,17 +61,17 @@ def _cornell_shell() -> list[Model]:
     ]
 
 
-def cornell_diffuse(aspect: float = 1.0) -> tuple[Scene, Camera]:
+def cornell_diffuse(aspect: float = 1.0, two_level: bool = False) -> tuple[Scene, Camera]:
     """BASELINE config 1: all-diffuse Cornell with the two boxes."""
     models = _cornell_shell()
     tall_p, tall_n = procedural.box((-90.0, 165.0, -65.0), (82.5, 165.0, 82.5))
     short_p, short_n = procedural.box((92.5, 82.5, 85.0), (82.5, 82.5, 82.5))
     models.append(Model(Lambertian(BLUE), positions=tall_p, normals=tall_n))
     models.append(Model(Lambertian(GRAY), positions=short_p, normals=short_n))
-    return Scene(models), cornell_camera(aspect)
+    return Scene(models, two_level=two_level), cornell_camera(aspect)
 
 
-def cornell_specular(aspect: float = 1.0) -> tuple[Scene, Camera]:
+def cornell_specular(aspect: float = 1.0, two_level: bool = False) -> tuple[Scene, Camera]:
     """BASELINE config 2: metal + glass spheres with RR termination."""
     models = _cornell_shell()
     metal_p, metal_n = procedural.icosphere((-120.0, 100.0, -50.0), 100.0, 3)
@@ -76,25 +80,44 @@ def cornell_specular(aspect: float = 1.0) -> tuple[Scene, Camera]:
     models.append(Model(GGXMetal((0.1, 0.1, 0.45), 0.4), positions=metal_p, normals=metal_n))
     models.append(Model(Dielectric((0.95, 0.95, 0.95), 1.5), positions=glass_p, normals=glass_n))
     models.append(Model(Specular((1.0, 1.0, 1.0)), positions=mirror_p, normals=mirror_n))
-    return Scene(models), cornell_camera(aspect)
+    return Scene(models, two_level=two_level), cornell_camera(aspect)
 
 
-def cornell_volume(aspect: float = 1.0) -> tuple[Scene, Camera]:
+def cornell_volume(aspect: float = 1.0, two_level: bool = False) -> tuple[Scene, Camera]:
     """Rough-glass (GGX transmissive) sphere with an absorbing/scattering
     medium — the reference's brown-glass dragon material (main.rs:80,87)."""
     models = _cornell_shell()
     vol = Volume(absorption=(0.4, 0.62, 0.7), k=0.1, c=1.0 / 200.0, g=0.6)
     p, n = procedural.icosphere((0.0, 150.0, 0.0), 140.0, 3)
     models.append(Model(GGXDielectric((0.95, 0.95, 0.95), 0.2, 1.5, vol), positions=p, normals=n))
-    return Scene(models), cornell_camera(aspect)
+    return Scene(models, two_level=two_level), cornell_camera(aspect)
 
 
-def mesh_scene(subdivisions: int = 4, aspect: float = 1.0) -> tuple[Scene, Camera]:
+def mesh_scene(subdivisions: int = 4, aspect: float = 1.0,
+               two_level: bool = False) -> tuple[Scene, Camera]:
     """BASELINE config 3: dense triangle mesh through the full BVH."""
     models = _cornell_shell()
     p, n = procedural.icosphere((0.0, 200.0, 0.0), 160.0, subdivisions)
     models.append(Model(GGXMetal((0.8, 0.6, 0.2), 0.3), positions=p, normals=n))
-    return Scene(models), cornell_camera(aspect)
+    return Scene(models, two_level=two_level), cornell_camera(aspect)
+
+
+def many_instance_scene(grid: int = 6, subdivisions: int = 2, aspect: float = 1.0,
+                        two_level: bool = False) -> tuple[Scene, Camera]:
+    """BASELINE config 5: many instanced meshes (a grid x grid of rotated
+    icosphere instances; baked to world unless ``two_level``)."""
+    models = _cornell_shell()
+    p, n = procedural.icosphere((0.0, 0.0, 0.0), 30.0, subdivisions)
+    mats = []
+    span = 420.0
+    for i in range(grid):
+        for j in range(grid):
+            x = -span / 2 + span * i / (grid - 1)
+            z = -span / 2 + span * j / (grid - 1)
+            y = 40.0 + 60.0 * ((i * 7 + j * 3) % 5)
+            mats.append(rigid_transform(rotation_y(0.37 * (i + grid * j)), (x, y, z)))
+    models.append(Model(Lambertian((0.6, 0.5, 0.4)), matrices=mats, positions=p, normals=n))
+    return Scene(models, two_level=two_level), cornell_camera(aspect)
 
 
 def procedural_sky(h: int = 2048) -> np.ndarray:
@@ -132,13 +155,14 @@ def procedural_sky(h: int = 2048) -> np.ndarray:
 
 
 def dragon_scene(nu: int = 768, nv: int = 288, env_h: int = 2048,
-                 aspect: float = 1.0) -> tuple[Scene, Camera]:
+                 aspect: float = 1.0, two_level: bool = False) -> tuple[Scene, Camera]:
     """The reference's showcase configuration (main.rs:100-117): Cornell
     shell + TWO instances of a dragon-class mesh (2*nu*nv tris each; 442,368
     at the defaults, 884,748 world tris baked — dragon.obj scale) in brown
     GGX glass with an absorbing/scattering medium (main.rs:80,87), under a
     4K-class equirect env map (main.rs:75). Its world queries go through the
-    walk engine (``trace/walk.py``)."""
+    walk engine (``trace/walk.py``); two-level, through vwalk (10,070
+    virtual chunks)."""
     models = _cornell_shell()
     vol = Volume(absorption=(0.4, 0.62, 0.7), k=0.1, c=1.0 / 200.0, g=0.6)
     glass = GGXDielectric((0.95, 0.95, 0.95), 0.2, 1.5, vol)
@@ -148,4 +172,4 @@ def dragon_scene(nu: int = 768, nv: int = 288, env_h: int = 2048,
         rigid_transform(rotation_y(2.3), (130.0, 390.0, 40.0)),
     ]
     models.append(Model(glass, matrices=mats, positions=p, normals=n))
-    return Scene(models, env=procedural_sky(env_h)), cornell_camera(aspect)
+    return Scene(models, env=procedural_sky(env_h), two_level=two_level), cornell_camera(aspect)

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA sources (``csrc/<name>.cu``).
+"""Build and load the port's CUDA sources (``csrc/<name>.cu``, which may
+include the shared headers ``csrc/*.cuh``).
 
 Each source has a plain C interface and is compiled at first use with
 ``nvcc`` into ``_build/`` beside this package, as a shared library loaded
@@ -22,7 +23,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-LAUNCHES = {"closest": 0, "any": 0, "walk_closest": 0, "walk_any": 0}
+LAUNCHES = {
+    "closest": 0, "any": 0, "walk_closest": 0, "walk_any": 0,
+    "vwalk_closest": 0, "vwalk_any": 0, "iwalk_closest": 0, "iwalk_any": 0,
+}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,7 +40,9 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, tagged by its source, every header and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

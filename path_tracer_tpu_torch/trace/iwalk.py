@@ -1,0 +1,646 @@
+"""Two-level engines: closest hit and any hit through per-instance rigid
+transforms over shared object-space chunk tables, for scenes built with
+``two_level=True``. The CUDA kernels of ``csrc/iwalk_hit.cu``, their plain
+torch versions, the host packing, and the public queries.
+
+Port of ``path_tracer_tpu/trace/iwalk.py`` (``_vwalk_closest_kernel``,
+``_vwalk_any_kernel``, ``_iwalk_closest_kernel`` and ``_iwalk_any_kernel``,
+reached through ``iwalk_closest_hit_shade`` and ``iwalk_any_hit``):
+
+* Host packing (`pack_vwalk`, `pack_iwalk`; the tables they keep are
+  bit-equal to the JAX ones). Each model's chunk tables are built once in
+  object space (`model_tables`) and shared by its instances: that is the
+  memory two-level saves. ``inst_f [I, 12]`` holds each instance's inverse
+  rigid transform, ``inst_rows [I, 24]`` the inverse, the forward rotation
+  (for normals) and the model id.
+* vwalk, the default: every (instance, object chunk) pair is a virtual
+  chunk whose gate box is the object chunk box's 8 corners through the
+  instance transform; the virtual chunks get the walk's SAH octant orders,
+  and one gated visit tests one object chunk of one instance.
+* iwalk, above vwalk's cap of `VWALK_MAX_VCH` virtual chunks or on request:
+  the gate works on instance world boxes; an admitted instance brute-walks
+  its chunk range ``inst_c``.
+* The JAX package splits both engines into parts because a part's plane
+  table must fit the TPU's VMEM; on Hopper the kernels read one table from
+  device memory, so there are no parts, and the plane table ``w``, the
+  part-local ``vchunk`` compaction and the mask-layout twins are not
+  carried over. The engines' limits stay, so a scene takes the same engine
+  in both packages.
+* Around the kernels: the walk's coherence sort, exit clamp and unsort
+  (`trace.walk`); the epilogue recomputes the winner's object-space ray in
+  the transform's order, then t/u/v from its ``aux`` row, and rotates the
+  interpolated object normal to world by the forward rotation (the
+  reference's deferred normal transform, ``tlas.rs:103-109``).
+* Plain versions: one ungated pass over every (instance, object chunk)
+  pair. Closest: minimum t; among ties the first in the kernel's visit
+  order wins (vwalk: position of the virtual chunk in the ray block's
+  octant order, then lane; iwalk: position of the instance, then chunk,
+  then lane). Any hit: an OR.
+
+Each kernel has one wrapper: a CPU tensor runs the plain version, a CUDA
+tensor launches the kernel or raises. ``LAUNCHES["vwalk_closest"]``,
+``["vwalk_any"]``, ``["iwalk_closest"]`` and ``["iwalk_any"]`` count the
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from path_tracer_tpu_torch.scene import triangle as tri_mod
+from path_tracer_tpu_torch.scene.bvh import build_sah_tree, chunk_partition
+from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES, load
+from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue
+from path_tracer_tpu_torch.trace.walk import (
+    _BIG,
+    _PLAIN_PAIRS,
+    CH_W,
+    _block_octant,
+    _candidate_t,
+    _closest_columns,
+    _exit_clamp,
+    _f32,
+    _lanes,
+    _octant_orders,
+    _order_positions,
+    _ragged_arange,
+    _shadow_hits,
+    _sorted_rays,
+    _unsort_rows,
+)
+
+VWALK_MAX_VCH = 16 * 1536  # vwalk's limit: 24,576 virtual chunks
+IWALK_MAX_TOTAL_CHUNKS = 16 * 768  # iwalk's limit: 12,288 object chunks
+IWALK_MAX_OBJECT_TRIS = 1_000_000  # either engine's limit on object tris
+# the tables each engine keeps (the JAX packers' keys less w, vchunk and
+# the mask-layout twins cb_lay / pos_valid)
+_COMMON = ("cb_oct", "ord_oct", "inst_f", "inst_rows", "aux", "origmap",
+           "sort_lo", "sort_scale", "root_lo", "root_hi")
+VWALK_TABLES = _COMMON + ("vinst", "vglob")
+IWALK_TABLES = _COMMON + ("inst_c",)
+
+
+# --- host packing (NumPy) ---
+
+
+def _model_chunk_tables(tri_sub: dict, normals9, pos, model_id: int, tri_off: int):
+    """One model's chunk tables in partition-DFS layout: ``aux``
+    [k*CH_W, AUX_COLS] OBJECT-space plane and shading rows, ``orig``
+    [k*CH_W] global tri index, ``k``, and the per-chunk OBJECT boxes
+    ``(cmin, cmax)`` [k, 3]."""
+    bmin = pos.min(axis=1)
+    bmax = pos.max(axis=1)
+    perm, starts, spans = chunk_partition(bmin, bmax, CH_W)
+    k = len(starts)
+    cmin = np.minimum.reduceat(bmin[perm], starts, axis=0)
+    cmax = np.maximum.reduceat(bmax[perm], starts, axis=0)
+    S = k * CH_W
+    slots = np.full(S, -1, np.int64)
+    spans_a = np.asarray(spans)
+    within = _ragged_arange(spans_a)
+    rows = np.repeat(np.arange(k, dtype=np.int64) * CH_W, spans_a) + within
+    slots[rows] = perm[np.repeat(np.asarray(starts), spans_a) + within]
+    valid = slots >= 0
+    idx = slots[valid]
+
+    def fld(name):
+        return np.asarray(tri_sub[name], np.float32)
+
+    aux = np.zeros((S, AUX_COLS), np.float32)
+    a = aux[valid]
+    a[:, 0:3] = fld("n0")[idx]
+    a[:, 3] = fld("d0")[idx]
+    a[:, 4:7] = fld("n1")[idx]
+    a[:, 7] = fld("d1")[idx]
+    a[:, 8:11] = fld("n2")[idx]
+    a[:, 11] = fld("d2")[idx]
+    a[:, 12:21] = np.asarray(normals9, np.float32)[idx]
+    a[:, 21] = float(model_id)
+    aux[valid] = a
+    orig = np.where(valid, tri_off + np.maximum(slots, 0), 0).astype(np.int32)
+    return aux, orig, k, cmin, cmax
+
+
+def _aabb_corners_world(bb_min, bb_max, matrix):
+    """Conservative world box: all 8 corners through the rigid transform
+    (fixes the reference's 2-corner transform, boundingbox.rs:51-57)."""
+    rot, tr = matrix[:, :3], matrix[:, 3]
+    pts = np.array(
+        [[x, y, z]
+         for x in (bb_min[0], bb_max[0])
+         for y in (bb_min[1], bb_max[1])
+         for z in (bb_min[2], bb_max[2])], np.float32,
+    )
+    world = pts @ rot.T + tr
+    return world.min(axis=0), world.max(axis=0)
+
+
+def _inst_orders(ibmin, ibmax, n_inst):
+    """Per-octant front-to-back instance orders + permuted padded boxes.
+    Instances with degenerate boxes (ibmin > ibmax: no chunks) sort to the
+    back with 2e30 gate boxes."""
+    live = (ibmin <= ibmax).all(axis=1)
+    live_ids = np.flatnonzero(live)
+    dead_ids = np.flatnonzero(~live)
+    if len(live_ids) > 1:
+        nodes, perm2, root = build_sah_tree(ibmin[live_ids], ibmax[live_ids], max_leaf=1)
+        orders_local = perm2[_octant_orders(nodes, root, len(live_ids))]
+        orders = live_ids[orders_local]
+    else:
+        orders = np.broadcast_to(live_ids, (8, len(live_ids))).copy()
+    kq = ((n_inst + 127) // 128) * 128
+    cb_oct = np.full((8, 6, kq), 2.0e30, np.float32)
+    ord_pad = np.zeros((8, kq), np.int32)
+    nl = len(live_ids)
+    for o in range(8):
+        po = orders[o] if nl else np.zeros(0, np.int64)
+        cb_oct[o, 0:3, :nl] = ibmin[po].T
+        cb_oct[o, 3:6, :nl] = ibmax[po].T
+        ord_pad[o, :nl] = po
+        ord_pad[o, nl : nl + len(dead_ids)] = dead_ids  # gated out (2e30 box)
+    return cb_oct, ord_pad
+
+
+def model_tables(models) -> dict:
+    """What both engines share (host numpy): ``aux``/``origmap`` of every
+    model's chunks in global object-slot order, ``chunk_off`` [M+1] each
+    model's chunk range, the object chunk boxes ``cbox_min``/``cbox_max``
+    [K, 3], and the instance list: ``inst_f`` [I, 12] (inverse rotation
+    rows, inverse translation), ``inst_rows`` [I, 24] (inverse, forward
+    rotation, model id), ``inst_mats`` (the [3, 4] matrices) and
+    ``inst_mid`` (model ids); ``num_tris`` the object triangles."""
+    aux_parts, orig_parts, cbox_min, cbox_max = [], [], [], []
+    chunk_off = [0]
+    tri_off = 0
+    for mid, model in enumerate(models):
+        pos = np.asarray(model.positions, np.float32)
+        pre = tri_mod.precompute(pos)
+        aux, orig, k, cmin, cmax = _model_chunk_tables(
+            pre, np.asarray(model.normals, np.float32).reshape(-1, 9), pos, mid, tri_off,
+        )
+        aux_parts.append(aux)
+        orig_parts.append(orig)
+        chunk_off.append(chunk_off[-1] + k)
+        cbox_min.append(cmin)
+        cbox_max.append(cmax)
+        tri_off += pos.shape[0]
+
+    inst_f, inst_rows, inst_mats, inst_mid = [], [], [], []
+    for mid, model in enumerate(models):
+        for matrix in model.matrices:
+            m = np.asarray(matrix, np.float32)
+            rot, tr = m[:, :3], m[:, 3]
+            rinv = rot.T
+            tinv = -rinv @ tr
+            inst_f.append(np.concatenate([rinv.reshape(9), tinv]))
+            row = np.zeros(24, np.float32)
+            row[0:9] = rinv.reshape(9)
+            row[9:12] = tinv
+            row[12:21] = rot.reshape(9)  # forward rotation (normals)
+            row[21] = float(mid)
+            inst_rows.append(row)
+            inst_mats.append(m)
+            inst_mid.append(mid)
+    return {
+        "aux": np.concatenate(aux_parts),
+        "origmap": np.concatenate(orig_parts),
+        "chunk_off": np.asarray(chunk_off, np.int64),
+        "cbox_min": np.concatenate(cbox_min),
+        "cbox_max": np.concatenate(cbox_max),
+        "inst_f": np.stack(inst_f).astype(np.float32),
+        "inst_rows": np.stack(inst_rows),
+        "inst_mats": inst_mats,
+        "inst_mid": inst_mid,
+        "num_tris": tri_off,
+    }
+
+
+def num_virtual_chunks(shared: dict) -> int:
+    """vwalk's gate entries: the (instance, object chunk) pairs."""
+    per_model = np.diff(shared["chunk_off"])
+    return int(sum(per_model[mid] for mid in shared["inst_mid"]))
+
+
+def _scene_box(lo, hi):
+    """Sort quantizers and the exit-clamp root box from world boxes."""
+    scene_lo = lo.min(axis=0)
+    scene_hi = hi.max(axis=0)
+    extent = np.maximum(scene_hi - scene_lo, 1e-6)
+    pad = 1e-4 * float(max(np.abs(scene_lo).max(), np.abs(scene_hi).max(), 1.0)) + 1e-6
+    return {
+        "sort_lo": scene_lo.astype(np.float32),
+        "sort_scale": (1.0 / extent).astype(np.float32),
+        "root_lo": (scene_lo - pad).astype(np.float32),
+        "root_hi": (scene_hi + pad).astype(np.float32),
+    }
+
+
+def pack_iwalk(models, shared: dict | None = None) -> dict:
+    """Pack the instanced-walk engine (host numpy; ``shared`` is
+    `model_tables` of ``models`` when the caller has it). Gate entries are
+    instances: ``cb_oct`` [8, 6, kq] world boxes in each octant's order,
+    ``ord_oct`` [8, kq] instance ids, ``inst_c`` [I, 2] i32 each instance's
+    object chunk range; plus ``inst_f``, ``inst_rows``, ``aux``,
+    ``origmap`` and the scene box (`_scene_box`)."""
+    s = model_tables(models) if shared is None else shared
+    chunk_off = s["chunk_off"]
+    K = int(chunk_off[-1])
+    if K > IWALK_MAX_TOTAL_CHUNKS:
+        raise ValueError(f"iwalk caps at {IWALK_MAX_TOTAL_CHUNKS} model chunks, got {K}")
+    n_inst = len(s["inst_mid"])
+    inst_range = np.asarray([(chunk_off[m], chunk_off[m + 1]) for m in s["inst_mid"]], np.int64)
+    # whole-instance world boxes; instances without chunks get inverted ones
+    lo = np.full((n_inst, 3), 1.0, np.float32)
+    hi = np.full((n_inst, 3), -1.0, np.float32)
+    for i in range(n_inst):
+        c0, c1 = inst_range[i]
+        if c0 >= c1:
+            continue
+        olo = s["cbox_min"][c0:c1].min(axis=0)
+        ohi = s["cbox_max"][c0:c1].max(axis=0)
+        lo[i], hi[i] = _aabb_corners_world(olo, ohi, s["inst_mats"][i])
+    cb_oct, ord_pad = _inst_orders(lo, hi, n_inst)
+    empty = inst_range[:, 0] >= inst_range[:, 1]
+    inst_c = np.stack(
+        [np.where(empty, 0, inst_range[:, 0]), np.where(empty, 0, inst_range[:, 1])], axis=1,
+    ).astype(np.int32)
+    return {
+        "cb_oct": cb_oct, "ord_oct": ord_pad, "inst_f": s["inst_f"], "inst_c": inst_c,
+        "inst_rows": s["inst_rows"], "aux": s["aux"], "origmap": s["origmap"],
+        **_scene_box(lo, hi),
+    }
+
+
+def pack_vwalk(models, shared: dict | None = None) -> dict:
+    """Pack the virtual-chunk engine (host numpy; ``shared`` as for
+    `pack_iwalk`). Gate entries are the virtual chunks: ``cb_oct``
+    [8, 6, kvq] / ``ord_oct`` [8, kvq] as in ``walk.pack_walk`` but over the
+    virtual-chunk world boxes; ``vinst`` / ``vglob`` [kvq] i32 the instance
+    and the global object chunk of each layout slot; plus ``inst_f``,
+    ``inst_rows``, ``aux``, ``origmap`` and the scene box."""
+    s = model_tables(models) if shared is None else shared
+    chunk_off, cbox_min, cbox_max = s["chunk_off"], s["cbox_min"], s["cbox_max"]
+    # world boxes of every (instance, object chunk) pair: all 8 corners
+    # through the rigid transform (boundingbox.rs:51-57 fix)
+    v_inst, v_chunk, vb_lo, vb_hi = [], [], [], []
+    for i, mid in enumerate(s["inst_mid"]):
+        c0, c1 = chunk_off[mid], chunk_off[mid + 1]
+        rot, tr = s["inst_mats"][i][:, :3], s["inst_mats"][i][:, 3]
+        lo, hi = cbox_min[c0:c1], cbox_max[c0:c1]
+        corners = np.stack(
+            [np.stack([hi[:, 0] if j & 4 else lo[:, 0],
+                       hi[:, 1] if j & 2 else lo[:, 1],
+                       hi[:, 2] if j & 1 else lo[:, 2]], axis=1)
+             for j in range(8)], axis=1)  # [k, 8, 3]
+        world = corners @ rot.T + tr
+        vb_lo.append(world.min(axis=1).astype(np.float32))
+        vb_hi.append(world.max(axis=1).astype(np.float32))
+        v_inst.append(np.full(c1 - c0, i, np.int32))
+        v_chunk.append(np.arange(c0, c1, dtype=np.int32))
+    v_inst = np.concatenate(v_inst)
+    v_chunk = np.concatenate(v_chunk)
+    vb_lo = np.concatenate(vb_lo)
+    vb_hi = np.concatenate(vb_hi)
+    kv = v_inst.shape[0]
+    if kv > VWALK_MAX_VCH:
+        raise ValueError(f"vwalk caps at {VWALK_MAX_VCH} virtual chunks, got {kv}")
+
+    if kv > 1:
+        nodes, perm2, root = build_sah_tree(vb_lo, vb_hi, max_leaf=1)
+        ords = _octant_orders(nodes, root, kv)
+    else:
+        perm2 = np.zeros(1, np.int64)
+        ords = np.zeros((8, 1), np.int32)
+    lay = np.arange(kv, dtype=np.int64)[perm2]  # global virtual id per slot
+    kvq = ((kv + 127) // 128) * 128
+    cb_lo, cb_hi = vb_lo[lay], vb_hi[lay]
+    cb_oct = np.full((8, 6, kvq), 2.0e30, np.float32)
+    ord_pad = np.zeros((8, kvq), np.int32)
+    for o in range(8):
+        po = ords[o]
+        cb_oct[o, 0:3, :kv] = cb_lo[po].T
+        cb_oct[o, 3:6, :kv] = cb_hi[po].T
+        ord_pad[o, :kv] = po
+    vi = np.zeros(kvq, np.int32)
+    vg = np.zeros(kvq, np.int32)
+    vi[:kv] = v_inst[lay]
+    vg[:kv] = v_chunk[lay]
+    return {
+        "cb_oct": cb_oct, "ord_oct": ord_pad, "vinst": vi, "vglob": vg,
+        "inst_f": s["inst_f"], "inst_rows": s["inst_rows"], "aux": s["aux"],
+        "origmap": s["origmap"], **_scene_box(vb_lo, vb_hi),
+    }
+
+
+def upload(tables: dict, device) -> dict:
+    """An engine's tables as tensors on ``device``, plus ``gates`` (an int:
+    the gate entries, the columns of ``cb_oct`` that are not 2e30 pads)."""
+    eng = {k: torch.from_numpy(np.array(v, order="C")).to(device) for k, v in tables.items()}
+    eng["gates"] = int((np.asarray(tables["cb_oct"])[0, 0] < 1e30).sum())
+    return eng
+
+
+def engine_name(eng: dict) -> str:
+    return "vwalk" if "vinst" in eng else "iwalk"
+
+
+def table_bytes(eng: dict) -> int:
+    """Bytes of an engine's tables."""
+    return sum(v.numel() * v.element_size() for v in eng.values() if torch.is_tensor(v))
+
+
+def _obj_rays(m, o, d):
+    """Rays ``o, d [n, 3]`` through the inverse rigid transform ``m [..., 12]``
+    (rotation rows m0..m8, translation m9..m11; one instance's, or one per
+    ray), in the JAX ``_obj_rays`` order. Rigid, so t is unchanged."""
+    r = [m[..., j] for j in range(12)]
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    o2 = torch.stack([r[0] * ox + r[1] * oy + r[2] * oz + r[9],
+                      r[3] * ox + r[4] * oy + r[5] * oz + r[10],
+                      r[6] * ox + r[7] * oy + r[8] * oz + r[11]], dim=1)
+    d2 = torch.stack([r[0] * dx + r[1] * dy + r[2] * dz,
+                      r[3] * dx + r[4] * dy + r[5] * dz,
+                      r[6] * dx + r[7] * dy + r[8] * dz], dim=1)
+    return o2, d2
+
+
+# --- kernel binding ---
+
+
+def _lib():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return load("iwalk_hit", {
+        "vwalk_closest": [i, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p, p, p],
+        "vwalk_any": [i, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p],
+        "iwalk_closest": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p, p, p],
+        "iwalk_any": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p],
+    })
+
+
+def _index_tables(eng):
+    """The engine's gate-entry index tables, in the kernels' argument order."""
+    return ("vinst", "vglob") if "vinst" in eng else ("inst_c",)
+
+
+def _check_cuda(eng, origin, direction, t_limit):
+    dev = origin.device
+    checks = [("aux", torch.float32), ("cb_oct", torch.float32), ("ord_oct", torch.int32),
+              ("inst_f", torch.float32)] + [(k, torch.int32) for k in _index_tables(eng)]
+    for name, x, dtype in [(k, eng[k], t) for k, t in checks] + [
+        ("origin", origin, torch.float32), ("direction", direction, torch.float32),
+        ("t_limit", t_limit, torch.float32),
+    ]:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.device != dev:
+            raise ValueError("all tensors must be on one device")
+        if x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype}")
+    aux, cb, od, inst_f = eng["aux"], eng["cb_oct"], eng["ord_oct"], eng["inst_f"]
+    if aux.data_ptr() % 16:
+        raise ValueError("aux must be 16-byte aligned (the kernels read it as float4)")
+    if aux.dim() != 2 or aux.shape[1] != AUX_COLS or aux.shape[0] % CH_W:
+        raise ValueError(f"aux must be [k*{CH_W}, {AUX_COLS}], got {tuple(aux.shape)}")
+    kq, n_inst = od.shape[-1], inst_f.shape[0]
+    if od.shape != (8, kq) or cb.shape != (8, 6, kq) or not 0 <= eng["gates"] <= kq:
+        raise ValueError("ord_oct must be [8, kq] and cb_oct [8, 6, kq], kq >= gates")
+    if inst_f.shape != (n_inst, 12):
+        raise ValueError("inst_f must be [I, 12]")
+    if "vinst" in eng:
+        if eng["vinst"].shape != (kq,) or eng["vglob"].shape != (kq,):
+            raise ValueError("vinst and vglob must be [kq]")
+    elif eng["inst_c"].shape != (n_inst, 2) or eng["gates"] > n_inst:
+        raise ValueError("inst_c must be [I, 2] and gates <= I")
+    n = origin.shape[0]
+    if origin.shape != (n, 3) or direction.shape != (n, 3) or t_limit.shape != (n,):
+        raise ValueError("origin/direction must be [N, 3] and t_limit [N]")
+
+
+def _num_flags(eng) -> int:
+    """The counters' flag slots: one per gate entry (vwalk: virtual chunk,
+    by layout slot; iwalk: instance, by id)."""
+    return eng["gates"] if "vinst" in eng else eng["inst_f"].shape[0]
+
+
+def _check_stats(eng, origin, stats):
+    if stats is not None and (stats.device != origin.device or stats.dtype != torch.int64
+                              or stats.shape != (5 + _num_flags(eng),)):
+        raise ValueError("stats must be an int64 [5 + gate entries] tensor on the rays' device")
+    return None if stats is None else stats.data_ptr()
+
+
+def _launch(eng, query, origin, direction, t_limit, outs, stats):
+    """Launch the engine's ``query`` ("closest" or "any") kernel."""
+    _check_cuda(eng, origin, direction, t_limit)
+    stats_ptr = _check_stats(eng, origin, stats)
+    key = f"{engine_name(eng)}_{query}"
+    fn = getattr(_lib(), key)
+    tables = [eng[k].data_ptr() for k in ("aux", "cb_oct", "ord_oct", *_index_tables(eng), "inst_f")]
+    dev = origin.device
+    LAUNCHES[key] += 1
+    err = fn(dev.index, *tables, eng["gates"], eng["ord_oct"].shape[1], origin.data_ptr(),
+             direction.data_ptr(), t_limit.data_ptr(), origin.shape[0],
+             *[x.data_ptr() for x in outs], stats_ptr, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{key} launch failed: cudaError {err}")
+
+
+def closest_cuda(eng, origin, direction, t_limit, stats=None):
+    """Kernel closest hit (vwalk or iwalk, by the engine) over rays in
+    sorted order (raw origin/direction, exit-clamped t_limit). Returns
+    ``(best_t [N] f32, slot [N] i32, inst [N] i32)``: the object-global
+    slot (chunk * 128 + lane) and the instance of the winner, or
+    (1e30, -1, -1) on a miss. ``stats``, a zeroed int64 CUDA tensor
+    [5 + gate entries] (virtual chunks, or instances), receives (blocks
+    with a live lane, gate entries visited, survivors skipped by the
+    window, lanes testing a staged chunk, staged chunks), then a 1 for
+    every gate entry visited."""
+    n, dev = origin.shape[0], origin.device
+    best_t = torch.empty(n, dtype=torch.float32, device=dev)
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    inst = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch(eng, "closest", origin, direction, t_limit, (best_t, slot, inst), stats)
+    return best_t, slot, inst
+
+
+def any_cuda(eng, origin, direction, t_limit, stats=None):
+    """Kernel shadow test (raw origin/direction, exit-clamped t_limit): bool
+    ``[N]``, False on dead and non-finite lanes. ``stats`` as for
+    `closest_cuda`."""
+    out = torch.empty(origin.shape[0], dtype=torch.bool, device=origin.device)
+    _launch(eng, "any", origin, direction, t_limit, (out,), stats)
+    return out
+
+
+# --- plain torch versions (same expressions, same order, ungated) ---
+
+
+def _columns(eng, device):
+    """The plain versions' columns: for each instance with chunks, in
+    instance order, its object chunks' slots. Returns the segments
+    ``[(instance, first aux row, end aux row, first column)]``, and per
+    column the object slot and the instance (int64 [S])."""
+    if "inst_c" in eng:
+        span = eng["inst_c"].to(device=device, dtype=torch.int64)
+    else:  # each instance's chunk range, from its virtual chunks
+        g = eng["gates"]
+        vi = eng["vinst"][:g].to(device=device, dtype=torch.int64)
+        vg = eng["vglob"][:g].to(device=device, dtype=torch.int64)
+        n_inst = eng["inst_f"].shape[0]
+        lo = torch.full((n_inst,), 1 << 62, dtype=torch.int64, device=device)
+        hi = torch.zeros(n_inst, dtype=torch.int64, device=device)
+        span = torch.stack([lo.scatter_reduce(0, vi, vg, "amin"),
+                            hi.scatter_reduce(0, vi, vg + 1, "amax")], dim=1)
+    segs, col = [], 0
+    for i, (c0, c1) in enumerate(span.tolist()):
+        if c1 > c0:
+            segs.append((i, c0 * CH_W, c1 * CH_W, col))
+            col += (c1 - c0) * CH_W
+    slot = torch.cat([torch.arange(a, b, device=device) for _, a, b, _ in segs])
+    inst = torch.cat([torch.full((b - a,), i, device=device) for i, a, b, _ in segs])
+    return segs, slot, inst
+
+
+def _rank_columns(eng, segs, col_slot, col_inst, device):
+    """``[8, S]`` visit rank of every column in each octant's order: vwalk:
+    position of its virtual chunk * CH_W + lane; iwalk: position of its
+    instance * S + its column within the instance (chunk * CH_W + lane)."""
+    n_inst, g = eng["inst_f"].shape[0], eng["gates"]
+    if "inst_c" in eng:
+        pos = _order_positions(eng["ord_oct"], g, n_inst, device)
+        start = torch.zeros(n_inst, dtype=torch.int64, device=device)
+        start[[i for i, *_ in segs]] = torch.tensor([c for *_, c in segs], device=device)
+        within = torch.arange(col_slot.numel(), device=device) - start[col_inst]
+        return pos[:, col_inst] * col_slot.numel() + within
+    # the column chunk of each virtual chunk: its instance's first column
+    # chunk plus its object chunk's offset in the instance's range
+    vi = eng["vinst"][:g].to(device=device, dtype=torch.int64)
+    vg = eng["vglob"][:g].to(device=device, dtype=torch.int64)
+    first_col = torch.zeros(n_inst, dtype=torch.int64, device=device)
+    first_row = torch.zeros(n_inst, dtype=torch.int64, device=device)
+    first_col[[i for i, *_ in segs]] = torch.tensor([c // CH_W for *_, c in segs], device=device)
+    first_row[[i for i, *_ in segs]] = torch.tensor([a // CH_W for _, a, _, _ in segs], device=device)
+    vcol = torch.empty(g, dtype=torch.int64, device=device)
+    vcol[first_col[vi] + vg - first_row[vi]] = torch.arange(g, device=device)
+    pos = _order_positions(eng["ord_oct"], g, g, device)
+    j = torch.arange(col_slot.numel(), device=device)
+    return pos[:, vcol[j // CH_W]] * CH_W + j % CH_W
+
+
+def _plain_steps(eng, origin, direction, t_limit):
+    """The plain versions' work list: the segments and column maps
+    (`_columns`), the plane rows and inverse transforms in the rays' dtype,
+    the live lanes' rows, and steps of (o, d, t_limit [n, 1], start) over
+    the live lanes bounded by the pairs budget."""
+    dev = origin.device
+    o, d, tl = _lanes(origin, direction, t_limit)
+    live = (tl > 0.0).nonzero()[:, 0]
+    segs, col_slot, col_inst = _columns(eng, dev)
+    planes = eng["aux"][:, :12].to(origin.dtype)
+    inst_f = eng["inst_f"].to(origin.dtype)
+    step = max(1, _PLAIN_PAIRS[dev.type] // max(col_slot.numel(), 1))
+    o, d, tl = o[live], d[live], tl[live]
+    steps = [(o[s : s + step], d[s : s + step], tl[s : s + step, None], s)
+             for s in range(0, live.numel(), step)]
+    return segs, col_slot, col_inst, planes, inst_f, live, steps
+
+
+def closest_plain(eng, origin, direction, t_limit):
+    """Plain version of `closest_cuda` (any device, any float dtype: run in
+    float64 it is the precision oracle)."""
+    n, dev = origin.shape[0], origin.device
+    segs, col_slot, col_inst, planes, inst_f, live, steps = _plain_steps(
+        eng, origin, direction, t_limit)
+    oct_live = _block_octant(direction)[live]
+    rank = _rank_columns(eng, segs, col_slot, col_inst, dev) if steps else None
+    best_t = torch.full((n,), _BIG, dtype=origin.dtype, device=dev)
+    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for o, d, tl, s in steps:
+        tm = torch.cat([_candidate_t(planes[a:b], *_obj_rays(inst_f[i], o, d), tl)
+                        for i, a, b, _ in segs], dim=1)
+        bt, first = _closest_columns(tm, rank, oct_live[s : s + o.shape[0]])
+        rows = live[s : s + o.shape[0]]
+        hit = bt < _BIG
+        best_t[rows] = bt
+        slot[rows] = torch.where(hit, col_slot[first], -1).to(torch.int32)
+        inst[rows] = torch.where(hit, col_inst[first], -1).to(torch.int32)
+    return best_t, slot, inst
+
+
+def any_plain(eng, origin, direction, t_limit):
+    """Plain version of `any_cuda`: an ungated OR over every (instance,
+    object chunk) pair."""
+    segs, _, _, planes, inst_f, live, steps = _plain_steps(eng, origin, direction, t_limit)
+    out = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+    for o, d, tl, s in steps:
+        hit = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for i, a, b, _ in segs:
+            hit |= _shadow_hits(planes[a:b], *_obj_rays(inst_f[i], o, d), tl).any(dim=1)
+        out[live[s : s + o.shape[0]]] = hit
+    return out
+
+
+# --- public queries (the JAX iwalk_* contracts) ---
+
+
+def iwalk_closest_hit_shade(eng: dict, origin, direction, t_limit):
+    """Closest hit through instances: ``(tri_idx i32, t, u, v, normal_world
+    [N,3], model i32, inst i32)`` — tri_idx in the engine's global
+    object-tri order, -1 on a miss (t = t_limit, u = v = 0, zero normal and
+    model, inst -1). The normal is the object-space barycentric
+    interpolation rotated to world, unnormalised."""
+    o, d, tl = _f32(origin, direction, t_limit)
+    order, o_s, d_s, tl_s = _sorted_rays(eng, o, d, tl)
+    run = closest_plain if o.device.type == "cpu" else closest_cuda
+    _, slot, inst = run(eng, o_s, d_s, tl_s)
+    slot = _unsort_rows(slot, order)
+    inst = _unsort_rows(inst, order)
+    hit = slot >= 0
+    # the winner's object-space ray, in the kernels' transform order
+    irow = eng["inst_rows"].index_select(0, inst.clamp(min=0))
+    out = _epilogue(eng["aux"], slot, *_obj_rays(irow, o, d))
+    nx, ny, nz = out[:, 4], out[:, 5], out[:, 6]
+    # deferred normal transform: world n = forward rotation @ object n
+    normal = torch.stack([irow[:, 12] * nx + irow[:, 13] * ny + irow[:, 14] * nz,
+                          irow[:, 15] * nx + irow[:, 16] * ny + irow[:, 17] * nz,
+                          irow[:, 18] * nx + irow[:, 19] * ny + irow[:, 20] * nz], dim=1)
+    t = torch.where(hit, out[:, 0], tl)
+    u = torch.where(hit, out[:, 2], 0.0)
+    v = torch.where(hit, out[:, 3], 0.0)
+    normal = torch.where(hit[:, None], normal, 0.0)
+    orig = torch.where(hit, eng["origmap"].index_select(0, slot.clamp(min=0)), -1)
+    return orig, t, u, v, normal, out[:, 7].to(torch.int32), torch.where(hit, inst, -1)
+
+
+def iwalk_any_hit(eng: dict, origin, direction, t_limit) -> torch.Tensor:
+    """True where a hit with EPSILON < t < t_limit exists (unsorted rays)."""
+    o, d, tl = _f32(origin, direction, t_limit)
+    tl = _exit_clamp(eng, o, d, tl).contiguous()
+    if o.device.type == "cpu":
+        return any_plain(eng, o, d, tl)
+    return any_cuda(eng, o, d, tl)
+
+
+def iwalk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") -> dict:
+    """Gate economics of one ``query`` ("closest" or "any") on the card, with
+    the public query's ray order: ``blocks`` (with a live lane), ``visits``
+    (gate entries a block visited: virtual chunks or instances),
+    ``skipped`` (gated survivors the live window skipped), ``lane_visits``
+    (lanes testing a staged chunk), ``stagings`` (chunks staged), summed
+    over blocks, and ``entries`` (distinct gate entries visited). CUDA
+    tensors only."""
+    o, d, tl = _f32(origin, direction, t_limit)
+    stats = torch.zeros(5 + _num_flags(eng), dtype=torch.int64, device=o.device)
+    if query == "closest":
+        _, o_s, d_s, tl_s = _sorted_rays(eng, o, d, tl)
+        closest_cuda(eng, o_s, d_s, tl_s, stats=stats)
+    else:
+        any_cuda(eng, o, d, _exit_clamp(eng, o, d, tl).contiguous(), stats=stats)
+    blocks, visits, skipped, lane_visits, stagings = (int(x) for x in stats[:5].cpu())
+    return {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
+            "stagings": stagings, "entries": int(stats[5:].sum())}

@@ -1,10 +1,13 @@
 """Closest-hit and any-hit queries (port of the engine dispatch in
 ``path_tracer_tpu/trace/traversal.py:274-411``).
 
-A triangle table (see `scene.scene.Scene.device`) carries either ``walk``
-tables (world soups above 16,384 triangles) or ``dense`` ones (everything
-else, lights included); both queries go to that engine.
-`brute_force_closest` is the sequential O(T) oracle for tests.
+A geometry table (see `scene.scene.Scene.device`) is the scene's
+``twolevel`` dict, whose ``iwalk`` entry holds a two-level engine (vwalk or
+iwalk, `trace.iwalk`), or a triangle table carrying either ``walk`` tables
+(world soups above 16,384 triangles) or ``dense`` ones (everything else,
+lights included); both queries go to that engine. This is the one place
+the engine is chosen. `brute_force_closest` is the sequential O(T) oracle
+for tests.
 """
 
 from __future__ import annotations
@@ -13,13 +16,17 @@ import torch
 
 from path_tracer_tpu_torch.core.constants import EPSILON
 from path_tracer_tpu_torch.trace.dense_cuda import dense_any_hit, dense_closest_hit_shade
+from path_tracer_tpu_torch.trace.iwalk import iwalk_any_hit, iwalk_closest_hit_shade
 from path_tracer_tpu_torch.trace.walk import walk_any_hit, walk_closest_hit_shade
 
 
 def closest_hit_shade(tri: dict, origin, direction, t_limit):
     """Closest intersection plus the winner's shading fetch: ``(tri_idx, t,
     u, v, normal_raw [N,3], model)``; ``tri_idx == -1`` is a miss (t is the
-    limit, u = v = 0)."""
+    limit, u = v = 0). On a two-level engine the normal is already rotated
+    to world space."""
+    if "iwalk" in tri:
+        return iwalk_closest_hit_shade(tri["iwalk"], origin, direction, t_limit)[:6]
     if "walk" in tri:
         return walk_closest_hit_shade(tri["walk"], origin, direction, t_limit)
     return dense_closest_hit_shade(tri["dense"], origin, direction, t_limit)
@@ -35,6 +42,8 @@ def closest_hit(tri: dict, origin, direction, t_limit):
 def any_hit(tri: dict, origin, direction, t_limit):
     """True where an intersection with EPSILON < t < t_limit exists (the
     shadow test, ``TLAS::any_intersect``)."""
+    if "iwalk" in tri:
+        return iwalk_any_hit(tri["iwalk"], origin, direction, t_limit)
     if "walk" in tri:
         return walk_any_hit(tri["walk"], origin, direction, t_limit)
     return dense_any_hit(tri["dense"], origin, direction, t_limit)

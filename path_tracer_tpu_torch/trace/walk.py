@@ -422,15 +422,62 @@ def _walk_terms(planes, o, d):
     return det, td, ud, vd
 
 
+def _order_positions(ord_oct, k, n_ids, device):
+    """``[8, n_ids]`` position of each id in the first ``k`` columns of each
+    octant's order ``ord_oct`` (``k`` for an id that is not among them)."""
+    ordk = ord_oct[:, :k].to(device=device, dtype=torch.int64)
+    inv = torch.full((8, n_ids), k, dtype=torch.int64, device=device)
+    return inv.scatter_(1, ordk, torch.arange(k, device=device).expand(8, k))
+
+
 def _rank_table(eng, device):
     """``[8, S]`` visit rank of every slot in each octant's order:
     position in ``ord_oct`` * CH_W + lane."""
     k = num_chunks(eng)
-    ordk = eng["ord_oct"][:, :k].to(device=device, dtype=torch.int64)
-    inv = torch.empty_like(ordk)
-    inv.scatter_(1, ordk, torch.arange(k, device=device).expand(8, k))
+    inv = _order_positions(eng["ord_oct"], k, k, device)
     s = torch.arange(k * CH_W, device=device)
     return inv[:, s // CH_W] * CH_W + s % CH_W
+
+
+def _candidate_t(planes, o, d, tl):
+    """``[n, S]`` candidate t of rays ``o, d [n, 3]`` (limits ``tl [n, 1]``)
+    against plane rows ``[S, >=12]``, ``_BIG`` where there is no hit: the
+    closest kernels' arithmetic (exact reciprocal, one Newton step)."""
+    det, td, ud, vd = _walk_terms(planes, o, d)
+    c2 = _same(ud, det - ud)
+    c3 = _same(vd, det - ud - vd)
+    safe = torch.where(det == 0.0, 1.0, det)
+    r = 1.0 / safe
+    r = r * (2.0 - safe * r)  # one Newton step, as on the TPU
+    t = td * r
+    ok = c2 & c3 & (det != 0.0) & (t > EPSILON) & (t < tl)
+    return torch.where(ok, t, _BIG)
+
+
+def _shadow_hits(planes, o, d, tl):
+    """``[n, S]`` shadow-test verdicts, the any-hit kernels' division-free
+    sign tests (arguments as for `_candidate_t`)."""
+    det, td, ud, vd = _walk_terms(planes, o, d)
+    c1 = _same(td - det * EPSILON, det * tl - td)
+    c2 = _same(ud, det - ud)
+    c3 = _same(vd, det - ud - vd)
+    return c1 & c2 & c3 & (det != 0.0)
+
+
+def _closest_columns(tm, rank, octs):
+    """(minimum t, winning column) of each row of ``tm [n, S]``: among the
+    columns at the minimum t, the one of lowest visit rank
+    (``rank [8, S]`` at the row's block octant ``octs [n]``) wins, as in the
+    kernels (strict < over the visit order)."""
+    bt = tm.min(dim=1).values
+    at_min = tm == bt[:, None]
+    first = torch.argmax(at_min.to(torch.uint8), dim=1)
+    # a tie (two columns at the minimum t): the first in visit order wins
+    tie = ((at_min.sum(dim=1) > 1) & (bt < _BIG)).nonzero()[:, 0]
+    if tie.numel():
+        cand = torch.where(at_min[tie], rank[octs[tie]], torch.iinfo(torch.int64).max)
+        first[tie] = cand.argmin(dim=1)
+    return bt, first
 
 
 def _live_steps(eng, origin, direction, t_limit):
@@ -456,23 +503,7 @@ def closest_plain(eng, origin, direction, t_limit):
     best_t = torch.full((n,), _BIG, dtype=origin.dtype, device=dev)
     slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
     for o, d, tl, s in steps:
-        det, td, ud, vd = _walk_terms(planes, o, d)
-        c2 = _same(ud, det - ud)
-        c3 = _same(vd, det - ud - vd)
-        safe = torch.where(det == 0.0, 1.0, det)
-        r = 1.0 / safe
-        r = r * (2.0 - safe * r)  # one Newton step, as on the TPU
-        t = td * r
-        ok = c2 & c3 & (det != 0.0) & (t > EPSILON) & (t < tl)
-        tm = torch.where(ok, t, _BIG)
-        bt = tm.min(dim=1).values
-        at_min = tm == bt[:, None]
-        first = torch.argmax(at_min.to(torch.uint8), dim=1)
-        # a tie (two slots at the minimum t): the first in visit order wins
-        tie = ((at_min.sum(dim=1) > 1) & (bt < _BIG)).nonzero()[:, 0]
-        if tie.numel():
-            cand = torch.where(at_min[tie], rank[oct_live[s + tie]], rank.shape[1])
-            first[tie] = cand.argmin(dim=1)
+        bt, first = _closest_columns(_candidate_t(planes, o, d, tl), rank, oct_live[s : s + o.shape[0]])
         rows = live[s : s + o.shape[0]]
         best_t[rows] = bt
         slot[rows] = torch.where(bt < _BIG, first, -1).to(torch.int32)
@@ -484,11 +515,7 @@ def any_plain(eng, origin, direction, t_limit):
     planes, live, steps = _live_steps(eng, origin, direction, t_limit)
     out = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
     for o, d, tl, s in steps:
-        det, td, ud, vd = _walk_terms(planes, o, d)
-        c1 = _same(td - det * EPSILON, det * tl - td)
-        c2 = _same(ud, det - ud)
-        c3 = _same(vd, det - ud - vd)
-        out[live[s : s + o.shape[0]]] = (c1 & c2 & c3 & (det != 0.0)).any(dim=1)
+        out[live[s : s + o.shape[0]]] = _shadow_hits(planes, o, d, tl).any(dim=1)
     return out
 
 

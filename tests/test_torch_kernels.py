@@ -1,5 +1,6 @@
-"""The CUDA kernels of ``path_tracer_tpu_torch/csrc/dense_hit.cu`` and
-``walk_hit.cu`` against their plain torch versions, on the card.
+"""The CUDA kernels of ``path_tracer_tpu_torch/csrc/dense_hit.cu``,
+``walk_hit.cu`` and ``iwalk_hit.cu`` against their plain torch versions, on
+the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 nothing of JAX, so it runs on a machine that has only the port's
@@ -17,7 +18,9 @@ import torch
 
 from path_tracer_tpu_torch.scene import procedural
 from path_tracer_tpu_torch.scene import triangle as tri_mod
+from path_tracer_tpu_torch.scene.model import Model, rigid_transform, rotation_y
 from path_tracer_tpu_torch.trace import dense_cuda as dc
+from path_tracer_tpu_torch.trace import iwalk
 from path_tracer_tpu_torch.trace import walk
 
 
@@ -195,3 +198,117 @@ def test_walk_stats_counts(walk_case):
                                                  walk.closest_cuda(eng, o_s, d_s, tl_s)))
     with pytest.raises(ValueError):
         walk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats[:-1])
+
+
+@pytest.fixture(params=["vwalk", "iwalk"])
+def iwalk_case(request, cuda):
+    """A two-level engine (vwalk or iwalk) over three instances of a
+    3,200-triangle bumpy sphere and two of a box (tests/test_iwalk.py's
+    models), and 1,024 rays toward them with dead, finite-limit and NaN
+    lanes, sorted and clamped as the public query hands them to the
+    kernels."""
+    rng = np.random.default_rng(13)
+    sp, sn = procedural.bumpy_sphere(nu=40, nv=40)
+    bp, bn = procedural.box((0.0, 0.0, 0.0), (0.6, 0.6, 0.6))
+    models = [
+        Model(None, matrices=[rigid_transform(rotation_y(a), t) for a, t in (
+            (0.5, (-2.0, 0.0, 0.0)), (1.7, (2.0, 0.3, 0.5)), (2.9, (0.0, -0.4, -2.0)))],
+            positions=sp, normals=sn),
+        Model(None, matrices=[rigid_transform(rotation_y(a), t) for a, t in (
+            (0.9, (0.0, 1.8, 0.0)), (2.1, (0.0, 0.0, 2.2)))], positions=bp, normals=bn),
+    ]
+    pack = iwalk.pack_vwalk if request.param == "vwalk" else iwalk.pack_iwalk
+    eng = iwalk.upload(pack(models), cuda)
+    n = 1024
+    o = rng.normal(size=(n, 3))
+    o = (6.0 * o / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+    d = -o + 0.6 * rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tl = np.full(n, np.inf, np.float32)
+    tl[:64] = 0.0
+    tl[64:128] = rng.uniform(3.0, 6.0, 64)
+    o[128:136] = np.nan
+    d[136:144] = np.nan
+    o, d, tl = (torch.from_numpy(x).to(cuda) for x in (o, d, tl))
+    _, o_s, d_s, tl_s = walk._sorted_rays(eng, o, d, tl)
+    return eng, (o, d, tl), (o_s, d_s, tl_s)
+
+
+def test_two_level_closest_kernel_equals_plain(iwalk_case):
+    eng, _, rays = iwalk_case
+    key = f"{iwalk.engine_name(eng)}_closest"
+    n0 = dc.LAUNCHES[key]
+    k = iwalk.closest_cuda(eng, *rays)
+    assert dc.LAUNCHES[key] == n0 + 1
+    p = iwalk.closest_plain(eng, *rays)
+    assert (k[1] >= 0).sum() > 300
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    dead = ~walk._valid(*rays)
+    assert (k[1][dead] == -1).all() and (k[2][dead] == -1).all()
+
+
+def test_two_level_any_kernel_equals_plain(iwalk_case):
+    eng, _, (o, d, tl) = iwalk_case
+    key = f"{iwalk.engine_name(eng)}_any"
+    kt, ks, _ = iwalk.closest_cuda(eng, o, d, tl)
+    for scale in (0.99, 1.01):
+        lim = torch.where(ks >= 0, kt * scale, tl).contiguous()
+        n0 = dc.LAUNCHES[key]
+        k = iwalk.any_cuda(eng, o, d, lim)
+        assert dc.LAUNCHES[key] == n0 + 1
+        assert torch.equal(k, iwalk.any_plain(eng, o, d, lim))
+        hit = ks >= 0
+        assert bool(k[hit].all()) if scale > 1 else not bool(k[hit].any())
+    assert not iwalk.any_cuda(eng, o, d, tl)[~walk._valid(o, d, tl)].any()
+
+
+def test_two_level_queries_on_card_equal_cpu(iwalk_case):
+    """The public two-level queries launch the kernels on CUDA tensors and
+    give the same bits as the plain versions on CPU tensors."""
+    eng, (o, d, tl), _ = iwalk_case
+    eng_cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in eng.items()}
+    name = iwalk.engine_name(eng)
+    n0 = dict(dc.LAUNCHES)
+    gpu = iwalk.iwalk_closest_hit_shade(eng, o, d, tl)
+    cpu = iwalk.iwalk_closest_hit_shade(eng_cpu, o.cpu(), d.cpu(), tl.cpu())
+    ok = (torch.isfinite(o).all(1) & torch.isfinite(d).all(1)).cpu()
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu()[ok], b[ok])
+    assert torch.equal(iwalk.iwalk_any_hit(eng, o, d, tl).cpu(),
+                       iwalk.iwalk_any_hit(eng_cpu, o.cpu(), d.cpu(), tl.cpu()))
+    assert dc.LAUNCHES[f"{name}_closest"] == n0[f"{name}_closest"] + 1
+    assert dc.LAUNCHES[f"{name}_any"] == n0[f"{name}_any"] + 1
+
+
+def test_two_level_kernel_rejects_bad_inputs(iwalk_case):
+    eng, _, (o, d, tl) = iwalk_case
+    with pytest.raises(ValueError):
+        iwalk.closest_cuda(eng, o.double(), d, tl)
+    with pytest.raises(ValueError):
+        iwalk.any_cuda(eng, o, d.t().contiguous().t(), tl)
+    with pytest.raises(ValueError):
+        iwalk.closest_cuda({**eng, "inst_f": eng["inst_f"][:, :9].contiguous()}, o, d, tl)
+    with pytest.raises(ValueError):
+        iwalk.any_cuda({**eng, "gates": eng["ord_oct"].shape[1] + 1}, o, d, tl)
+    with pytest.raises(ValueError):
+        iwalk.any_cuda({k: v.cpu() if torch.is_tensor(v) else v for k, v in eng.items()}, o, d, tl)
+
+
+def test_two_level_stats_counts(iwalk_case):
+    """The counters of both two-level kernels: live blocks, gate entries
+    visited, staged chunks (one per visit for vwalk, the instance's range
+    for iwalk), lanes per staging; a counted launch's results equal an
+    uncounted one's."""
+    eng, (o, d, tl), (o_s, d_s, tl_s) = iwalk_case
+    for query in ("closest", "any"):
+        s = iwalk.iwalk_stats(eng, o, d, tl, query=query)
+        assert 0 < s["blocks"] <= 8 and 0 < s["entries"] <= eng["gates"]
+        assert s["visits"] >= s["entries"] and s["stagings"] >= s["visits"]
+        assert 0 < s["lane_visits"] <= 128 * s["stagings"]
+        if iwalk.engine_name(eng) == "vwalk":
+            assert s["stagings"] == s["visits"]
+    stats = torch.zeros(5 + iwalk._num_flags(eng), dtype=torch.int64, device=o.device)
+    assert all(torch.equal(a, b) for a, b in zip(iwalk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats),
+                                                 iwalk.closest_cuda(eng, o_s, d_s, tl_s)))
+    with pytest.raises(ValueError):
+        iwalk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats[:-1])

@@ -1,8 +1,9 @@
 """The whole slice: the port's ``render_sample`` against the JAX package's on
 identical scene tables, with the JAX side running the Pallas dense kernels
 in interpret mode inside its bounce loop (its scene dict gets ``dense_pl``
-as ``Scene.device()`` builds it on a TPU, or ``walk`` for a world soup above
-16,384 triangles). 16x16, 2 spp, 8 bounces.
+as ``Scene.device()`` builds it on a TPU, ``walk`` for a world soup above
+16,384 triangles, or a two-level engine, vwalk or iwalk, in
+``twolevel["iwalk"]``). 16x16, 2 spp, 8 bounces.
 
 Pixel-exact equality is not expected: XLA fuses products and sums into FMAs
 and its transcendentals differ from torch's in the last bit, which moves
@@ -21,12 +22,15 @@ import torch
 from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.integrator.wavefront import render_sample as jrender
+from path_tracer_tpu.scene.scene import Scene as JScene
+from path_tracer_tpu.trace import iwalk as jiwalk
 from path_tracer_tpu.trace import walk as jwalk
 from path_tracer_tpu.trace.dense_pallas import pack_dense_pl, pack_dense_pl_aux, pack_dense_pl_cab
 from path_tracer_tpu_torch import scenes as tscenes
 from path_tracer_tpu_torch.camera import ray_directions
 from path_tracer_tpu_torch.integrator import wavefront as tw
 from path_tracer_tpu_torch.scene.scene import from_jax_scene
+from path_tracer_tpu_torch.trace import iwalk as tiwalk
 
 W = H = 16
 SPP, BOUNCES = 2, 8
@@ -59,8 +63,25 @@ def _jax_scene_with_walk(sh):
     return jd
 
 
+def _jax_two_level(packer):
+    """The JAX scene dict for ``packer``: the two-level device dict with its
+    engine set by hand, as ``tests/test_twolevel.py:141-143`` does (its
+    ``Scene.device()`` packs the engine only on a TPU)."""
+
+    def build(sh):
+        two = JScene(sh.models, env=sh.env, two_level=True)
+        jd = two.device()
+        assert not jd["tri"]
+        jd["twolevel"]["iwalk"] = {k: jnp.asarray(v) for k, v in packer(two.models).items()}
+        return jd
+
+    return build
+
+
 # dragon_scene cut to 24,588 world tris: above the dense engine's 16,384
 DRAGON_KW = {"nu": 96, "nv": 64, "env_h": 32}
+# many_instance_scene cut to 9 instances of an 80-tri icosphere
+MANY_KW = {"grid": 3, "subdivisions": 1}
 
 
 def _render_both(name, engine=_jax_scene_with_dense_pl, **kw):
@@ -124,6 +145,47 @@ def test_from_jax_scene_walk_tables():
     for k in ("normals_flat", "model_rows"):
         assert torch.equal(ported["tri"][k], port["tri"][k]), k
     torch.testing.assert_close(ported["env"], port["env"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("packer", [jiwalk.pack_vwalk, jiwalk.pack_iwalk], ids=["vwalk", "iwalk"])
+def test_render_sample_two_level_matches_jax(packer):
+    """many_instance_scene two-level: every world query through a two-level
+    engine on both sides (the shade dict's world normal, rotated by the
+    instance's forward rotation, and its model id)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        j, t = _render_both("many_instance_scene", engine=_jax_two_level(packer), **MANY_KW)
+    _assert_slice_agrees(j, t)
+
+
+def test_from_jax_scene_two_level_tables():
+    """``from_jax_scene`` of a JAX two-level dict gives the port's own
+    two-level ``Scene.device`` tables bit for bit (both engines), an empty
+    ``tri``, and the same light tables; a multi-part engine raises."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        jsh, _ = jscenes.many_instance_scene(**MANY_KW)
+        jd = _jax_two_level(jiwalk.pack_vwalk)(jsh)
+        parts = jiwalk.pack_vwalk(jsh.models, split_vch=4)
+    tsh, _ = tscenes.many_instance_scene(**MANY_KW, two_level=True)
+    assert tsh.num_world_tris == jsh.num_world_tris == 732  # 12 shell + 9 x 80
+    ported = from_jax_scene(jax.tree_util.tree_map(np.asarray, jd), "cpu")
+    for engine, jeng in (("vwalk", None), ("iwalk", jiwalk.pack_iwalk(jsh.models))):
+        port = tsh.device("cpu", engine=engine)
+        assert port["tri"] == {} and "dense" in port["light"]
+        if jeng is not None:
+            jd["twolevel"]["iwalk"] = jeng
+            ported = from_jax_scene(jax.tree_util.tree_map(np.asarray, jd), "cpu")
+        assert ported["tri"] == {}
+        got, want = ported["twolevel"]["iwalk"], port["twolevel"]["iwalk"]
+        assert tiwalk.engine_name(want) == engine and got.keys() == want.keys()
+        for k, v in want.items():
+            assert (got[k] == v) if k == "gates" else torch.equal(got[k], v), k
+        for k, v in port["light"]["dense"].items():
+            assert torch.equal(ported["light"]["dense"][k], v), k
+    jd["twolevel"]["iwalk"] = parts
+    with pytest.raises(NotImplementedError):
+        from_jax_scene(jax.tree_util.tree_map(np.asarray, jd), "cpu")
 
 
 def test_shade_epilogue_matches_gathered_normals():
