@@ -6,9 +6,9 @@ Phases (any failure raises and the script exits non-zero without the final
 ``ok`` line):
 
 1. environment: torch, CUDA, the card's name and power limit;
-2. build both kernel sources (``dense_hit.cu``, ``walk_hit.cu``) from
-   ``path_tracer_tpu_torch/csrc``, one nvcc each, started together; print
-   ptxas registers and spills;
+2. build every kernel source (``dense_hit.cu``, ``walk_hit.cu``, and those
+   of phases 10 and 16) from ``path_tracer_tpu_torch/csrc``, one nvcc
+   each, started together; print ptxas registers and spills;
 3. dense kernels against their plain torch versions on ``mesh_scene``'s
    world table (65,536 camera + 65,536 random rays, with inf / 0 / NaN
    lanes), plus a float64 run of the plain closest hit as a precision
@@ -17,7 +17,7 @@ Phases (any failure raises and the script exits non-zero without the final
    rays, the any-hit over 1,179,648 shadow rays;
 4. the offline render of ``mesh_scene`` at 1024x576, 8 spp, 64 bounces
    through ``path_tracer_tpu_torch.cli``, with the kernels' launch counts;
-5. ``cornell_specular`` at 64x64, 4 spp rendered on the CPU (plain
+5. ``cornell_specular`` at 32x32, 4 spp rendered on the CPU (plain
    versions) and on the card (kernels): image means within 1%;
 6. walk kernels against their plain versions on the full ``dragon_scene``
    world table (884,748 tris; 32,768 camera + 32,768 random rays with inf /
@@ -26,7 +26,7 @@ Phases (any failure raises and the script exits non-zero without the final
    589,824 bounce rays in random directions from the camera hits, 1,179,648
    shadow rays toward the light), compared with the plain versions on
    16,384 rays of each, with visited and skipped chunks per block;
-8. the offline render of ``dragon_scene`` at 1024x576, 4 spp, 64 bounces
+8. the offline render of ``dragon_scene`` at 1024x576, 2 spp, 64 bounces
    through the CLI, with host build seconds, bounce steps and launch counts;
 9. ``dragon_scene(nu=96, nv=64, env_h=64)`` (24,588 tris, the walk engine)
    at 32x32, 4 spp on the CPU and on the card: image means within 1%;
@@ -44,7 +44,7 @@ Phases (any failure raises and the script exits non-zero without the final
     rays, 4,147,200 shadow rays), each compared with its plain version on
     16,384 rays (4,096 for the dragon's iwalk), with gate entries visited
     and chunks staged per block;
-13. ``dragon_scene --two-level`` through the CLI at 1024x576, 4 spp: host
+13. ``dragon_scene --two-level`` through the CLI at 1024x576, 2 spp: host
     build, engine table bytes against the baked walk's, trace, bounce
     steps, launch counts (vwalk > 0, walk 0);
 14. ``many_instance_scene --two-level`` through the CLI at 1920x1080, 4 spp
@@ -52,11 +52,32 @@ Phases (any failure raises and the script exits non-zero without the final
     1920x1080, 1 spp;
 15. ``many_instance_scene(grid=3, subdivisions=1)`` two-level at 32x32,
     4 spp: CPU against the card for both engines, and two-level against
-    baked on the card: image means within 1%.
+    baked on the card: image means within 1%;
+16. (with phase 2) ``dense_stream.cu`` and ``gather_probe.cu``, built in the
+    same call, their ptxas lines; (after phase 9) the streamed dense
+    kernels against their plain versions on the full dragon table packed
+    for the stream (55 parts, 1,760 chunks; 16,384 camera + 16,384 random
+    rays with inf / 0 / NaN lanes), the float64 plain closest hit on 4,096
+    of them, and the stream's public query against the walk's on the same
+    rays (hit flags equal; a different winner only at the same t);
+17. the stream kernels timed at the render's shapes in the integrator's
+    pixel order (589,824 camera, 589,824 bounce, 1,179,648 shadow rays),
+    each against its plain version on 16,384 rays of whole blocks, with
+    parts and chunks per block, beside the walk's public query on the same
+    rays (its sort included): the stream-vs-walk A/B;
+18. ``PT_WALK=0`` dragon_scene through the CLI at 1024x576, 1 spp, 64
+    bounces (stream launches > 0, walk 0), then the same render through the
+    walk in process (sample 0, the same seeds): image means within 1%;
+19. ``dragon_scene(nu=96, nv=64, env_h=64)`` with ``engine="stream"`` at
+    32x32, 4 spp on the CPU and on the card: image means within 1%;
+20. the gather probes (``python -m path_tracer_tpu_torch.probes.gather``):
+    row gather and in-tile gather kernels equal to their plain and library
+    versions, timed.
 
-Each render's launch counts are set to 0 just before it and read just
-after. ``bound_ms`` is the least time the card could take for the same work:
-the larger of the bytes the query must move over 3.35 TB/s and its float32
+Phases run in the order 1-9, 16-20, 10-15. Each render's launch counts
+(and the probes') are set to 0 just before it and read just after.
+``bound_ms`` is the least time the card could take for the same work: the
+larger of the bytes the query must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (H100 SXM data sheet), counting the ray x
 triangle pairs these rays need: every row for a live lane of a dense closest
 hit, rows up to the first hit for a dense shadow test. For a walk query the
@@ -71,7 +92,11 @@ charged (a tree over the boxes needs a few per ray). A two-level query
 the virtual chunks' world boxes, plus 30 operations per (ray, instance)
 whose chunks it enters (the object-space transform); its bytes count each
 needed OBJECT chunk's planes once, however many instances share it. No one
-PyTorch call computes these queries, so ``library_ms`` is null.
+PyTorch call computes these queries, so ``library_ms`` is null. A stream
+query's need is counted as a walk query's, over the stream's own chunks of
+512 triangles (``cab``). A probe's bound is its bytes: every row or entry
+read once and written once, with the indices; ``library_ms`` is
+``torch.index_select`` (row gather) or ``torch.gather`` (in-tile gather).
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -81,6 +106,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -92,7 +118,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "path_tracer_tpu_torch" / "_build"  # gitignored
 WIDTH, HEIGHT, SPP, MAX_BOUNCES = 1024, 576, 8, 64
-DRAGON_SPP = 4
+DRAGON_SPP = 2  # the baked and two-level dragon renders (4 until the stream phases came)
 CAMERA_GRID = 256  # 256 x 256 = 65,536 camera rays
 N_RANDOM = 65536
 WINNER_AGREE = 0.9999  # kernel vs plain, same f32 expressions
@@ -104,12 +130,15 @@ PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # float32 operations per ray x triangle pair, counted from the sources
 FLOPS = {"closest": 47, "any": 46, "walk_closest": 42, "walk_any": 41,
-         "vwalk_closest": 42, "vwalk_any": 41, "iwalk_closest": 42, "iwalk_any": 41}
+         "vwalk_closest": 42, "vwalk_any": 41, "iwalk_closest": 42, "iwalk_any": 41,
+         "stream_closest": 47, "stream_any": 46}
 XFORM_FLOPS = 30  # the object-space transform of one ray (iwalk_hit.cu obj_ray)
 DEVICE = "cuda"
 DENSE_SRC = "path_tracer_tpu_torch/csrc/dense_hit.cu"
 WALK_SRC = "path_tracer_tpu_torch/csrc/walk_hit.cu"
 IWALK_SRC = "path_tracer_tpu_torch/csrc/iwalk_hit.cu"
+STREAM_SRC = "path_tracer_tpu_torch/csrc/dense_stream.cu"
+PROBE_SRC = "path_tracer_tpu_torch/csrc/gather_probe.cu"
 REPLACES = {
     "closest": "path_tracer_tpu/trace/dense_pallas.py:391",
     "any": "path_tracer_tpu/trace/dense_pallas.py:503",
@@ -119,12 +148,17 @@ REPLACES = {
     "vwalk_any": "path_tracer_tpu/trace/iwalk.py:1116",
     "iwalk_closest": "path_tracer_tpu/trace/iwalk.py:340",
     "iwalk_any": "path_tracer_tpu/trace/iwalk.py:422",
+    "stream_closest": "path_tracer_tpu/trace/dense_stream.py:269",
+    "stream_any": "path_tracer_tpu/trace/dense_stream.py:391",
+    "row_gather": "benches/pallas_gather_probe.py:39",
+    "tile_gather": "benches/pallas_lane_gather_probe.py:45",
 }
 MANY_W, MANY_H, MANY_SPP = 1920, 1080, 4  # BASELINE config 5's film
 TWO_CAMERA, TWO_RANDOM = (256, 128), 32768  # phase 11's camera film and random rays
 SUBSET = 4096  # the float64 and iwalk subsets of the dragon's rays
 T_REL = 1e-5  # two-level vs baked t
 BAKED_AGREE = 0.999  # two-level vs baked hit flags and t
+STREAM_CAMERA, STREAM_RANDOM = (128, 128), 16384  # phase 16's camera film and random rays
 
 
 def check(ok, what) -> None:
@@ -414,13 +448,14 @@ def cross_backend(make, width, height, spp, engine=None):
 # --- the walk kernels (dragon_scene) ---
 
 
-def check_walk_closest(label, kt, ks, pt, ps, nan_lane) -> float:
-    """Kernel (best_t, slot) against plain on the same sorted rays; returns
-    max |t_kernel - t_plain| over the lanes whose winners agree."""
+def check_walk_closest(label, kt, ks, pt, ps, nan_lane, kind="walk") -> float:
+    """Kernel (best_t, slot) against plain on the same rays (sorted for the
+    walk); returns max |t_kernel - t_plain| over the lanes whose winners
+    agree."""
     same = ks == ps
     agree = same.float().mean().item()
     err = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
-    print(f"walk closest {label}: {ks.shape[0]} rays, winners equal to plain {agree:.6f}, "
+    print(f"{kind} closest {label}: {ks.shape[0]} rays, winners equal to plain {agree:.6f}, "
           f"max |t kernel - t plain| {err:.3g}, hits {(ps >= 0).float().mean().item():.3f}")
     check(agree >= WINNER_AGREE, (label, agree))
     check(bool((ks[nan_lane] == -1).all()), f"{label}: NaN lanes must report no hit")
@@ -903,6 +938,185 @@ def render_iwalk_in_process(sh_m, cam_m, card):
     return launches
 
 
+# --- the streamed dense kernels (dragon_scene, PT_WALK=0) and the probes ---
+
+
+def phase_stream(ds, dc, walk, eng, walk_eng, cam, dev, card):
+    """Phase 16: the stream kernels against their plain versions on the full
+    dragon table, float64, and the stream's public query against the
+    walk's."""
+    rng = np.random.default_rng(2468)
+    print(f"stream table: {ds.num_parts(eng)} parts, {eng['cab'].shape[0]} chunks, "
+          f"{eng['aux'].shape[0]} rows, {ds.table_bytes(eng) / 2**20:.1f} MiB")
+    o_cam, d_cam = camera_rays(cam, *STREAM_CAMERA, dev)
+    o_rnd = rng.uniform((-278, 0, -278), (278, 555, 278), (STREAM_RANDOM, 3)).astype(np.float32)
+    o = torch.cat([o_cam, torch.as_tensor(o_rnd, device=dev)])
+    d = torch.cat([d_cam, unit_rows(rng, STREAM_RANDOM, dev)])
+    n = o.shape[0]
+    tl = torch.full((n,), math.inf, device=dev)
+    lanes = edge_lanes(rng, o, d, tl, dev)
+    qo, qd, qt = dc._rays(o, d, tl)
+    nan_lane = ~(torch.isfinite(o).all(1) & torch.isfinite(d).all(1))
+    km, (kt, ki) = time_ms(lambda: ds.closest_cuda(eng, qo, qd, qt), 1)
+    pt, pi = ds.closest_plain(eng, qo, qd, qt)
+    errs = {"stream_closest": check_walk_closest("mixed", kt, ki, pt, pi, nan_lane, kind="stream")}
+    print(f"  stream closest on the {n} mixed rays: {km:.3f} ms ({card})")
+    rows = whole_blocks(rng, ds._valid(qo, qd, qt), SUBSET // 128)
+    _, i64 = ds.closest_plain({"aux": eng["aux"].double()}, qo[rows].double(), qd[rows].double(),
+                              qt[rows].double())
+    oracle_agree = (ki[rows] == i64).float().mean().item()
+    print(f"stream closest mixed: winners equal to the float64 plain version {oracle_agree:.6f} "
+          f"on {rows.numel()} rays")
+    check(oracle_agree >= ORACLE_AGREE, oracle_agree)
+    # any hit: limits around each ray's closest t, plus the edge lanes
+    scale = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+    tl_any = torch.where(torch.isinf(tl), torch.where(ki >= 0, kt, 1000.0) * scale, tl)
+    tl_any[torch.as_tensor(lanes[1152:1664], device=dev)] = math.inf
+    tl_anyc = torch.clamp(tl_any, max=3.0e38)
+    ka = ds.any_cuda(eng, qo, qd, tl_anyc)
+    errs["stream_any"] = check_any("stream mixed", ka, ds.any_plain(eng, qo, qd, tl_anyc), o, d, tl_any)
+    # the public query against the walk's on the same rays
+    sq = ds.dense_stream_closest_hit_shade(eng, o, d, tl)
+    wq = walk.walk_closest_hit_shade(walk_eng, o, d, tl)
+    hs, hw = sq[0] >= 0, wq[0] >= 0
+    flags = (hs == hw).float().mean().item()
+    other = hs & hw & (sq[0] != wq[0])
+    # a different winner must sit at the same t (two triangles meeting
+    # where the ray passes), to float32 rounding of the hit point
+    pscale = torch.maximum(wq[1].abs(), (o + d * wq[1][:, None]).abs().amax(1))
+    same_t = ((sq[1] - wq[1]).abs() <= T_REL * pscale)[other]
+    print(f"stream vs walk public query on {n} rays: hit flags equal {flags:.6f}, winners equal on "
+          f"{int((hs & hw & ~other).sum())} of {int((hs & hw).sum())} common hits; the "
+          f"{int(other.sum())} others at the same t (rel {T_REL:g} of the hit point's scale): "
+          f"{int(same_t.sum())}")
+    check(flags == 1.0 and bool(same_t.all()), (flags, int(other.sum()), int(same_t.sum())))
+    return errs
+
+
+def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card):
+    """Phase 17: the stream kernels at the render's shapes in pixel order,
+    against their plain versions, with their gate counters, need and bound,
+    beside the walk's public query on the same rays."""
+    rng = np.random.default_rng(1357)
+    o_f, d_f = camera_rays(cam, WIDTH, HEIGHT, dev)
+    nf = o_f.shape[0]
+    tl_f = torch.full((nf,), math.inf, device=dev)
+    ct, ci = ds.closest_cuda(eng, *dc._rays(o_f, d_f, tl_f))
+    hit = ci >= 0
+    p_hit = (o_f + d_f * torch.where(hit, ct, 0.0)[:, None]).contiguous()
+    d_b = unit_rows(rng, nf, dev)
+    tl_b = torch.where(hit, math.inf, 0.0)
+    o_sh = torch.cat([p_hit, p_hit]).contiguous()
+    vec = light_targets(rng, scene, 2 * nf, dev) - o_sh
+    dist = vec.norm(dim=1)
+    d_sh = (vec / dist[:, None]).contiguous()
+    tl_sh = torch.where(torch.cat([hit, hit]), dist * (1 - 5e-4), 0.0)
+    # each shadow ray's closest occluder (a soup index is a stream row)
+    occ = walk.walk_closest_hit_shade(walk_eng, o_sh, d_sh, tl_sh)[0]
+    spans = (eng["aux"][:, :12] != 0).any(1).view(-1, ds.CH).sum(1)
+    lo, hi = eng["cab"][:, 0:3].contiguous(), eng["cab"][:, 3:6].contiguous()
+    shapes = {
+        "camera": ("stream_closest", (o_f, d_f, tl_f), 3),
+        "bounce": ("stream_closest", (p_hit, d_b, tl_b), 1),
+        "shadow": ("stream_any", (o_sh, d_sh, tl_sh), 1),
+    }
+    results = {}
+    for name, (key, rays, reps) in shapes.items():
+        qo, qd, qt = dc._rays(*rays)
+        nq = qo.shape[0]
+        rows = whole_blocks(rng, ds._valid(qo, qd, qt), PLAIN_RAYS // 128)
+        nan_r = ~(torch.isfinite(qo[rows]).all(1) & torch.isfinite(qd[rows]).all(1))
+        if key == "stream_closest":
+            km, (kt, ki) = time_ms(lambda: ds.closest_cuda(eng, qo, qd, qt), reps)
+            pm, (pt, pi) = time_ms(lambda: ds.closest_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            err = check_walk_closest(f"render shape {name}", kt[rows], ki[rows], pt, pi, nan_r,
+                                     kind="stream")
+            pub_ms, _ = time_ms(lambda: ds.dense_stream_closest_hit_shade(eng, *rays), reps)
+            walk_ms, _ = time_ms(lambda: walk.walk_closest_hit_shade(walk_eng, *rays), reps)
+            pairs, used, _ = needed_work(walk, lo, hi, spans, qo, qd, qt, torch.where(ki >= 0, kt, qt))
+            out_bytes, query = 8, "closest"
+        else:
+            km, ka = time_ms(lambda: ds.any_cuda(eng, qo, qd, qt), reps)
+            pm, pa = time_ms(lambda: ds.any_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            err = check_any(f"stream render shape {name}", ka[rows], pa, qo[rows], qd[rows], qt[rows])
+            pub_ms, _ = time_ms(lambda: ds.dense_stream_any_hit(eng, *rays), reps)
+            walk_ms, _ = time_ms(lambda: walk.walk_any_hit(walk_eng, *rays), reps)
+            stop = torch.where(occ >= 0, occ // ds.CH, -1)
+            pairs, used, _ = needed_work(walk, lo, hi, spans, qo, qd, qt, qt, stop)
+            out_bytes, query = 1, "any"
+        stats = ds.stream_stats(eng, *rays, query=query)
+        bms, by = bound_ms(pairs * FLOPS[key],
+                           nq * (28 + out_bytes) + int(spans[used].sum()) * 48 + int(used.sum()) * 24)
+        blocks = max(stats["blocks"], 1)
+        results[name] = {"key": key, "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
+                         "rays": nq, "plain_rays": rows.numel(), "err": err, "stats": stats,
+                         "needed_pairs": pairs, "public_ms": pub_ms, "walk_ms": walk_ms}
+        print(f"time stream {name}: kernel {km:.3f} ms at {nq} rays, plain {pm:.3f} ms at "
+              f"{rows.numel()} rays, bound {bms:.4f} ms ({by}) from {pairs} needed pairs in "
+              f"{int(used.sum())} chunks; pairs the kernel tested {stats['lane_visits'] * ds.CH}; "
+              f"blocks with a live lane {stats['blocks']}, parts admitted per block "
+              f"{stats['parts'] / blocks:.1f}, chunks gated per block {stats['gated'] / blocks:.1f}, "
+              f"staged per block {stats['staged'] / blocks:.1f}, testing lanes per staged chunk "
+              f"{stats['lane_visits'] / max(stats['staged'], 1):.1f} ({card})")
+        print(f"A/B {name}: stream public query {pub_ms:.3f} ms, walk public query (sort "
+              f"included) {walk_ms:.3f} ms: stream / walk {pub_ms / walk_ms:.2f}")
+    return results
+
+
+def render_stream(sh, walk_scene, cam, card):
+    """Phase 18: ``PT_WALK=0`` dragon_scene through the CLI at 1 spp, then
+    the walk's render of the same sample in process: image means within
+    1%."""
+    from path_tracer_tpu_torch.integrator.wavefront import render_sample
+
+    os.environ["PT_WALK"] = "0"
+    launches, res = render_cli("dragon_scene", 1, card, ("stream_closest", "stream_any", "closest"),
+                               absent=("walk_closest", "walk_any"))
+    del os.environ["PT_WALK"]
+    check(res["engine"] == "stream", res["engine"])
+    print(f"dragon_scene PT_WALK=0 bounce steps: {launches['stream_any']} (one any-hit per step)")
+    ndc = torch.as_tensor(cam.view_proj_inverse(), device=DEVICE)
+    org = torch.as_tensor(cam.origin, device=DEVICE)
+    t0 = time.perf_counter()
+    rad, _, _, rays = render_sample(
+        walk_scene, ndc, org, 0, WIDTH, HEIGHT, max_bounces=MAX_BOUNCES,
+        has_lights="light" in walk_scene, spp=1, mtypes=sh.active_mtypes,
+        any_volumes=sh.has_volumes)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    walk_mean = rad.mean().item()
+    stream_mean = res["film"][..., :3].mean().item()
+    rel = abs(stream_mean - walk_mean) / walk_mean
+    print(f"dragon_scene 1 spp through the walk in process: trace {trace_s:.2f} s, "
+          f"{float(rays[:, 0].sum()) / trace_s / 1e6:.4f} Mrays/s; image mean {walk_mean:.6f}, "
+          f"stream {stream_mean:.6f}: rel diff {rel:.5f} (limit {MEAN_TOL}); trace stream / walk "
+          f"{res['trace_s'] / trace_s:.2f} ({card})")
+    check(rel <= MEAN_TOL, rel)
+    return launches
+
+
+def phase_probes(card):
+    """Phase 20: the gather probes through their entry point, launch counts
+    zeroed just before and read just after; returns their kernel rows."""
+    from path_tracer_tpu_torch.probes import gather
+
+    LAUNCHES = zero_launches()
+    out = gather.main([])
+    launches = dict(LAUNCHES)
+    print(f"probe launches {launches} ({card})")
+    check(launches["row_gather"] > 0 and launches["tile_gather"] > 0, launches)
+    r, w = out["rows"], out["tiles"][f"sublane wave {gather.WAVE}"]
+    rows = {}
+    for key, nbytes, ms, plain_ms, lib_ms, nq in (
+            ("row_gather", r["bytes"], r["kernel"]["ms"], r["plain"]["ms"], r["library"]["ms"],
+             r["rows"]),
+            ("tile_gather", w["bytes"], w["ms"], w["plain_ms"], w["library_ms"], w["lanes"])):
+        bms, by = bound_ms(0.0, nbytes)
+        rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                     "bound_by": by, "rays": nq, "plain_rays": nq, "launches": launches[key]}
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -915,10 +1129,11 @@ def main() -> int:
     from path_tracer_tpu_torch import scenes
     from path_tracer_tpu_torch.trace import cuda_lib
     from path_tracer_tpu_torch.trace import dense_cuda as dc
+    from path_tracer_tpu_torch.trace import dense_stream as ds
     from path_tracer_tpu_torch.trace import iwalk, walk
 
     t0 = time.perf_counter()
-    libs = cuda_lib.build("dense_hit", "walk_hit", "iwalk_hit")
+    libs = cuda_lib.build("dense_hit", "walk_hit", "iwalk_hit", "dense_stream", "gather_probe")
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in libs)})")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -930,7 +1145,7 @@ def main() -> int:
     errs, dense_t = phase_dense(dc, sh.device(DEVICE), cam, dev, card)
     dense_launches, _ = render_cli("mesh_scene", SPP, card, ("closest", "any"))
     print("cornell_specular:")
-    cross_backend(scenes.cornell_specular, 64, 64, 4)
+    cross_backend(scenes.cornell_specular, 32, 32, 4)  # 64x64 until the stream phases came
 
     t0 = time.perf_counter()
     sh, cam = scenes.dragon_scene(aspect=WIDTH / HEIGHT)
@@ -941,14 +1156,30 @@ def main() -> int:
           f"upload with walk packing {time.perf_counter() - t1:.1f} s")
     walk_errs, walk_t = phase_walk(walk, scene, cam, dev, card)
     errs.update(walk_errs)
-    walk_eng = scene["tri"]["walk"]  # phase 11 holds the two-level dragon against it
-    del scene
+    walk_eng = scene["tri"]["walk"]  # phases 16-18 and 11 hold other engines against it
     print(f"phases 6-7: {time.perf_counter() - t0:.1f} s")
     walk_launches, res = render_cli("dragon_scene", DRAGON_SPP, card,
                                     ("walk_closest", "walk_any", "closest"))
     print(f"dragon_scene bounce steps: {walk_launches['walk_any']} (one any-hit per step)")
     print("dragon_scene(nu=96, nv=64, env_h=64):")
     cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4)
+
+    t0 = time.perf_counter()
+    stream_scene = sh.device(DEVICE, engine="stream")
+    torch.cuda.synchronize()
+    print(f"dragon_scene upload with stream packing {time.perf_counter() - t0:.1f} s")
+    seng = stream_scene["tri"]["stream"]
+    errs.update(phase_stream(ds, dc, walk, seng, walk_eng, cam, dev, card))
+    stream_t = phase_stream_shapes(ds, dc, walk, seng, walk_eng, stream_scene, cam, dev, card)
+    for r in stream_t.values():
+        errs[r["key"]] = max(errs[r["key"]], r["err"])
+    del stream_scene, seng
+    print(f"phases 16-17: {time.perf_counter() - t0:.1f} s")
+    stream_launches = render_stream(sh, scene, cam, card)
+    del scene
+    print("dragon_scene(nu=96, nv=64, env_h=64), engine stream:")
+    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4, engine="stream")
+    probe_t = phase_probes(card)
 
     t0 = time.perf_counter()
     two_errs, sh2, scene2, veng, ieng = phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev,
@@ -988,20 +1219,26 @@ def main() -> int:
         "walk_closest": walk_t["bounce"], "walk_any": walk_t["shadow"],
         "vwalk_closest": two_t["dragon"]["bounce"], "vwalk_any": two_t["dragon"]["shadow"],
         "iwalk_closest": two_t["many"]["bounce"], "iwalk_any": two_t["many"]["shadow"],
+        "stream_closest": stream_t["bounce"], "stream_any": stream_t["shadow"],
+        **probe_t,
     }
     launches = {**{k: dense_launches[k] for k in ("closest", "any")},
                 **{k: walk_launches[k] for k in ("walk_closest", "walk_any")},
                 **{k: vwalk_launches[k] for k in ("vwalk_closest", "vwalk_any")},
-                **{k: iwalk_launches[k] for k in ("iwalk_closest", "iwalk_any")}}
+                **{k: iwalk_launches[k] for k in ("iwalk_closest", "iwalk_any")},
+                **{k: stream_launches[k] for k in ("stream_closest", "stream_any")},
+                **{k: r["launches"] for k, r in probe_t.items()}}
+    errs.update({k: 0.0 for k in probe_t})  # the probes are held to exact equality
     kernels = []
     for key, r in rows.items():
-        src = {"walk": WALK_SRC, "vwalk": IWALK_SRC, "iwalk": IWALK_SRC}.get(key.split("_")[0], DENSE_SRC)
+        src = {"walk": WALK_SRC, "vwalk": IWALK_SRC, "iwalk": IWALK_SRC, "stream": STREAM_SRC,
+               "row": PROBE_SRC, "tile": PROBE_SRC}.get(key.split("_")[0], DENSE_SRC)
         kernels.append({
             "name": key if "_" in key else f"dense_{key}", "route": "cuda",
             "source": src, "replaces": REPLACES[key],
             "launches": launches[key], "max_abs_err": errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "rays": r["rays"],
+            "library_ms": r.get("library_ms"), "rays": r["rays"],
             "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

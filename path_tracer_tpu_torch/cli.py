@@ -6,7 +6,10 @@ and a tonemapped PNG. ``--device`` picks the torch device (default ``cuda``;
 with no card it raises rather than falling back to the CPU). ``--two-level``
 keeps shared object-space tables plus instance transforms instead of baking
 instances to world space, and traces through the two-level kernels (vwalk,
-or iwalk above vwalk's cap); the engine is printed.
+or iwalk above vwalk's cap). ``PT_WALK=0`` in the environment switches the
+walk off as in the JAX package: a baked soup above 16,384 triangles then
+goes through the streamed dense kernels (``trace/dense_stream.py``). The
+world engine is printed.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ def main(argv=None) -> dict:
     from path_tracer_tpu_torch import scenes
     from path_tracer_tpu_torch.film import load_checkpoint, save_checkpoint, save_png
     from path_tracer_tpu_torch.integrator.wavefront import render_sample
-    from path_tracer_tpu_torch.trace import iwalk
+    from path_tracer_tpu_torch.scene.scene import env_engine, world_engine
+    from path_tracer_tpu_torch.trace import dense_stream, iwalk
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -71,17 +75,25 @@ def main(argv=None) -> dict:
     phases["scene build"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    scene = scene_host.device(device)
+    engine = env_engine(scene_host.num_world_tris, args.two_level)
+    scene = scene_host.device(device, engine)
     ndc = torch.as_tensor(cam.view_proj_inverse(), device=device)
     org = torch.as_tensor(cam.origin, device=device)
     _sync(device)
     phases["upload"] = time.perf_counter() - t0
-    engine = None
     if "twolevel" in scene:
         eng = scene["twolevel"]["iwalk"]
         engine = iwalk.engine_name(eng)
         print(f"two-level engine: {engine} ({eng['gates']} gate entries, "
               f"{iwalk.table_bytes(eng) / 2**20:.1f} MiB of tables)")
+    else:
+        engine = world_engine(scene_host.num_world_tris, engine)
+        extra = ""
+        if engine == "stream":
+            eng = scene["tri"]["stream"]
+            extra = (f" ({dense_stream.num_parts(eng)} parts, {eng['cab'].shape[0]} chunks, "
+                     f"{dense_stream.table_bytes(eng) / 2**20:.1f} MiB of tables)")
+        print(f"world engine: {engine}{extra}")
 
     start = 0
     film = torch.zeros((args.height, args.width, 4), dtype=torch.float32, device=device)

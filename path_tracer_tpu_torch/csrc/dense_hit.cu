@@ -24,7 +24,8 @@
 // gives the unculled answer. Culling is the first perf step of a later
 // change. The only skip is exact: a block whose rays all have t_limit <= 0
 // (dead lanes) returns at once, and the any-hit block stops once every ray
-// in it is resolved.
+// in it is resolved. The staging and the pair tests live in
+// dense_common.cuh, shared with the streamed engine (dense_stream.cu).
 //
 // Floating point. Built with -fmad=false and without --use_fast_math: every
 // product and sum is rounded on its own, in the order written below, which
@@ -35,57 +36,12 @@
 // recomputes the winner's t/u/v with a true reciprocal in
 // traversal._tri_intersect order.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dense_common.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;  // rays per block
 constexpr int TILE = 128;     // triangles per shared-memory tile
-constexpr int AUX_COLS = 24;
-constexpr float EPS = 5e-4f;  // core/constants.py EPSILON
-constexpr float BIG = 1e30f;  // "no winner" sentinel (dense_pallas._BIG)
-
-__device__ __forceinline__ bool same_sign(float a, float b) {
-  return (a >= 0.0f) == (b >= 0.0f);
-}
-
-// Stage triangles [base, base + TILE) into shared memory as three float4
-// planes per triangle: sh[k] = n0|d0, sh[TILE+k] = n1|d1, sh[2*TILE+k] = n2|d2.
-__device__ __forceinline__ void load_tile(const float* __restrict__ aux,
-                                          int n_tris, int base, float4* sh) {
-  for (int k = threadIdx.x; k < TILE; k += blockDim.x) {
-    const int i = base + k;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a, c = a;
-    if (i < n_tris) {
-      const float4* row = reinterpret_cast<const float4*>(aux + (size_t)i * AUX_COLS);
-      a = row[0];
-      b = row[1];
-      c = row[2];
-    }
-    sh[k] = a;
-    sh[TILE + k] = b;
-    sh[2 * TILE + k] = c;
-  }
-}
-
-// The four search terms of dense_pallas._chunk_terms_vpu.
-struct Terms {
-  float det, td, ud, vd;
-};
-
-__device__ __forceinline__ Terms terms(float ox, float oy, float oz, float dx,
-                                       float dy, float dz, float4 a, float4 b,
-                                       float4 c) {
-  Terms r;
-  r.det = dx * a.x + dy * a.y + dz * a.z;
-  r.td = a.w - (ox * a.x + oy * a.y + oz * a.z);
-  r.ud = r.det * ((ox * b.x + oy * b.y + oz * b.z) + b.w) +
-         r.td * (dx * b.x + dy * b.y + dz * b.z);
-  r.vd = r.det * ((ox * c.x + oy * c.y + oz * c.z) + c.w) +
-         r.td * (dx * c.x + dy * c.y + dz * c.z);
-  return r;
-}
 
 __global__ void __launch_bounds__(THREADS)
 closest_kernel(const float* __restrict__ aux, int n_tris,
@@ -111,20 +67,15 @@ closest_kernel(const float* __restrict__ aux, int n_tris,
   int best = -1;
   if (__syncthreads_or(live)) {
     for (int base = 0; base < n_tris; base += TILE) {
-      load_tile(aux, n_tris, base, sh);
+      load_rows<TILE>(aux, n_tris, base, sh);
       __syncthreads();
       if (live) {
         const int cnt = min(TILE, n_tris - base);
         for (int j = 0; j < cnt; ++j) {
           const Terms q = terms(ox, oy, oz, dx, dy, dz, sh[j], sh[TILE + j], sh[2 * TILE + j]);
-          const bool c2 = same_sign(q.ud, q.det - q.ud);
-          const bool c3 = same_sign(q.vd, q.det - q.ud - q.vd);
-          const float safe = q.det == 0.0f ? 1.0f : q.det;
-          float r = 1.0f / safe;
-          r = r * (2.0f - safe * r);  // one Newton step, as on the TPU
-          const float t = q.td * r;
+          float t;
           // strict <: the lowest table index wins ties
-          if (c2 && c3 && q.det != 0.0f && t > EPS && t < tl && t < best_t) {
+          if (closest_pair(q, tl, t) && t < best_t) {
             best_t = t;
             best = base + j;
           }
@@ -202,16 +153,12 @@ any_kernel(const float* __restrict__ aux, int n_tris,
   for (int base = 0; base < n_tris; base += TILE) {
     // block exit once every ray of the block is resolved
     if (!__syncthreads_or(valid && !found)) break;
-    load_tile(aux, n_tris, base, sh);
+    load_rows<TILE>(aux, n_tris, base, sh);
     __syncthreads();
     if (valid && !found) {
       const int cnt = min(TILE, n_tris - base);
       for (int j = 0; j < cnt; ++j) {
-        const Terms q = terms(ox, oy, oz, dx, dy, dz, sh[j], sh[TILE + j], sh[2 * TILE + j]);
-        const bool c1 = same_sign(q.td - q.det * EPS, q.det * tl - q.td);
-        const bool c2 = same_sign(q.ud, q.det - q.ud);
-        const bool c3 = same_sign(q.vd, q.det - q.ud - q.vd);
-        if (c1 && c2 && c3 && q.det != 0.0f) {
+        if (shadow_pair(terms(ox, oy, oz, dx, dy, dz, sh[j], sh[TILE + j], sh[2 * TILE + j]), tl)) {
           found = true;
           break;
         }

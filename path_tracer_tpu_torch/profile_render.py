@@ -11,19 +11,21 @@ torch.profiler (CPU and CUDA activities). Prints one JSON object:
   in a synchronize), ``profiled_trace_s`` the same render under the
   profiler, which adds host time per op;
 * ``steps``: bounce steps (one world any-hit launch per step: dense, walk,
-  vwalk or iwalk);
+  stream, vwalk or iwalk);
 * ``device_busy_s``: the sum of the durations of every device event
   (kernels, copies, sets), all on one stream so none overlap;
 * ``idle_share``: 1 - busy / trace, against the unprofiled trace (the
   profiled one only inflates it);
 * ``kernels``: total device ms and launches of each intersection kernel
-  (dense, walk, vwalk and iwalk closest / any);
+  (dense, walk, stream, vwalk and iwalk closest / any);
 * ``kernels_per_step``: device kernels per bounce step, and ``top_ops`` the
   torch ops dispatched most often.
 
-``--two-level`` builds the scene in two-level mode (``engine`` in the
-output names the engine). The profiler's tables go to
-``<out-dir>/profile_<scene>[_two_level].txt``.
+``--two-level`` builds the scene in two-level mode; ``PT_WALK=0`` in the
+environment sends a baked soup above 16,384 triangles through the streamed
+dense kernels, as in the CLI (``engine`` in the output names the world
+engine). The profiler's tables go to
+``<out-dir>/profile_<scene>[_two_level|_stream].txt``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from torch.profiler import ProfilerActivity, profile
 from path_tracer_tpu_torch import scenes
 from path_tracer_tpu_torch.cli import SCENES
 from path_tracer_tpu_torch.integrator.wavefront import render_sample
+from path_tracer_tpu_torch.scene.scene import env_engine, world_engine
 from path_tracer_tpu_torch.trace import iwalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
 
@@ -50,8 +53,10 @@ KERNELS = {
     "walk_closest": "walk_closest_kernel", "walk_any": "walk_any_kernel",
     "vwalk_closest": "vwalk_closest_kernel", "vwalk_any": "vwalk_any_kernel",
     "iwalk_closest": "iwalk_closest_kernel", "iwalk_any": "iwalk_any_kernel",
+    "stream_closest": "stream_closest_kernel", "stream_any": "stream_any_kernel",
 }
-ANY_KEYS = ("any", "walk_any", "vwalk_any", "iwalk_any")  # one launch per bounce step
+# one launch per bounce step
+ANY_KEYS = ("any", "walk_any", "stream_any", "vwalk_any", "iwalk_any")
 
 
 def _function(event_name: str) -> str:
@@ -76,8 +81,12 @@ def main(argv=None) -> dict:
 
     sh, cam = getattr(scenes, args.scene)(aspect=args.width / args.height,
                                           two_level=args.two_level)
-    scene = sh.device(dev)
-    engine = iwalk.engine_name(scene["twolevel"]["iwalk"]) if "twolevel" in scene else None
+    engine = env_engine(sh.num_world_tris, args.two_level)
+    scene = sh.device(dev, engine)
+    if "twolevel" in scene:
+        engine = iwalk.engine_name(scene["twolevel"]["iwalk"])
+    else:
+        engine = world_engine(sh.num_world_tris, engine)
     ndc = torch.as_tensor(cam.view_proj_inverse(), device=dev)
     org = torch.as_tensor(cam.origin, device=dev)
 
@@ -128,7 +137,8 @@ def main(argv=None) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     table_cpu = prof.key_averages().table(sort_by="count", row_limit=40)
-    (out_dir / f"profile_{args.scene}{'_two_level' if args.two_level else ''}.txt").write_text(
+    tag = "_two_level" if args.two_level else "_stream" if engine == "stream" else ""
+    (out_dir / f"profile_{args.scene}{tag}.txt").write_text(
         f"{json.dumps(summary, indent=1)}\n\n{table}\n\n{table_cpu}\n")
     print(json.dumps(summary))
     return summary

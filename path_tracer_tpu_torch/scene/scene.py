@@ -11,9 +11,11 @@ environment image gets a 1x1 constant-0.006 one.
 host scene and one from the JAX package's own device dict, so both packages
 can be fed identical tables:
 
-* ``tri``: ``normals_flat [T, 9]``, ``model_rows [T, 1]`` and either
-  ``dense`` (the dense engine's ``aux`` table, `trace.dense_cuda`) or
-  ``walk`` (the walk engine's tables, `trace.walk.pack_walk`);
+* ``tri``: ``normals_flat [T, 9]``, ``model_rows [T, 1]`` and one of
+  ``dense`` (the dense engine's ``aux`` table, `trace.dense_cuda`), ``walk``
+  (the walk engine's tables, `trace.walk.pack_walk`) or ``stream`` (the
+  streamed dense engine's ``aux``/``cab``/``pab``,
+  `trace.dense_stream.pack_dense_stream`);
 * ``light`` (scenes with emitters): ``cdf``, ``rows`` (pdf, area, emitted rgb,
   pad), ``normals_flat``, ``positions_flat`` and ``dense``;
 * ``mat``: ``rows`` (`materials.pack_material_rows`);
@@ -22,14 +24,18 @@ can be fed identical tables:
   two-level engine's tables}`` (`scene.twolevel_scene`); ``tri`` is then
   empty.
 
-Engine selection: every table up to ``DENSE_MAX_TRIS`` triangles, world or
-lights, goes through the dense kernels (this also covers the <=256-tri
-tables the TPU build sends to the flat stream of ``trace/sweep.py``, which
-runs the same naive-precision test with the same tie rule). A larger world
-soup goes through the walk kernels, up to ``WALK_PARTS_MAX_TRIS``, as the
-JAX package's TPU build sends it to its walk engine
-(``path_tracer_tpu/scene/scene.py:269-301``); its chunk boxes come from the
-host scene's ``positions``. The lights stay on the dense kernels.
+Engine selection (`world_engine`, the JAX package's TPU build,
+``path_tracer_tpu/scene/scene.py:269-331``): every table up to
+``DENSE_MAX_TRIS`` triangles, world or lights, goes through the dense
+kernels (this also covers the <=256-tri tables the TPU build sends to the
+flat stream of ``trace/sweep.py``, which runs the same naive-precision test
+with the same tie rule). A larger world soup goes through the walk kernels
+up to ``WALK_PARTS_MAX_TRIS``, then through the streamed dense kernels up to
+``DENSE_STREAM_MAX_TRIS``; above that the port raises. ``engine="stream"``
+sends a baked soup of any size to the streamed engine, the counterpart of
+the JAX package's ``PT_WALK=0`` (`env_engine` reads that variable for the
+CLI). Chunk and part boxes come from the host scene's ``positions``. The
+lights stay on the dense kernels.
 
 Two-level mode keeps each model's chunk tables in object space, shared by
 its instances, and traces the world through the vwalk or iwalk kernels
@@ -41,6 +47,8 @@ The light tables stay world-space and dense.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -50,11 +58,35 @@ from path_tracer_tpu_torch.scene.bvh import build_sah_tree
 from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_materials
 from path_tracer_tpu_torch.scene.model import Model
 from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry
-from path_tracer_tpu_torch.trace import iwalk
+from path_tracer_tpu_torch.trace import dense_stream, iwalk
 from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux
-from path_tracer_tpu_torch.trace.walk import pack_walk
+from path_tracer_tpu_torch.trace.walk import WALK_PARTS_MAX_TRIS, pack_walk
 
 SceneData = dict  # nested dict of tensors handed to the integrator
+
+
+def world_engine(n_tris: int, engine: str | None = None) -> str:
+    """The engine of a baked world soup of ``n_tris`` triangles: "dense",
+    "walk" or "stream" by size, or "stream" where ``engine`` asks for it.
+    Raises above the streamed engine's limit."""
+    if engine not in (None, "stream"):
+        raise ValueError(f"engine {engine!r}: a baked scene takes None or 'stream'")
+    if engine is None and n_tris <= DENSE_MAX_TRIS:
+        return "dense"
+    if engine is None and n_tris <= WALK_PARTS_MAX_TRIS:
+        return "walk"
+    if n_tris > dense_stream.DENSE_STREAM_MAX_TRIS:
+        raise NotImplementedError(
+            f"{n_tris} world triangles exceed the streamed engine's {dense_stream.DENSE_STREAM_MAX_TRIS}")
+    return "stream"
+
+
+def env_engine(num_world_tris: int, two_level: bool = False) -> str | None:
+    """The engine the JAX package's ``PT_WALK=0`` picks for a baked soup:
+    "stream" above ``DENSE_MAX_TRIS`` triangles, else None (the default
+    rule; ``PT_WALK`` does not touch two-level scenes)."""
+    off = os.environ.get("PT_WALK", "1") == "0"
+    return "stream" if off and not two_level and num_world_tris > DENSE_MAX_TRIS else None
 
 
 def _sah_perm(positions: np.ndarray) -> np.ndarray:
@@ -143,10 +175,9 @@ class Scene:
 
     def device(self, device, engine: str | None = None) -> SceneData:
         """The integrator's tensor dict on ``device`` (see the module note).
-        ``engine`` names a two-level engine ("vwalk" or "iwalk"; default:
-        `TwoLevelGeometry.choose`'s)."""
-        if engine is not None and not self.two_level:
-            raise ValueError("engine= names a two-level engine; this scene is baked")
+        ``engine`` names the world engine: "stream" for a baked scene
+        (default: `world_engine`'s rule), "vwalk" or "iwalk" for a
+        two-level one (default: `TwoLevelGeometry.choose`'s)."""
         tri = {}
         if not self.two_level:
             tri = {
@@ -171,7 +202,7 @@ class Scene:
                 "cdf": self.light["cdf"],
                 "rows": lrows,
             }
-        out = _upload(data, device)
+        out = _upload(data, device, engine)
         if self.two_level:
             out["twolevel"] = self.twolevel.device(device, engine)
         return out
@@ -195,13 +226,20 @@ def _dense_table(tab: dict, with_shading: bool) -> dict:
 _PLANE_KEYS = ("n0", "d0", "n1", "d1", "n2", "d2")
 
 
-def _upload(data: dict, device) -> SceneData:
-    """Add the engine tables, drop the host-only plane and position arrays,
-    move to ``device``."""
+def _upload(data: dict, device, engine: str | None = None) -> SceneData:
+    """Add the world engine's tables (`world_engine`; ``stream`` tables
+    already in ``tri`` are kept), drop the host-only plane and position
+    arrays, move to ``device``."""
     tri = data["tri"]
     if tri:  # empty in two-level mode
-        if tri["n0"].shape[0] > DENSE_MAX_TRIS:
-            tri["walk"] = pack_walk(tri, tri["normals_flat"], tri["model_rows"][:, 0], tri["positions"])
+        kind = world_engine(tri["n0"].shape[0], engine)
+        shading = (tri, tri["normals_flat"], tri["model_rows"][:, 0], tri["positions"])
+        if kind == "walk":
+            tri["walk"] = pack_walk(*shading)
+        elif kind == "stream":
+            if "stream" not in tri:
+                tables = dense_stream.pack_dense_stream(*shading)
+                tri["stream"] = {k: tables[k] for k in dense_stream.TABLES}
         else:
             tri["dense"] = _dense_table(tri, with_shading=True)
         tri.pop("positions")
@@ -225,7 +263,9 @@ def from_jax_scene(data: dict, device) -> SceneData:
     dict, converted with ``np.asarray`` (nested dicts of arrays). Only
     arrays the two packages share are read; the JAX engine tables (streams,
     ``dense``, ``dense_pl``, ``walk``) are ignored and the port's dense or
-    walk tables rebuilt (the walk's from ``tri["positions"]``). A two-level
+    walk tables rebuilt (the walk's from ``tri["positions"]``), except a
+    ``dense_stream`` engine, whose ``aux``/``cab``/``pab`` are carried over
+    as they are and traced by the port's streamed engine. A two-level
     dict (empty ``tri``) must hold a single-part vwalk or iwalk engine in
     ``twolevel["iwalk"]``, whose kept tables are carried over as they are;
     the JAX gather machine's tables and multi-part engines raise."""
@@ -236,13 +276,15 @@ def from_jax_scene(data: dict, device) -> SceneData:
         tri = {k: a(jt[k]) for k in _PLANE_KEYS}
         for k in ("normals_flat", "model_rows", "positions"):
             tri[k] = a(jt[k])
+        if "dense_stream" in jt:
+            tri["stream"] = {k: a(jt["dense_stream"][k]) for k in dense_stream.TABLES}
     out = {"tri": tri, "mat": {"rows": a(data["mat"]["rows"])}, "env": a(data["env"])}
     if "light" in data:
         jl = data["light"]
         out["light"] = {k: a(jl[k]) for k in _PLANE_KEYS}
         for k in ("normals_flat", "positions_flat", "cdf", "rows"):
             out["light"][k] = a(jl[k])
-    ported = _upload(out, device)
+    ported = _upload(out, device, "stream" if "stream" in tri else None)
     if "twolevel" in data:
         eng = data["twolevel"].get("iwalk")
         if eng is None or "parts" in eng:

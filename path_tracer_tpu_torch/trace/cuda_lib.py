@@ -26,6 +26,7 @@ from pathlib import Path
 LAUNCHES = {
     "closest": 0, "any": 0, "walk_closest": 0, "walk_any": 0,
     "vwalk_closest": 0, "vwalk_any": 0, "iwalk_closest": 0, "iwalk_any": 0,
+    "stream_closest": 0, "stream_any": 0, "row_gather": 0, "tile_gather": 0,
 }
 
 _PKG = Path(__file__).resolve().parent.parent

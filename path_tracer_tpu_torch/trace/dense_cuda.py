@@ -33,7 +33,7 @@ AUX_COLS = 24  # n0(3) d0 n1(3) d1 n2(3) d2 | na nb nc (9) | model | pad(2)
 _BIG = 1e30  # "no winner" sentinel, as in dense_pallas
 _T_CLAMP = 3.0e38  # finite stand-in for an infinite t_limit
 # [rays, tris] pairs per step of the plain versions (bounds their memory)
-_PLAIN_PAIRS = 1 << 22
+_PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 25}
 
 
 
@@ -168,29 +168,49 @@ def _epilogue(aux, best, origin, direction):
     return torch.stack([t, best.to(t.dtype), u, v, nx, ny, nz, col(21)], dim=1)
 
 
+def _search(aux, origin, direction, t_limit):
+    """(best t, best index) of the closest-hit search on one step of rays:
+    ``_BIG`` and -1 where nothing hits."""
+    ox, oy, oz, dx, dy, dz = _ray_cols(origin, direction)
+    det, td, ud, vd = _search_terms(aux, ox, oy, oz, dx, dy, dz)
+    c2 = _same(ud, det - ud)
+    c3 = _same(vd, det - ud - vd)
+    safe = torch.where(det == 0.0, 1.0, det)
+    r = 1.0 / safe
+    r = r * (2.0 - safe * r)  # one Newton step, as on the TPU
+    t = td * r
+    ok = c2 & c3 & (det != 0.0) & (t > EPSILON) & (t < t_limit[:, None])
+    tm = torch.where(ok, t, _BIG)
+    best_t = tm.min(dim=1).values
+    # first index attaining the minimum: the lowest index wins ties
+    first = torch.argmax((tm == best_t[:, None]).to(torch.uint8), dim=1)
+    return best_t, torch.where(best_t < _BIG, first, -1)
+
+
+def _slices(aux, origin):
+    """Slices of the rays, each within the plain versions' pairs budget."""
+    step = max(1, _PLAIN_PAIRS[origin.device.type] // max(aux.shape[0], 1))
+    return [slice(s, s + step) for s in range(0, origin.shape[0], step)]
+
+
+def closest_search_plain(aux, origin, direction, t_limit):
+    """The closest-hit search alone: ``(best_t [N], best [N] int64)``,
+    ``_BIG`` and -1 on a miss (any device, any float dtype)."""
+    n, dev = origin.shape[0], origin.device
+    best_t = torch.full((n,), _BIG, dtype=origin.dtype, device=dev)
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for sl in _slices(aux, origin):
+        best_t[sl], best[sl] = _search(aux, origin[sl], direction[sl], t_limit[sl])
+    return best_t, best
+
+
 def closest_plain(aux, origin, direction, t_limit) -> torch.Tensor:
     """Plain version of `closest_cuda` (any device, any float dtype: run in
     float64 it is the precision oracle)."""
-    n, tp = origin.shape[0], aux.shape[0]
-    step = max(1, _PLAIN_PAIRS // max(tp, 1))
     out = []
-    for s in range(0, n, step):
-        o, d, tl = origin[s : s + step], direction[s : s + step], t_limit[s : s + step]
-        ox, oy, oz, dx, dy, dz = _ray_cols(o, d)
-        det, td, ud, vd = _search_terms(aux, ox, oy, oz, dx, dy, dz)
-        c2 = _same(ud, det - ud)
-        c3 = _same(vd, det - ud - vd)
-        safe = torch.where(det == 0.0, 1.0, det)
-        r = 1.0 / safe
-        r = r * (2.0 - safe * r)  # one Newton step, as on the TPU
-        t = td * r
-        ok = c2 & c3 & (det != 0.0) & (t > EPSILON) & (t < tl[:, None])
-        tm = torch.where(ok, t, _BIG)
-        best_t = tm.min(dim=1).values
-        # first index attaining the minimum: the lowest index wins ties
-        first = torch.argmax((tm == best_t[:, None]).to(torch.uint8), dim=1)
-        best = torch.where(best_t < _BIG, first, -1)
-        out.append(_epilogue(aux, best, o, d))
+    for sl in _slices(aux, origin):
+        o, d = origin[sl], direction[sl]
+        out.append(_epilogue(aux, _search(aux, o, d, t_limit[sl])[1], o, d))
     if not out:
         return torch.zeros((0, 8), dtype=origin.dtype, device=origin.device)
     return torch.cat(out, dim=0)
@@ -198,16 +218,14 @@ def closest_plain(aux, origin, direction, t_limit) -> torch.Tensor:
 
 def any_plain(aux, origin, direction, t_limit) -> torch.Tensor:
     """Plain version of `any_cuda`."""
-    n, tp = origin.shape[0], aux.shape[0]
-    step = max(1, _PLAIN_PAIRS // max(tp, 1))
     valid = (
         (t_limit > 0.0)
         & torch.isfinite(origin).all(dim=1)
         & torch.isfinite(direction).all(dim=1)
     )
     out = []
-    for s in range(0, n, step):
-        o, d, tl = origin[s : s + step], direction[s : s + step], t_limit[s : s + step, None]
+    for sl in _slices(aux, origin):
+        o, d, tl = origin[sl], direction[sl], t_limit[sl, None]
         det, td, ud, vd = _search_terms(aux, *_ray_cols(o, d))
         c1 = _same(td - det * EPSILON, det * tl - td)
         c2 = _same(ud, det - ud)

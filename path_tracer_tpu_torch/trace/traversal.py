@@ -3,9 +3,10 @@
 
 A geometry table (see `scene.scene.Scene.device`) is the scene's
 ``twolevel`` dict, whose ``iwalk`` entry holds a two-level engine (vwalk or
-iwalk, `trace.iwalk`), or a triangle table carrying either ``walk`` tables
-(world soups above 16,384 triangles) or ``dense`` ones (everything else,
-lights included); both queries go to that engine. This is the one place
+iwalk, `trace.iwalk`), or a triangle table carrying ``walk`` tables (world
+soups above 16,384 triangles), ``stream`` ones (the streamed dense engine,
+`trace.dense_stream`: above the walk's limit, or on request) or ``dense``
+ones (everything else, lights included); both queries go to that engine. This is the one place
 the engine is chosen. `brute_force_closest` is the sequential O(T) oracle
 for tests.
 """
@@ -16,6 +17,7 @@ import torch
 
 from path_tracer_tpu_torch.core.constants import EPSILON
 from path_tracer_tpu_torch.trace.dense_cuda import dense_any_hit, dense_closest_hit_shade
+from path_tracer_tpu_torch.trace.dense_stream import dense_stream_any_hit, dense_stream_closest_hit_shade
 from path_tracer_tpu_torch.trace.iwalk import iwalk_any_hit, iwalk_closest_hit_shade
 from path_tracer_tpu_torch.trace.walk import walk_any_hit, walk_closest_hit_shade
 
@@ -29,6 +31,8 @@ def closest_hit_shade(tri: dict, origin, direction, t_limit):
         return iwalk_closest_hit_shade(tri["iwalk"], origin, direction, t_limit)[:6]
     if "walk" in tri:
         return walk_closest_hit_shade(tri["walk"], origin, direction, t_limit)
+    if "stream" in tri:
+        return dense_stream_closest_hit_shade(tri["stream"], origin, direction, t_limit)
     return dense_closest_hit_shade(tri["dense"], origin, direction, t_limit)
 
 
@@ -46,6 +50,8 @@ def any_hit(tri: dict, origin, direction, t_limit):
         return iwalk_any_hit(tri["iwalk"], origin, direction, t_limit)
     if "walk" in tri:
         return walk_any_hit(tri["walk"], origin, direction, t_limit)
+    if "stream" in tri:
+        return dense_stream_any_hit(tri["stream"], origin, direction, t_limit)
     return dense_any_hit(tri["dense"], origin, direction, t_limit)
 
 

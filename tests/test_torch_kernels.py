@@ -1,6 +1,6 @@
 """The CUDA kernels of ``path_tracer_tpu_torch/csrc/dense_hit.cu``,
-``walk_hit.cu`` and ``iwalk_hit.cu`` against their plain torch versions, on
-the card.
+``walk_hit.cu``, ``iwalk_hit.cu``, ``dense_stream.cu`` and
+``gather_probe.cu`` against their plain torch versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 nothing of JAX, so it runs on a machine that has only the port's
@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from path_tracer_tpu_torch.probes import gather
 from path_tracer_tpu_torch.scene import procedural
 from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.model import Model, rigid_transform, rotation_y
 from path_tracer_tpu_torch.trace import dense_cuda as dc
+from path_tracer_tpu_torch.trace import dense_stream as ds
 from path_tracer_tpu_torch.trace import iwalk
 from path_tracer_tpu_torch.trace import walk
 
@@ -312,3 +314,127 @@ def test_two_level_stats_counts(iwalk_case):
                                                  iwalk.closest_cuda(eng, o_s, d_s, tl_s)))
     with pytest.raises(ValueError):
         iwalk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats[:-1])
+
+
+@pytest.fixture
+def stream_case(cuda):
+    """The streamed engine's tables of a 36,992-triangle bumpy sphere (3
+    parts) and 1,024 rays (half aimed at it from outside, half from inside)
+    with inf, dead, finite-limit and NaN lanes, clamped as the public query
+    hands them to the kernels."""
+    rng = np.random.default_rng(17)
+    pos, nrm = procedural.bumpy_sphere(nu=136, nv=136)
+    model = rng.integers(0, 5, pos.shape[0])
+    tables = ds.pack_dense_stream(tri_mod.precompute(pos), nrm.reshape(-1, 9), model, pos)
+    assert tables["meta"]["nparts"] == 3
+    eng = {k: torch.from_numpy(tables[k]).to(cuda) for k in ds.TABLES}
+    n = 1024
+    o1 = rng.normal(size=(n // 2, 3))
+    o1 = 3.0 * o1 / np.linalg.norm(o1, axis=1, keepdims=True)
+    o = np.concatenate([o1, rng.uniform(-1, 1, (n // 2, 3))]).astype(np.float32)
+    d = np.concatenate([-o1 + 0.15 * rng.normal(size=(n // 2, 3)), rng.normal(size=(n // 2, 3))])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tl = np.full(n, np.inf, np.float32)
+    tl[:64] = 0.0
+    tl[64:128] = rng.uniform(0.5, 3.0, 64)
+    o[128:136] = np.nan
+    d[136:144] = np.nan
+    o, d, tl = (torch.from_numpy(x).to(cuda) for x in (o, d, tl))
+    return eng, (o, d, tl), dc._rays(o, d, tl)
+
+
+def test_stream_closest_kernel_equals_plain(stream_case):
+    eng, _, rays = stream_case
+    n0 = dc.LAUNCHES["stream_closest"]
+    kt, ki = ds.closest_cuda(eng, *rays)
+    assert dc.LAUNCHES["stream_closest"] == n0 + 1
+    pt, pi = ds.closest_plain(eng, *rays)
+    assert (ki >= 0).sum() > 300
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    dead = ~ds._valid(*rays)
+    assert (ki[dead] == -1).all()
+
+
+def test_stream_any_kernel_equals_plain(stream_case):
+    eng, _, (o, d, tl) = stream_case
+    kt, ki = ds.closest_cuda(eng, o, d, tl)
+    for scale in (0.99, 1.01):
+        lim = torch.where(ki >= 0, kt * scale, tl).contiguous()
+        n0 = dc.LAUNCHES["stream_any"]
+        k = ds.any_cuda(eng, o, d, lim)
+        assert dc.LAUNCHES["stream_any"] == n0 + 1
+        assert torch.equal(k, ds.any_plain(eng, o, d, lim))
+        hit = ki >= 0
+        assert bool(k[hit].all()) if scale > 1 else not bool(k[hit].any())
+    assert not ds.any_cuda(eng, o, d, tl)[~ds._valid(o, d, tl)].any()
+
+
+def test_stream_queries_on_card_equal_cpu(stream_case):
+    """The public stream queries launch the kernels on CUDA tensors and give
+    the same bits as the plain versions on CPU tensors."""
+    eng, (o, d, tl), _ = stream_case
+    eng_cpu = {k: v.cpu() for k, v in eng.items()}
+    n0 = dict(dc.LAUNCHES)
+    gpu = ds.dense_stream_closest_hit_shade(eng, o, d, tl)
+    cpu = ds.dense_stream_closest_hit_shade(eng_cpu, o.cpu(), d.cpu(), tl.cpu())
+    ok = (torch.isfinite(o).all(1) & torch.isfinite(d).all(1)).cpu()
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu()[ok], b[ok])
+    assert torch.equal(ds.dense_stream_any_hit(eng, o, d, tl).cpu(),
+                       ds.dense_stream_any_hit(eng_cpu, o.cpu(), d.cpu(), tl.cpu()))
+    assert dc.LAUNCHES["stream_closest"] == n0["stream_closest"] + 1
+    assert dc.LAUNCHES["stream_any"] == n0["stream_any"] + 1
+
+
+def test_stream_kernel_rejects_bad_inputs(stream_case):
+    eng, _, (o, d, tl) = stream_case
+    with pytest.raises(ValueError):
+        ds.closest_cuda(eng, o.double(), d, tl)
+    with pytest.raises(ValueError):
+        ds.any_cuda(eng, o, d.t().contiguous().t(), tl)
+    with pytest.raises(ValueError):
+        ds.closest_cuda({**eng, "aux": eng["aux"][:-1].contiguous()}, o, d, tl)
+    with pytest.raises(ValueError):
+        ds.any_cuda({**eng, "pab": eng["pab"][:2].contiguous()}, o, d, tl)
+    with pytest.raises(ValueError):
+        ds.any_cuda({k: v.cpu() for k, v in eng.items()}, o, d, tl)
+
+
+def test_stream_stats_counts(stream_case):
+    """The counters of both stream kernels: live blocks, admitted parts,
+    gated and staged chunks, lanes per staged chunk; a counted launch's
+    results equal an uncounted one's."""
+    eng, (o, d, tl), rays = stream_case
+    chunks = eng["cab"].shape[0]
+    for query in ("closest", "any"):
+        s = ds.stream_stats(eng, o, d, tl, query=query)
+        assert 0 < s["blocks"] <= 8 and 0 < s["parts"] <= 3 * s["blocks"]
+        assert 0 < s["staged"] <= s["gated"] <= chunks * s["blocks"]
+        assert 0 < s["lane_visits"] <= 128 * s["staged"]
+    stats = torch.zeros(5, dtype=torch.int64, device=o.device)
+    assert all(torch.equal(a, b) for a, b in zip(ds.closest_cuda(eng, *rays, stats=stats),
+                                                 ds.closest_cuda(eng, *rays)))
+    with pytest.raises(ValueError):
+        ds.closest_cuda(eng, *rays, stats=stats[:-1])
+
+
+def test_row_gather_kernel_equals_plain(cuda):
+    table, idx = gather.row_inputs(1, cuda)
+    n0 = dc.LAUNCHES["row_gather"]
+    k = gather.row_gather_cuda(table, idx)
+    assert dc.LAUNCHES["row_gather"] == n0 + 1
+    assert torch.equal(k, gather.row_gather_plain(table, idx))
+    assert torch.equal(k, torch.index_select(table, 0, idx))
+    assert torch.equal(gather.chain(gather.row_gather, table, idx),
+                       gather.chain(gather.row_gather_plain, table, idx))
+
+
+@pytest.mark.parametrize("shape,axis", [((8, 128), 0), ((1024, 128), 0), ((8, 128), 1), ((8, 8192), 1)])
+def test_tile_gather_kernel_equals_plain(cuda, shape, axis):
+    x, idx = gather.tile_inputs(2, shape, axis, cuda)
+    for reps in (1, 16):
+        n0 = dc.LAUNCHES["tile_gather"]
+        k = gather.tile_gather_cuda(x, idx, axis, reps)
+        assert dc.LAUNCHES["tile_gather"] == n0 + 1
+        assert torch.equal(k, gather.tile_gather_plain(x, idx, axis, reps))
+        assert torch.equal(k, gather.tile_gather_library(x, idx, axis, reps))
