@@ -22,12 +22,18 @@ Phases (any failure raises and the script exits non-zero without the final
 6. walk kernels against their plain versions on the full ``dragon_scene``
    world table (884,748 tris; 32,768 camera + 32,768 random rays with inf /
    0 / NaN lanes), plus the float64 plain closest hit on 4,096 of them;
-7. the walk kernels timed at the render's shapes (589,824 camera rays,
-   589,824 bounce rays in random directions from the camera hits, 1,179,648
-   shadow rays toward the light), compared with the plain versions on
-   16,384 rays of each, with visited and skipped chunks per block;
+7. the walk any-hit's segment-cull edge cases against the plain version
+   (axis-parallel rays, rays from and along chunk box faces, limits one ulp
+   either side of a closest t); the walk kernels timed at the render's
+   shapes (589,824 camera rays, 589,824 bounce rays in random directions
+   from the camera hits, 1,179,648 shadow rays toward the light), compared
+   with the plain versions on 16,384 rays of each, with visited and skipped
+   chunks per block, and for the shadow rays the chunks staged per block
+   and the tested against the needed pairs;
 8. the offline render of ``dragon_scene`` at 1024x576, 2 spp, 64 bounces
-   through the CLI, with host build seconds, bounce steps and launch counts;
+   through the CLI, with bounce steps and launch counts (the CLI gets phase
+   6's host scene, built once: phases 8 and 18 print no build time of
+   their own);
 9. ``dragon_scene(nu=96, nv=64, env_h=64)`` (24,588 tris, the walk engine)
    at 32x32, 4 spp on the CPU and on the card: image means within 1%;
 10. (with phase 2) ``iwalk_hit.cu``, built in the same call, its ptxas lines;
@@ -43,13 +49,15 @@ Phases (any failure raises and the script exits non-zero without the final
     on ``many_instance_scene`` at 1920x1080 (2,073,600 camera and bounce
     rays, 4,147,200 shadow rays), each compared with its plain version on
     16,384 rays (4,096 for the dragon's iwalk), with gate entries visited
-    and chunks staged per block;
+    and chunks staged per block (and for vwalk's shadow rays the tested
+    against the needed pairs), then vwalk's any-hit edge cases as in
+    phase 7;
 13. ``dragon_scene --two-level`` through the CLI at 1024x576, 2 spp: host
     build, engine table bytes against the baked walk's, trace, bounce
     steps, launch counts (vwalk > 0, walk 0);
 14. ``many_instance_scene --two-level`` through the CLI at 1920x1080, 4 spp
-    (vwalk), then one in-process render of it with ``engine="iwalk"`` at
-    1920x1080, 1 spp;
+    (vwalk), then ``PT_VWALK=0`` the same through the CLI at 1 spp (iwalk
+    launches > 0, vwalk 0);
 15. ``many_instance_scene(grid=3, subdivisions=1)`` two-level at 32x32,
     4 spp: CPU against the card for both engines, and two-level against
     baked on the card: image means within 1%;
@@ -64,7 +72,8 @@ Phases (any failure raises and the script exits non-zero without the final
     pixel order (589,824 camera, 589,824 bounce, 1,179,648 shadow rays),
     each against its plain version on 16,384 rays of whole blocks, with
     parts and chunks per block, beside the walk's public query on the same
-    rays (its sort included): the stream-vs-walk A/B;
+    rays (its sort included): the stream-vs-walk A/B, and on the shadow
+    rays the two any-hit kernels' own times;
 18. ``PT_WALK=0`` dragon_scene through the CLI at 1024x576, 1 spp, 64
     bounces (stream launches > 0, walk 0), then the same render through the
     walk in process (sample 0, the same seeds): image means within 1%;
@@ -72,9 +81,14 @@ Phases (any failure raises and the script exits non-zero without the final
     32x32, 4 spp on the CPU and on the card: image means within 1%;
 20. the gather probes (``python -m path_tracer_tpu_torch.probes.gather``):
     row gather and in-tile gather kernels equal to their plain and library
-    versions, timed.
+    versions, timed;
+21. the Cornell shell with an emissive ``icosphere(subdivisions=5)``: 20,482
+    light triangles, above the dense engine's 16,384, so the lights take the
+    stack BVH (torch ops): 32x32, 2 spp on the CPU and on the card, image
+    means within 1%; then the stack BVH's closest and any hit on the card
+    over 65,536 rays of that light table, timed.
 
-Phases run in the order 1-9, 16-20, 10-15. Each render's launch counts
+Phases run in the order 1-9, 16-21, 10-15. Each render's launch counts
 (and the probes') are set to 0 just before it and read just after.
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the query must move over 3.35 TB/s and its float32
@@ -104,6 +118,7 @@ and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -269,13 +284,14 @@ def check_any(label, k, p, o, d, t_limit) -> float:
     """Kernel any-hit flags against plain ones on lanes with t_limit > 0;
     returns max |k - p| over those lanes."""
     pos = t_limit > 0
-    equal = (k[pos] == p[pos]).float().mean().item()
+    # counted, not averaged: a float mean of all-equal flags need not be 1.0
+    differ = int((k[pos] != p[pos]).sum())
     err = (k[pos].float() - p[pos].float()).abs().max().item()
     nan_lane = ~(torch.isfinite(o).all(1) & torch.isfinite(d).all(1))
-    print(f"any {label}: {k.shape[0]} rays, flags equal to plain on t_limit > 0 lanes "
-          f"{equal:.6f}, occluded {p[pos].float().mean().item():.3f}, NaN lanes flagged "
-          f"{int(k[nan_lane].sum())}")
-    check(equal == 1.0, (label, equal))
+    print(f"any {label}: {k.shape[0]} rays, flags differing from plain on the "
+          f"{int(pos.sum())} t_limit > 0 lanes: {differ}, occluded "
+          f"{p[pos].float().mean().item():.3f}, NaN lanes flagged {int(k[nan_lane].sum())}")
+    check(differ == 0, (label, differ))
     check(not bool(k[nan_lane].any()), f"{label}: NaN lanes must report no hit")
     return err
 
@@ -373,6 +389,26 @@ def phase_dense(dc, scene, cam, dev, card):
         print(f"time {name}: kernel {km:.3f} ms, plain {pm:.3f} ms, bound {bms:.3f} ms ({by}) "
               f"at {nq} rays x {nt} table rows ({card})")
     return errs, results
+
+
+@contextlib.contextmanager
+def prebuilt_dragon(scenes, sh, cam):
+    """Within the block, ``scenes.dragon_scene`` returns the host scene
+    ``(sh, cam)`` that phase 6 built (the CLI's baked 1024x576 call) instead
+    of building it again, and raises for any other arguments; restored on
+    leaving the block."""
+    build = scenes.dragon_scene
+
+    def reuse(**kw):
+        if kw != {"aspect": WIDTH / HEIGHT, "two_level": False}:
+            raise ValueError(f"prebuilt_dragon: no host scene for {kw}")
+        return sh, cam
+
+    scenes.dragon_scene = reuse
+    try:
+        yield
+    finally:
+        scenes.dragon_scene = build
 
 
 def zero_launches():
@@ -547,6 +583,40 @@ def walk_bound(n, out_bytes, need, key):
     return bound_ms(pairs * FLOPS[key], n * (28 + out_bytes) + tris * 48 + chunks * 24)
 
 
+EDGE_RAYS = 512  # axis-parallel rays, and as many from chunk box faces
+EDGE_ULP = 2048  # hit rays whose limit is set one ulp either side of their t
+
+
+def edge_rays(rng, lo, hi, root_lo, root_hi, o, d, kt, ks, dev):
+    """The segment cull's edge cases, for the any-hit kernels: axis-parallel
+    rays from random points of the scene box; rays from random points of
+    random gate boxes' faces (``lo``/``hi`` [E, 3]), half of them moving
+    within the face's plane; and ``EDGE_ULP`` of the rays ``o, d`` that hit
+    (closest t ``kt``, ``ks`` >= 0), each twice, with its limit one ulp
+    above and one ulp below its t. Returns (origin, direction, t_limit)."""
+    n = EDGE_RAYS
+    ar = torch.arange(n, device=dev)
+    u = lambda *shape: torch.as_tensor(rng.uniform(size=shape).astype(np.float32), device=dev)  # noqa: E731
+    o_ax = root_lo + (root_hi - root_lo) * u(n, 3)
+    d_ax = torch.zeros((n, 3), device=dev)
+    d_ax[ar, ar % 3] = 1.0 - 2.0 * (ar % 2).float()
+    c = torch.as_tensor(rng.integers(0, lo.shape[0], n), device=dev)
+    a = torch.as_tensor(rng.integers(0, 3, n), device=dev)
+    o_f = lo[c] + (hi[c] - lo[c]) * u(n, 3)
+    o_f[ar, a] = torch.where(ar % 2 == 0, lo[c, a], hi[c, a])
+    d_f = unit_rows(rng, n, dev)
+    d_f[ar % 4 < 2, a[ar % 4 < 2]] = 0.0
+    d_f = d_f / d_f.norm(dim=1, keepdim=True)
+    hit = (ks >= 0).nonzero()[:, 0].cpu().numpy()
+    hit = torch.as_tensor(np.sort(rng.choice(hit, min(EDGE_ULP, hit.size), replace=False)), device=dev)
+    t = kt[hit]
+    big = torch.full((n,), 3.0e38, device=dev)
+    return (torch.cat([o_ax, o_f, o[hit], o[hit]]).contiguous(),
+            torch.cat([d_ax, d_f, d[hit], d[hit]]).contiguous(),
+            torch.cat([big, big, torch.nextafter(t, torch.full_like(t, math.inf)),
+                       torch.nextafter(t, torch.zeros_like(t))]).contiguous())
+
+
 def phase_walk(walk, scene, cam, dev, card):
     """Phases 6-7: the walk kernels against their plain versions on the full
     dragon world table, on a mixed ray set and at the render's shapes."""
@@ -587,7 +657,14 @@ def phase_walk(walk, scene, cam, dev, card):
     pa = walk.any_plain(eng, o, d, tl_anyc)
     errs["walk_any"] = check_any("walk mixed", ka, pa, o, d, tl_any)
 
-    # 7: the render's shapes
+    # 7: the segment cull's edge cases, then the render's shapes
+    eo, ed, et = edge_rays(rng, *walk.chunk_boxes(eng), eng["root_lo"], eng["root_hi"],
+                           o_s, d_s, kt, ks, dev)
+    etc = walk._exit_clamp(eng, eo, ed, et).contiguous()
+    errs["walk_any"] = max(errs["walk_any"], check_any(
+        "walk edge cases", walk.any_cuda(eng, eo, ed, etc), walk.any_plain(eng, eo, ed, etc),
+        eo, ed, etc))
+
     o_f, d_f = camera_rays(cam, WIDTH, HEIGHT, dev)
     nf = o_f.shape[0]
     tl_f = torch.full((nf,), math.inf, device=dev)
@@ -639,18 +716,25 @@ def phase_walk(walk, scene, cam, dev, card):
             stats = walk.walk_stats(eng, *public, query="any")
             need = needed_walk_work(walk, eng, o_ss, d_ss, tl_ss, tl_ss, occ_chunk)
             out_bytes = 1
+            print(f"walk {name}: pairs tested {stats['pairs']}, needed {need[0]}: tested / "
+                  f"needed {stats['pairs'] / max(need[0], 1):.3f}; per block: gate survivors "
+                  f"admitted {stats['visits'] / max(stats['blocks'], 1):.1f}, chunks staged "
+                  f"{stats['staged'] / max(stats['blocks'], 1):.1f}; entering lanes per staged "
+                  f"chunk {stats['lane_visits'] / max(stats['staged'], 1):.2f}")
         errs[key] = max(errs[key], err)
         bms, by = walk_bound(nq, out_bytes, need, key)
         live = max(stats["blocks"], 1)
+        tested = stats.get("pairs", stats["lane_visits"] * walk.CH_W)
         results[name] = {"key": key, "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
-                         "rays": nq, "stats": stats, "needed_pairs": need[0]}
+                         "rays": nq, "stats": stats, "needed_pairs": need[0],
+                         "tested_pairs": tested}
         print(f"time walk {name}: kernel {km:.3f} ms at {nq} rays, plain {pm:.3f} ms at "
               f"{rows.numel()} rays, bound {bms:.3f} ms ({by}) from {need[0]} needed pairs "
-              f"in {need[1]} chunks; pairs the kernel tested {stats['lane_visits'] * 128} "
-              f"(lane visits x {walk.CH_W} slots); blocks with a live lane "
+              f"in {need[1]} chunks; pairs the kernel tested {tested}; blocks with a live lane "
               f"{stats['blocks']}, chunks visited per block {stats['visits'] / live:.1f}, "
-              f"skipped by the window per block {stats['skipped'] / live:.1f}, testing lanes "
-              f"per visit {stats['lane_visits'] / max(stats['visits'], 1):.1f}, distinct chunks "
+              f"staged per block {stats['staged'] / live:.1f}, skipped by the window per block "
+              f"{stats['skipped'] / live:.1f}, testing lanes per staged chunk "
+              f"{stats['lane_visits'] / max(stats['staged'], 1):.1f}, distinct chunks staged "
               f"{stats['chunks']} of {k} ({card})")
     pub_ms, _ = time_ms(lambda: walk.walk_closest_hit_shade(eng, o_f, d_f, tl_f), 3)
     print(f"time walk camera public query (sort, kernel, unsort, epilogue): {pub_ms:.3f} ms")
@@ -859,15 +943,20 @@ def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, 
         stats = iwalk.iwalk_stats(eng, *public, query=query)
         bms, by = two_level_bound(nq, out_bytes, need, key)
         blocks = max(stats["blocks"], 1)
+        tested = stats.get("pairs", stats["lane_visits"] * walk.CH_W)
         results[shape] = {"key": key, "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                           "rays": nq, "plain_rays": rows.numel(), "err": err, "stats": stats,
-                          "needed_pairs": need[0]}
+                          "needed_pairs": need[0], "tested_pairs": tested}
+        if "pairs" in stats:
+            print(f"{label} {shape}: pairs tested {tested}, needed {need[0]}: tested / needed "
+                  f"{tested / max(need[0], 1):.3f}; entering lanes per staged chunk "
+                  f"{stats['lane_visits'] / max(stats['staged'], 1):.2f}")
         print(f"time {label} {shape}: kernel {km:.3f} ms at {nq} rays, plain {pm:.3f} ms at "
               f"{rows.numel()} rays, bound {bms:.4f} ms ({by}) from {need[0]} needed pairs and "
               f"{need[1]} transforms in {need[2]} virtual chunks ({need[3]} object tris, {need[4]} "
-              f"instances); pairs the kernel tested {stats['lane_visits'] * 128}; blocks with a "
+              f"instances); pairs the kernel tested {tested}; blocks with a "
               f"live lane {stats['blocks']}, gate entries visited per block "
-              f"{stats['visits'] / blocks:.1f}, chunks staged per block {stats['stagings'] / blocks:.1f}, "
+              f"{stats['visits'] / blocks:.1f}, chunks staged per block {stats['staged'] / blocks:.1f}, "
               f"skipped by the window per block {stats['skipped'] / blocks:.1f}, distinct entries "
               f"{stats['entries']} of {eng['gates']} ({card})")
     return results
@@ -879,6 +968,17 @@ def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, ca
     rng = np.random.default_rng(8765)
     shapes, occ = render_shapes(iwalk, walk, veng, scene2, cam, WIDTH, HEIGHT, rng, dev)
     res = {"dragon": time_two_level(iwalk, walk, veng, veng, shapes, occ, "vwalk dragon", rng, card)}
+    # vwalk's segment-cull edge cases, the ulp limits on camera rays
+    _, (qo, qd, qt), _ = shapes["camera"]
+    cam_rows = torch.arange(0, qo.shape[0], qo.shape[0] // (4 * EDGE_ULP), device=dev)
+    cq = tuple(x[cam_rows].contiguous() for x in (qo, qd, qt))
+    kt, ks, _ = iwalk.closest_cuda(veng, *cq)
+    eo, ed, et = edge_rays(rng, *iwalk.virtual_boxes(veng), veng["root_lo"], veng["root_hi"],
+                           cq[0], cq[1], kt, ks, dev)
+    etc = walk._exit_clamp(veng, eo, ed, et).contiguous()
+    edge_err = check_any("vwalk edge cases", iwalk.any_cuda(veng, eo, ed, etc),
+                         iwalk.any_plain(veng, eo, ed, etc), eo, ed, etc)
+    res["dragon"]["shadow"]["err"] = max(res["dragon"]["shadow"]["err"], edge_err)
     # iwalk on whole blocks of the dragon's bounce rays and on shadow rays
     sub = {}
     for name in ("bounce", "shadow"):
@@ -912,29 +1012,20 @@ def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, ca
     return res, sh_m, cam_m
 
 
-def render_iwalk_in_process(sh_m, cam_m, card):
-    """Phase 14, second half: many_instance_scene with engine="iwalk" at
-    1920x1080, 1 spp, launch counts zeroed just before and read just after."""
-    from path_tracer_tpu_torch.integrator.wavefront import render_sample
-
-    scene = sh_m.device(DEVICE, engine="iwalk")
-    ndc = torch.as_tensor(cam_m.view_proj_inverse(), device=DEVICE)
-    org = torch.as_tensor(cam_m.origin, device=DEVICE)
-    LAUNCHES = zero_launches()
-    t0 = time.perf_counter()
-    rad, _, _, rays = render_sample(
-        scene, ndc, org, 0, MANY_W, MANY_H, max_bounces=MAX_BOUNCES, has_lights="light" in scene,
-        spp=1, mtypes=sh_m.active_mtypes, any_volumes=sh_m.has_volumes)
-    torch.cuda.synchronize()
-    trace_s = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    film = torch.cat([rad, torch.ones((rad.shape[0], 1), device=DEVICE)], 1).reshape(MANY_H, MANY_W, 4)
-    mean = check_film(film, MANY_W, MANY_H, 1)
-    print(f"render many_instance_scene two-level in process (engine iwalk) {MANY_W}x{MANY_H} 1 spp: "
-          f"trace {trace_s:.2f} s, {float(rays[:, 0].sum()) / trace_s / 1e6:.4f} Mrays/s, bounce "
-          f"steps {launches['iwalk_any']}, mean radiance {mean:.5f}, launches {launches} ({card})")
-    check(launches["iwalk_closest"] > 0 and launches["iwalk_any"] > 0, launches)
-    check(launches["vwalk_closest"] == 0 and launches["walk_closest"] == 0, launches)
+def render_iwalk_cli(card):
+    """Phase 14, second half: ``PT_VWALK=0`` many_instance_scene
+    --two-level through the CLI at 1920x1080, 1 spp: the iwalk kernels
+    launch and vwalk's do not."""
+    os.environ["PT_VWALK"] = "0"
+    try:
+        launches, res = render_cli(
+            "many_instance_scene", 1, card, ("iwalk_closest", "iwalk_any", "closest"),
+            width=MANY_W, height=MANY_H, two_level=True,
+            absent=("vwalk_closest", "vwalk_any", "walk_closest", "walk_any"))
+    finally:
+        del os.environ["PT_VWALK"]
+    check(res["engine"] == "iwalk", res["engine"])
+    print(f"many_instance_scene --two-level PT_VWALK=0 bounce steps: {launches['iwalk_any']}")
     return launches
 
 
@@ -1041,6 +1132,10 @@ def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card):
             err = check_any(f"stream render shape {name}", ka[rows], pa, qo[rows], qd[rows], qt[rows])
             pub_ms, _ = time_ms(lambda: ds.dense_stream_any_hit(eng, *rays), reps)
             walk_ms, _ = time_ms(lambda: walk.walk_any_hit(walk_eng, *rays), reps)
+            wtl = walk._exit_clamp(walk_eng, qo, qd, qt).contiguous()
+            wk_ms, _ = time_ms(lambda: walk.any_cuda(walk_eng, qo, qd, wtl), reps)
+            print(f"shadow any-hit kernels on the same {nq} rays (pixel order): stream {km:.3f} ms, "
+                  f"walk {wk_ms:.3f} ms ({card})")
             stop = torch.where(occ >= 0, occ // ds.CH, -1)
             pairs, used, _ = needed_work(walk, lo, hi, spans, qo, qd, qt, qt, stop)
             out_bytes, query = 1, "any"
@@ -1117,6 +1212,61 @@ def phase_probes(card):
     return rows
 
 
+# --- the stack BVH (light tables above 16,384 triangles) ---
+
+
+def glow_scene():
+    """The Cornell shell plus an emissive icosphere(subdivisions=5): 20,482
+    light triangles (the sphere's 20,480 and the ceiling light's 2)."""
+    from path_tracer_tpu_torch import scenes
+    from path_tracer_tpu_torch.scene import procedural
+    from path_tracer_tpu_torch.scene.materials import Emissive
+    from path_tracer_tpu_torch.scene.model import Model
+    from path_tracer_tpu_torch.scene.scene import Scene
+
+    sp, sn = procedural.icosphere((0.0, 250.0, 0.0), 90.0, 5)
+    models = scenes._cornell_shell() + [Model(Emissive((4.0, 3.0, 2.0)), positions=sp, normals=sn)]
+    return Scene(models), scenes.cornell_camera()
+
+
+def phase_light_bvh(dev, card):
+    """Phase 21: the 20,482-light-triangle scene through the stack BVH
+    light path on the CPU and on the card, then the stack BVH's queries on
+    the card over 65,536 rays of its light table, against the CPU's on
+    4,096 of them (the same torch ops: the same bits)."""
+    from path_tracer_tpu_torch.trace import bvh_stack
+
+    print("Cornell shell + emissive icosphere(subdivisions=5):")
+    cross_backend(glow_scene, 32, 32, 2)
+    sh, _ = glow_scene()
+    scene = sh.device(DEVICE)
+    lt = sh.light["pdf"].shape[0]
+    check(lt == 20482 and "bvh" in scene["light"] and "dense" not in scene["light"],
+          (lt, sorted(scene["light"])))
+    tab = scene["light"]["bvh"]
+    rng = np.random.default_rng(9753)
+    n = 65536
+    o = torch.as_tensor(rng.uniform((-270, 5, -270), (270, 550, 270), (n, 3)).astype(np.float32),
+                        device=dev)
+    toward = light_targets(rng, scene, n, dev) - o
+    d = torch.where((torch.arange(n, device=dev) % 2 == 0)[:, None],
+                    toward / toward.norm(dim=1, keepdim=True), unit_rows(rng, n, dev)).contiguous()
+    tl = torch.full((n,), math.inf, device=dev)
+    c_ms, (bi, bt, bu, bv) = time_ms(lambda: bvh_stack.closest_hit(tab, o, d, tl), 3)
+    lim = torch.where(bi >= 0, bt * 1.001, 1000.0).contiguous()
+    a_ms, fa = time_ms(lambda: bvh_stack.any_hit(tab, o, d, lim), 3)
+    sub = torch.arange(0, n, n // 4096, device=dev)
+    tab_cpu = {k: v.cpu() for k, v in tab.items()}
+    cc = bvh_stack.closest_hit(tab_cpu, o[sub].cpu(), d[sub].cpu(), tl[sub].cpu())
+    ca = bvh_stack.any_hit(tab_cpu, o[sub].cpu(), d[sub].cpu(), lim[sub].cpu())
+    same = all(torch.equal(x[sub].cpu(), y) for x, y in zip((bi, bt, bu, bv), cc))
+    check(same and torch.equal(fa[sub].cpu(), ca), "stack BVH card vs CPU")
+    print(f"stack BVH on the {lt}-triangle light table ({tab['nodes'].shape[0]} nodes): closest "
+          f"hit {c_ms:.3f} ms and any hit {a_ms:.3f} ms over {n} rays (hits "
+          f"{(bi >= 0).float().mean().item():.3f}, occluded {fa.float().mean().item():.3f}); "
+          f"card equal to CPU on {sub.numel()} rays ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1158,8 +1308,11 @@ def main() -> int:
     errs.update(walk_errs)
     walk_eng = scene["tri"]["walk"]  # phases 16-18 and 11 hold other engines against it
     print(f"phases 6-7: {time.perf_counter() - t0:.1f} s")
-    walk_launches, res = render_cli("dragon_scene", DRAGON_SPP, card,
-                                    ("walk_closest", "walk_any", "closest"))
+    # the CLI renders of phases 8 and 18 take phase 6's host scene (its
+    # NumPy SAH build is 60-100 s of host time, printed above)
+    with prebuilt_dragon(scenes, sh, cam):
+        walk_launches, res = render_cli("dragon_scene", DRAGON_SPP, card,
+                                        ("walk_closest", "walk_any", "closest"))
     print(f"dragon_scene bounce steps: {walk_launches['walk_any']} (one any-hit per step)")
     print("dragon_scene(nu=96, nv=64, env_h=64):")
     cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4)
@@ -1175,11 +1328,15 @@ def main() -> int:
         errs[r["key"]] = max(errs[r["key"]], r["err"])
     del stream_scene, seng
     print(f"phases 16-17: {time.perf_counter() - t0:.1f} s")
-    stream_launches = render_stream(sh, scene, cam, card)
+    with prebuilt_dragon(scenes, sh, cam):
+        stream_launches = render_stream(sh, scene, cam, card)
     del scene
     print("dragon_scene(nu=96, nv=64, env_h=64), engine stream:")
     cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4, engine="stream")
     probe_t = phase_probes(card)
+    t0 = time.perf_counter()
+    phase_light_bvh(dev, card)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     two_errs, sh2, scene2, veng, ieng = phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev,
@@ -1204,8 +1361,8 @@ def main() -> int:
         width=MANY_W, height=MANY_H, two_level=True,
         absent=("walk_closest", "walk_any", "iwalk_closest", "iwalk_any"))
     print(f"many_instance_scene --two-level bounce steps: {many_launches['vwalk_any']}")
-    iwalk_launches = render_iwalk_in_process(sh_m, cam_m, card)
-    del sh_m
+    iwalk_launches = render_iwalk_cli(card)
+    del sh_m, cam_m
     print("many_instance_scene(grid=3, subdivisions=1) two-level:")
     small = lambda: scenes.many_instance_scene(grid=3, subdivisions=1, two_level=True)  # noqa: E731
     means = {e: cross_backend(small, 32, 32, 4, engine=e) for e in ("vwalk", "iwalk")}
@@ -1239,6 +1396,8 @@ def main() -> int:
             "launches": launches[key], "max_abs_err": errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "rays": r["rays"],
+            **({"tested_pairs": r["tested_pairs"], "needed_pairs": r["needed_pairs"]}
+               if key in ("walk_any", "vwalk_any") else {}),
             "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

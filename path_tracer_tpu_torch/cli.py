@@ -8,7 +8,8 @@ keeps shared object-space tables plus instance transforms instead of baking
 instances to world space, and traces through the two-level kernels (vwalk,
 or iwalk above vwalk's cap). ``PT_WALK=0`` in the environment switches the
 walk off as in the JAX package: a baked soup above 16,384 triangles then
-goes through the streamed dense kernels (``trace/dense_stream.py``). The
+goes through the streamed dense kernels (``trace/dense_stream.py``);
+``PT_VWALK=0`` sends a two-level scene through iwalk instead of vwalk. The
 world engine is printed.
 """
 

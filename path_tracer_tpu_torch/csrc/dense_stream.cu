@@ -28,7 +28,8 @@
 // block's window) is skipped; otherwise one thread per chunk gates the
 // part's chunk boxes and a warp ballot gives the survivors in ascending
 // order. Before a surviving chunk is staged, every lane runs its own slab
-// test against the chunk box within its own window (closest: min(best,
+// test (segment.cuh enters, shared with the walk any-hits) against the
+// chunk box within its own window (closest: min(best,
 // t_limit); any hit: t_limit while unoccluded); a chunk no lane enters is
 // skipped (an exact skip: the box holds every triangle of the chunk, padded).
 // Otherwise the block stages the chunk's 512 plane rows (three float4 each)
@@ -56,6 +57,7 @@
 // equal the plain torch version's (trace/dense_stream.py) bit for bit.
 
 #include "dense_common.cuh"
+#include "segment.cuh"
 
 namespace {
 
@@ -64,8 +66,6 @@ constexpr int CH = 512;    // triangles per chunk (dense_stream.py CH)
 constexpr int MAX_CPP = 32;  // chunks per part: PART_TRIS / CH
 constexpr int WARPS = SBLK / 32;
 constexpr float T_CLAMP = 3.0e38f;  // finite stand-in for an infinite t_limit
-constexpr float WIN_MUL = 1.00002f;  // _gate's window slack
-constexpr float WIN_ADD = 1e-5f;
 
 struct Ray {
   float o[3], d[3], inv[3];
@@ -194,26 +194,6 @@ __device__ __forceinline__ bool admits(float t_lo, float t_hi, float win) {
   return t_lo <= fminf(t_hi, win * WIN_MUL + WIN_ADD);
 }
 
-// One lane's own slab test of a chunk box within its window [0, tw]: false
-// if the ray cannot meet the box before tw (inverted pad boxes included).
-__device__ __forceinline__ bool enters(const Ray& r, const float* box, float tw) {
-  float t_near = 0.0f, t_far = tw * WIN_MUL + WIN_ADD;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float lo = box[a], hi = box[3 + a];
-    if (!(lo <= hi)) return false;
-    if (r.d[a] == 0.0f) {
-      if (r.o[a] < lo || r.o[a] > hi) return false;
-    } else {
-      const float t1 = (lo - r.o[a]) * r.inv[a];
-      const float t2 = (hi - r.o[a]) * r.inv[a];
-      t_near = fmaxf(t_near, fminf(t1, t2));
-      t_far = fminf(t_far, fmaxf(t1, t2));
-    }
-  }
-  return t_near <= t_far;
-}
-
 // Gate part p's chunk boxes (one thread each, warp 0) against the window:
 // boxes, entry and exit t into shared memory, survivors into sh.bits (bit =
 // chunk within the part). Starts and ends with a barrier.
@@ -290,7 +270,7 @@ stream_closest_kernel(const float* __restrict__ aux, const float* __restrict__ c
         const int c = __ffs(m) - 1;
         if (!admits(sh.te[c], sh.th[c], win)) continue;
         ++cn.gated;
-        const bool want = r.valid && enters(r, sh.box[c], fminf(best, r.tl));
+        const bool want = r.valid && enters(r.o, r.d, r.inv, sh.box[c], fminf(best, r.tl));
         const int lanes = __syncthreads_count(want);
         if (lanes == 0) continue;
         ++cn.staged;
@@ -349,7 +329,7 @@ stream_any_kernel(const float* __restrict__ aux, const float* __restrict__ cab,
         const int c = __ffs(m) - 1;
         if (!admits(sh.te[c], sh.th[c], win)) continue;
         ++cn.gated;
-        const bool want = r.valid && !occ && enters(r, sh.box[c], r.tl);
+        const bool want = r.valid && !occ && enters(r.o, r.d, r.inv, sh.box[c], r.tl);
         const int lanes = __syncthreads_count(want);
         if (lanes == 0) continue;
         ++cn.staged;

@@ -38,6 +38,14 @@
 // after each chunk, and the any-hit leaves the range once every live lane
 // is occluded. Dead lanes and blocks behave as in walk_hit.cu.
 //
+// vwalk's any hit is walk_hit.cu's (walk_common.cuh any_walk): each lane's
+// own segment test of the virtual chunk's world box, a lane-compacted pair
+// test, each entering lane listing its object-space ray (obj_ray, once per
+// staged chunk). The world box holds the 8 float32-transformed corners of
+// an unpadded object box, and the pair test runs in object space, so the
+// lanes test the box widened by ``slack`` on every side, which bounds the
+// rounding of both frames (trace/iwalk.py lane_slack).
+//
 // What bounds it: FP32 ALU per staged ray x triangle pair (closest 42 ops,
 // any 41, as in walk_hit.cu), plus the transform (30 ops per ray per
 // visit) and the gate scan (~40 ops per box per block). iwalk tests every
@@ -49,11 +57,12 @@
 // Outputs. Closest: best t, the object-global slot (chunk*128 + lane) and
 // the instance, or (1e30, -1, -1) on a miss. Any: one flag per ray.
 //
-// Counters. With a non-null ``stats`` ([5 + entries] u64, zeroed by the
-// caller) each block adds stats[0..3] as in walk_hit.cu (blocks with a live
+// Counters. With a non-null ``stats`` ([6 + entries] u64, zeroed by the
+// caller) each block adds stats[0..5] as in walk_hit.cu (blocks with a live
 // lane, gate entries visited, survivors the window skipped, lanes testing
-// a staged chunk, summed over stagings), its staged chunks to stats[4], and
-// sets stats[5 + e] for every gate entry e it visits. Off on the main path.
+// a staged chunk, summed over stagings, staged chunks, and for vwalk's any
+// hit the (lane, real triangle) pairs), and sets stats[6 + e] for every
+// gate entry e it visits (vwalk's any hit: stages). Off on the main path.
 //
 // Floating point: -fmad=false; the transform and the pair test repeat the
 // plain torch versions' (trace/iwalk.py) expressions in their order, so
@@ -62,29 +71,6 @@
 #include "walk_common.cuh"
 
 namespace {
-
-// Ray r in the object space of instance i (iwalk.py _obj_rays order);
-// t_limit and validity carry over unchanged (rigid transform).
-__device__ __forceinline__ Ray obj_ray(const Ray& r, const float* __restrict__ inst_f, int i) {
-  const float* f = inst_f + (size_t)i * 12;
-  float m[12];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) m[j] = __ldg(f + j);
-  Ray q = r;
-  q.ox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[9];
-  q.oy = m[3] * r.ox + m[4] * r.oy + m[5] * r.oz + m[10];
-  q.oz = m[6] * r.ox + m[7] * r.oy + m[8] * r.oz + m[11];
-  q.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
-  q.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
-  q.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
-  return q;
-}
-
-// Add the staged chunks of a block (stats[4]).
-__device__ __forceinline__ void count_stagings(unsigned long long* stats, int anyv,
-                                               unsigned long long stagings) {
-  if (stats != nullptr && threadIdx.x == 0 && anyv) atomicAdd(stats + 4, stagings);
-}
 
 __device__ __forceinline__ void write_closest(int n, float best, int slot, int inst,
                                               float* __restrict__ out_t,
@@ -130,7 +116,7 @@ vwalk_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cb
           ++visits;
           const int v = ord[base + q];
           const int i = vinst[v], c = vglob[v];
-          if (stats != nullptr) lanes += mark(stats + 5, v, r.valid);
+          if (stats != nullptr) lanes += mark(stats + NSTATS, v, r.valid);
           stage(aux, c, sh);
           if (r.valid && closest_chunk(obj_ray(r, inst_f, i), sh, c, best, slot)) inst = i;
           win = fminf(win, block_max(fminf(best, r.tl), sh));
@@ -139,51 +125,21 @@ vwalk_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cb
     }
   }
   write_closest(n, best, slot, inst, out_t, out_slot, out_inst);
-  count(stats, sh.bb.anyv, visits, skips, lanes);
-  count_stagings(stats, sh.bb.anyv, visits);
+  count(stats, sh.bb.anyv, visits, skips, lanes, visits);
 }
 
+// Shadow test (iwalk.py _vwalk_any_kernel): walk_common.cuh any_walk over
+// the virtual chunks, the lanes' segment tests against the world boxes
+// widened by ``slack`` (trace/iwalk.py lane_slack).
 __global__ void __launch_bounds__(SBLK)
 vwalk_any_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct,
                  const int* __restrict__ ord_oct, const int* __restrict__ vinst,
                  const int* __restrict__ vglob, const float* __restrict__ inst_f, int k, int kq,
-                 const float* __restrict__ orig, const float* __restrict__ dir,
+                 float slack, const float* __restrict__ orig, const float* __restrict__ dir,
                  const float* __restrict__ tlim, int n, uint8_t* __restrict__ out,
                  unsigned long long* __restrict__ stats) {
-  __shared__ Shared sh;
-  const Ray r = load_ray(orig, dir, tlim, n, sh);
-  block_bounds(r, sh);
-
-  bool occ = false;
-  unsigned long long visits = 0, skips = 0, lanes = 0;
-  if (sh.bb.anyv) {
-    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
-    float win = sh.bb.tmax;  // uniform; <= 0 once every live lane is occluded
-    for (int base = 0; base < k && win > 0.0f; base += SBLK) {
-      gate_batch(cb_oct, k, kq, base, sh);
-      for (int w = 0; w < WARPS && win > 0.0f; ++w) {
-        unsigned m = sh.bits[w];
-        while (m && win > 0.0f) {
-          const int q = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          if (!admits(sh.te[q], win)) {
-            ++skips;
-            continue;
-          }
-          ++visits;
-          const int v = ord[base + q];
-          if (stats != nullptr) lanes += mark(stats + 5, v, r.valid && !occ);
-          stage(aux, vglob[v], sh);
-          if (r.valid && !occ) occ = any_chunk(obj_ray(r, inst_f, vinst[v]), sh);
-          win = fminf(win, block_max(occ ? 0.0f : r.tl, sh));
-        }
-      }
-    }
-  }
-  const int ray = blockIdx.x * SBLK + threadIdx.x;
-  if (ray < n) out[ray] = occ ? 1 : 0;
-  count(stats, sh.bb.anyv, visits, skips, lanes);
-  count_stagings(stats, sh.bb.anyv, visits);
+  any_walk<true>(aux, cb_oct, ord_oct, vinst, vglob, inst_f, k, kq, slack, orig, dir, tlim, n,
+                 out, stats);
 }
 
 __global__ void __launch_bounds__(SBLK)
@@ -219,7 +175,7 @@ iwalk_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cb
           const int i = ord[base + q];
           const Ray o = obj_ray(r, inst_f, i);
           for (int c = inst_c[2 * i]; c < inst_c[2 * i + 1]; ++c) {
-            if (stats != nullptr) lanes += mark(stats + 5, i, r.valid);
+            if (stats != nullptr) lanes += mark(stats + NSTATS, i, r.valid);
             ++stagings;
             stage(aux, c, sh);
             if (r.valid && closest_chunk(o, sh, c, best, slot)) inst = i;
@@ -230,8 +186,7 @@ iwalk_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cb
     }
   }
   write_closest(n, best, slot, inst, out_t, out_slot, out_inst);
-  count(stats, sh.bb.anyv, visits, skips, lanes);
-  count_stagings(stats, sh.bb.anyv, stagings);
+  count(stats, sh.bb.anyv, visits, skips, lanes, stagings);
 }
 
 __global__ void __launch_bounds__(SBLK)
@@ -265,7 +220,7 @@ iwalk_any_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct
           const int i = ord[base + q];
           const Ray o = obj_ray(r, inst_f, i);
           for (int c = inst_c[2 * i]; c < inst_c[2 * i + 1] && win > 0.0f; ++c) {
-            if (stats != nullptr) lanes += mark(stats + 5, i, r.valid && !occ);
+            if (stats != nullptr) lanes += mark(stats + NSTATS, i, r.valid && !occ);
             ++stagings;
             stage(aux, c, sh);
             if (r.valid && !occ) occ = any_chunk(o, sh);
@@ -277,8 +232,7 @@ iwalk_any_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct
   }
   const int ray = blockIdx.x * SBLK + threadIdx.x;
   if (ray < n) out[ray] = occ ? 1 : 0;
-  count(stats, sh.bb.anyv, visits, skips, lanes);
-  count_stagings(stats, sh.bb.anyv, stagings);
+  count(stats, sh.bb.anyv, visits, skips, lanes, stagings);
 }
 
 }  // namespace
@@ -307,7 +261,7 @@ extern "C" int vwalk_closest(int device, const float* aux, const float* cb_oct,
 
 extern "C" int vwalk_any(int device, const float* aux, const float* cb_oct,
                          const int* ord_oct, const int* vinst, const int* vglob,
-                         const float* inst_f, int k, int kq, const float* orig,
+                         const float* inst_f, int k, int kq, float slack, const float* orig,
                          const float* dir, const float* tlim, int n, uint8_t* out,
                          unsigned long long* stats, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -315,7 +269,7 @@ extern "C" int vwalk_any(int device, const float* aux, const float* cb_oct,
   if (n > 0) {
     const int blocks = (n + SBLK - 1) / SBLK;
     vwalk_any_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
-        aux, cb_oct, ord_oct, vinst, vglob, inst_f, k, kq, orig, dir, tlim, n, out, stats);
+        aux, cb_oct, ord_oct, vinst, vglob, inst_f, k, kq, slack, orig, dir, tlim, n, out, stats);
   }
   return (int)cudaGetLastError();
 }

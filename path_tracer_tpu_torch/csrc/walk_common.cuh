@@ -1,8 +1,10 @@
 // The pieces every gated walk kernel shares (walk_hit.cu: the baked walk;
 // iwalk_hit.cu: the two-level vwalk and iwalk): the ray load, the block's
 // conservative ray bounds, the box gate with a warp ballot, the staging of
-// one chunk's plane rows, the block-wide window reduction, the counters and
-// the ray x triangle pair tests. See the note at the top of walk_hit.cu for
+// one chunk's plane rows, the block-wide window reduction, the counters,
+// the object-space ray, the ray x triangle pair tests, and the any-hit walk
+// of the baked and virtual chunks (any_walk: the per-lane segment cull and
+// the lane-compacted pair tests). See the note at the top of walk_hit.cu for
 // the design and the floating-point rules (-fmad=false; the plain torch
 // versions in trace/walk.py and trace/iwalk.py repeat these expressions in
 // this order).
@@ -11,6 +13,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "segment.cuh"
 
 namespace {
 
@@ -21,8 +25,9 @@ constexpr int AUX_COLS = 24;
 constexpr float EPS = 5e-4f;       // core/constants.py EPSILON
 constexpr float BIG = 1e30f;       // "no winner" sentinel
 constexpr float T_CLAMP = 3.0e38f; // finite stand-in for an infinite t_limit
-constexpr float WIN_MUL = 1.00002f;
-constexpr float WIN_ADD = 1e-5f;
+// stats: blocks with a live lane, visits, skips, lanes, staged chunks,
+// pairs; then one flag per gate entry
+constexpr int NSTATS = 6;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tl;
@@ -58,8 +63,9 @@ __device__ __forceinline__ bool admits(float te, float win) {
 // Load this thread's ray; invalid lanes are zeroed with t_limit 0
 // (walk.py _pack_rays_cols). The first thread also records the block's
 // octant from its raw direction (walk.py _block_octant).
+template <class S>
 __device__ Ray load_ray(const float* __restrict__ orig, const float* __restrict__ dir,
-                        const float* __restrict__ tlim, int n, Shared& sh) {
+                        const float* __restrict__ tlim, int n, S& sh) {
   const int ray = blockIdx.x * SBLK + threadIdx.x;
   Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false};
   if (ray < n) {
@@ -86,7 +92,8 @@ __device__ Ray load_ray(const float* __restrict__ orig, const float* __restrict_
 
 // Block-wide conservative ray bounds into sh.bb; every thread returns after
 // the barrier that publishes them.
-__device__ void block_bounds(const Ray& r, Shared& sh) {
+template <class S>
+__device__ void block_bounds(const Ray& r, S& sh) {
   // olo xyz (min) | ohi xyz (max) | dlo xyz (min) | dhi xyz (max) | tmax (max)
   float v[13];
   v[0] = r.valid ? r.ox : BIG;
@@ -179,13 +186,20 @@ __device__ void gate_batch(const float* __restrict__ cb_oct, int k, int kq, int 
   __syncthreads();
 }
 
-// Stage chunk c's 128 plane rows into shared memory (then a barrier).
-__device__ __forceinline__ void stage(const float* __restrict__ aux, int c, Shared& sh) {
+// Stage chunk c's 128 plane rows into ``planes`` (one row per thread; no
+// barrier).
+__device__ __forceinline__ void stage_rows(const float* __restrict__ aux, int c,
+                                           float4* planes) {
   const float4* row =
       reinterpret_cast<const float4*>(aux + ((size_t)c * CH_W + threadIdx.x) * AUX_COLS);
-  sh.planes[threadIdx.x] = row[0];
-  sh.planes[CH_W + threadIdx.x] = row[1];
-  sh.planes[2 * CH_W + threadIdx.x] = row[2];
+  planes[threadIdx.x] = row[0];
+  planes[CH_W + threadIdx.x] = row[1];
+  planes[2 * CH_W + threadIdx.x] = row[2];
+}
+
+// Stage chunk c's 128 plane rows into shared memory (then a barrier).
+__device__ __forceinline__ void stage(const float* __restrict__ aux, int c, Shared& sh) {
+  stage_rows(aux, c, sh.planes);
   __syncthreads();
 }
 
@@ -210,15 +224,17 @@ __device__ __forceinline__ int mark(unsigned long long* flags, int e, bool tests
 
 // Add this block's counters: stats[0] += 1 (a block with a live lane),
 // stats[1] += visits, stats[2] += gated survivors the window skipped,
-// stats[3] += lanes testing a staged chunk.
+// stats[3] += lanes testing a staged chunk, stats[4] += staged chunks.
+// Thread 0's values; call from every thread.
 __device__ __forceinline__ void count(unsigned long long* stats, int anyv,
                                       unsigned long long visits, unsigned long long skips,
-                                      unsigned long long lanes) {
+                                      unsigned long long lanes, unsigned long long staged) {
   if (stats != nullptr && threadIdx.x == 0 && anyv) {
     atomicAdd(stats, 1ull);
     atomicAdd(stats + 1, visits);
     atomicAdd(stats + 2, skips);
     atomicAdd(stats + 3, lanes);
+    atomicAdd(stats + 4, staged);
   }
 }
 
@@ -262,18 +278,229 @@ __device__ __forceinline__ bool closest_chunk(const Ray& r, const Shared& sh, in
   return upd;
 }
 
-// Shadow test of ray r against the staged chunk, division-free: a hit iff
+// Shadow test of ray r against one plane row, division-free: a hit iff
 // sign(td - det*eps) == sign(det*tlim - td) plus the two barycentric sign
 // tests (walk.py _walk_any_kernel).
+__device__ __forceinline__ bool any_pair(const Ray& r, float4 a, float4 b, float4 c) {
+  const Terms t = terms(r, a, b, c);
+  const bool c1 = same_sign(t.td - t.det * EPS, t.det * r.tl - t.td);
+  const bool c2 = same_sign(t.ud, t.det - t.ud);
+  const bool c3 = same_sign(t.vd, t.det - t.ud - t.vd);
+  return c1 && c2 && c3 && t.det != 0.0f;
+}
+
+// Shadow test of ray r against the staged chunk.
 __device__ __forceinline__ bool any_chunk(const Ray& r, const Shared& sh) {
   for (int j = 0; j < CH_W; ++j) {
-    const Terms t = terms(r, sh.planes[j], sh.planes[CH_W + j], sh.planes[2 * CH_W + j]);
-    const bool c1 = same_sign(t.td - t.det * EPS, t.det * r.tl - t.td);
-    const bool c2 = same_sign(t.ud, t.det - t.ud);
-    const bool c3 = same_sign(t.vd, t.det - t.ud - t.vd);
-    if (c1 && c2 && c3 && t.det != 0.0f) return true;
+    if (any_pair(r, sh.planes[j], sh.planes[CH_W + j], sh.planes[2 * CH_W + j])) return true;
   }
   return false;
+}
+
+// Ray r in the object space of instance i (iwalk.py _obj_rays order);
+// t_limit and validity carry over unchanged (rigid transform).
+__device__ __forceinline__ Ray obj_ray(const Ray& r, const float* __restrict__ inst_f, int i) {
+  const float* f = inst_f + (size_t)i * 12;
+  float m[12];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) m[j] = __ldg(f + j);
+  Ray q = r;
+  q.ox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[9];
+  q.oy = m[3] * r.ox + m[4] * r.oy + m[5] * r.oz + m[10];
+  q.oz = m[6] * r.ox + m[7] * r.oy + m[8] * r.oz + m[11];
+  q.dx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
+  q.dy = m[3] * r.dx + m[4] * r.dy + m[5] * r.dz;
+  q.dz = m[6] * r.dx + m[7] * r.dy + m[8] * r.dz;
+  return q;
+}
+
+// --- the any-hit walk (walk_any_kernel, vwalk_any_kernel) ---
+
+// One listed lane of a staged chunk: its ray (object space for vwalk),
+// t_limit in o.w and the lane in d.w (int bits).
+struct Entry {
+  float4 o, d;
+};
+
+struct AnyShared {
+  float4 planes[2][3 * CH_W];  // the staged chunk, double-buffered
+  Entry list[2][WARPS][32];    // each warp's entering lanes, same buffers
+  int cnt[2][WARPS];
+  float box[SBLK][6];          // the gate batch's boxes (slack applied)
+  float te[SBLK];              // and their gate entry t
+  unsigned bits[WARPS];        // gate survivors, one word per warp
+  unsigned mask[3];            // block OR of the lanes' entered-box masks
+  unsigned wmax[3];            // block max of unoccluded t_limit (bits)
+  int occ[SBLK];               // occluded lanes
+  float red[WARPS][13];
+  Bounds bb;
+};
+
+// Gate the positions [base, base + SBLK) of the block's octant order, as
+// gate_batch, and keep each survivor's box widened by ``slack`` on every
+// side. Starts and ends with a barrier.
+__device__ void gate_boxes(const float* __restrict__ cb_oct, int k, int kq, int base,
+                           float slack, AnyShared& sh) {
+  const int p = base + threadIdx.x;
+  const float* cb = cb_oct + (size_t)sh.bb.oct * 6 * kq;
+  float te = BIG;
+  bool ok = false;
+  if (p < k) ok = gate(sh.bb, cb, kq, p, te);
+  const unsigned bits = __ballot_sync(0xffffffffu, ok);
+  __syncthreads();  // the previous batch is fully consumed
+  if ((threadIdx.x & 31) == 0) sh.bits[threadIdx.x / 32] = bits;
+  sh.te[threadIdx.x] = te;
+  if (ok) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      sh.box[threadIdx.x][a] = cb[a * kq + p] - slack;
+      sh.box[threadIdx.x][3 + a] = cb[(3 + a) * kq + p] + slack;
+    }
+  }
+  __syncthreads();
+}
+
+// The chunk of gate entry e: the layout chunk e, or virtual chunk e's
+// object chunk.
+template <bool VIRTUAL>
+__device__ __forceinline__ int entry_chunk(const int* __restrict__ vglob, int e) {
+  if constexpr (VIRTUAL) {
+    return vglob[e];
+  } else {
+    return e;
+  }
+}
+
+// The any-hit walk over baked chunks (VIRTUAL false: a gate entry e is the
+// layout chunk e) or virtual chunks (VIRTUAL true: the object chunk
+// vglob[e] of instance vinst[e], tested on the lane's object-space ray).
+// Writes one flag per ray; ``stats`` as count() plus stats[5] += pairs and
+// a flag per staged gate entry at stats[NSTATS + e]. The design is in the
+// note at the top of walk_hit.cu.
+template <bool VIRTUAL>
+__device__ __forceinline__ void any_walk(
+    const float* __restrict__ aux, const float* __restrict__ cb_oct,
+    const int* __restrict__ ord_oct, const int* __restrict__ vinst,
+    const int* __restrict__ vglob, const float* __restrict__ inst_f, int k, int kq,
+    float slack, const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ tlim, int n, uint8_t* __restrict__ out,
+    unsigned long long* __restrict__ stats) {
+  __shared__ AnyShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  volatile int* occs = sh.occ;
+  occs[tid] = 0;
+  if (tid < 3) {
+    sh.mask[tid] = 0u;
+    sh.wmax[tid] = 0u;
+  }
+  const Ray r = load_ray(orig, dir, tlim, n, sh);
+  block_bounds(r, sh);  // its barrier publishes the zeroed flags too
+  const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
+  const float inv[3] = {r.dx == 0.0f ? 0.0f : 1.0f / r.dx, r.dy == 0.0f ? 0.0f : 1.0f / r.dy,
+                        r.dz == 0.0f ? 0.0f : 1.0f / r.dz};
+
+  bool occ = false;
+  unsigned long long visits = 0, skips = 0, lanes = 0, staged = 0, pairs = 0;
+  if (sh.bb.anyv) {
+    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
+    float win = sh.bb.tmax;  // uniform; 0 once every live lane is occluded
+    int slot = 0, buf = 0;
+    for (int base = 0; base < k && win > 0.0f; base += SBLK) {
+      gate_boxes(cb_oct, k, kq, base, slack, sh);
+      for (int w = 0; w < WARPS && win > 0.0f; ++w) {
+        // this warp word's survivors within the block window
+        unsigned todo = 0u;
+        for (unsigned m = sh.bits[w]; m; m &= m - 1) {
+          const int j = __ffs(m) - 1;
+          if (admits(sh.te[w * 32 + j], win)) {
+            todo |= 1u << j;
+          } else {
+            ++skips;
+          }
+        }
+        visits += __popc(todo);
+        if (todo != 0u) {
+          // each live, unoccluded lane's own segment test of every box of
+          // the word; the masks are ORed block-wide behind one barrier
+          const bool open = r.valid && !occ;
+          unsigned mine = 0u;
+          if (open) {
+            for (unsigned m = todo; m; m &= m - 1) {
+              const int j = __ffs(m) - 1;
+              if (enters(o, d, inv, sh.box[w * 32 + j], r.tl)) mine |= 1u << j;
+            }
+          }
+          const unsigned wm = __reduce_or_sync(0xffffffffu, mine);
+          const unsigned wt = __reduce_max_sync(0xffffffffu, open ? __float_as_uint(r.tl) : 0u);
+          if (lane == 0) {
+            atomicOr(&sh.mask[slot], wm);
+            atomicMax(&sh.wmax[slot], wt);
+          }
+          __syncthreads();
+          const unsigned entered = sh.mask[slot];
+          win = fminf(win, __uint_as_float(sh.wmax[slot]));
+          // the slot two batches on was last read before this barrier
+          if (tid == 0) {
+            const int next = slot == 0 ? 2 : slot - 1;
+            sh.mask[next] = 0u;
+            sh.wmax[next] = 0u;
+          }
+          slot = slot == 2 ? 0 : slot + 1;
+          // stage each entered box's chunk; only the entering lanes test it
+          for (unsigned m = entered; m; m &= m - 1) {
+            const int j = __ffs(m) - 1;
+            const int e = ord[base + w * 32 + j];
+            const bool want = ((mine >> j) & 1u) && !occ;
+            const unsigned b = __ballot_sync(0xffffffffu, want);
+            if (want) {
+              Ray q = r;
+              if constexpr (VIRTUAL) q = obj_ray(r, inst_f, vinst[e]);
+              Entry& en = sh.list[buf][warp][__popc(b & ((1u << lane) - 1u))];
+              en.o = make_float4(q.ox, q.oy, q.oz, q.tl);
+              en.d = make_float4(q.dx, q.dy, q.dz, __int_as_float(tid));
+            }
+            if (lane == 0) sh.cnt[buf][warp] = __popc(b);
+            stage_rows(aux, entry_chunk<VIRTUAL>(vglob, e), sh.planes[buf]);
+            if (stats != nullptr && tid == 0) stats[NSTATS + e] = 1ull;
+            const int listed = __syncthreads_count(want);
+            ++staged;
+            lanes += listed;
+            if (listed > 0) {
+              const float4* pl = sh.planes[buf];
+              // thread tid tests triangle tid against every listed ray
+              const float4 pa = pl[tid], pb = pl[CH_W + tid], pc = pl[2 * CH_W + tid];
+              const bool real = pa.x != 0.0f || pa.y != 0.0f || pa.z != 0.0f || pa.w != 0.0f ||
+                                pb.x != 0.0f || pb.y != 0.0f || pb.z != 0.0f || pb.w != 0.0f ||
+                                pc.x != 0.0f || pc.y != 0.0f || pc.z != 0.0f || pc.w != 0.0f;
+              for (int lw = 0; lw < WARPS; ++lw) {
+                const int cnt = sh.cnt[buf][lw];
+                for (int i = 0; i < cnt; ++i) {
+                  const Entry en = sh.list[buf][lw][i];
+                  const int who = __float_as_int(en.d.w);
+                  if (occs[who]) continue;
+                  pairs += real;
+                  const Ray t = {en.o.x, en.o.y, en.o.z, en.d.x, en.d.y, en.d.z, en.o.w, true};
+                  if (any_pair(t, pa, pb, pc)) occs[who] = 1;
+                }
+              }
+            }
+            occ = occs[tid] != 0;  // later hits by other threads show at the next read
+            buf ^= 1;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  occ = occs[tid] != 0;
+  const int ray = blockIdx.x * SBLK + tid;
+  if (ray < n) out[ray] = occ ? 1 : 0;
+  count(stats, sh.bb.anyv, visits, skips, lanes, staged);
+  if (stats != nullptr && sh.bb.anyv) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) pairs += __shfl_xor_sync(0xffffffffu, pairs, off);
+    if (lane == 0) atomicAdd(stats + 5, pairs);
+  }
 }
 
 }  // namespace

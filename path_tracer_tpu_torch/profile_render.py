@@ -23,9 +23,10 @@ torch.profiler (CPU and CUDA activities). Prints one JSON object:
 
 ``--two-level`` builds the scene in two-level mode; ``PT_WALK=0`` in the
 environment sends a baked soup above 16,384 triangles through the streamed
-dense kernels, as in the CLI (``engine`` in the output names the world
+dense kernels and ``PT_VWALK=0`` a two-level scene through iwalk, as in the
+CLI (``engine`` in the output names the world
 engine). The profiler's tables go to
-``<out-dir>/profile_<scene>[_two_level|_stream].txt``.
+``<out-dir>/profile_<scene>[_two_level[_iwalk]|_stream].txt``.
 """
 
 from __future__ import annotations
@@ -137,7 +138,8 @@ def main(argv=None) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     table_cpu = prof.key_averages().table(sort_by="count", row_limit=40)
-    tag = "_two_level" if args.two_level else "_stream" if engine == "stream" else ""
+    tag = ("_two_level" + ("_iwalk" if engine == "iwalk" else "") if args.two_level
+           else "_stream" if engine == "stream" else "")
     (out_dir / f"profile_{args.scene}{tag}.txt").write_text(
         f"{json.dumps(summary, indent=1)}\n\n{table}\n\n{table_cpu}\n")
     print(json.dumps(summary))

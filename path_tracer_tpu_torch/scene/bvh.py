@@ -11,12 +11,20 @@ with the reference BLAS builder (``src/tlas/tlas_bvh/blas/blas_bvh.rs:62-136``):
 * leaf collapse when ``no_split_sah = INTERSECTION_COST * span`` beats the best
   split, single-primitive fast-path leaves.
 
-The port's dense engine brute-forces every triangle, so only the builder's
-primitive permutation is used: it fixes the triangle order (SAH leaf order),
-which fixes the lowest-index tie rule and keeps consecutive triangles
-spatially clustered. The walk engine (``trace/walk.py``) cuts the soup into
-chunks with `chunk_partition` and builds a tree over the chunk boxes with
-`build_sah_tree`.
+The port's dense engine brute-forces every triangle, so for it only the
+builder's primitive permutation is used: it fixes the triangle order (SAH
+leaf order), which fixes the lowest-index tie rule and keeps consecutive
+triangles spatially clustered. The walk engine (``trace/walk.py``) cuts the
+soup into chunks with `chunk_partition` and builds a tree over the chunk
+boxes with `build_sah_tree`. The stack BVH engine (``trace/bvh_stack.py``,
+light tables above 16,384 triangles and world soups above 2,000,000) walks
+the tree itself, flattened by `flatten` into dual-child records (`build_bvh`).
+
+Flat node record i (arrays of length M):
+  ``c0_min/c0_max/c1_min/c1_max`` [M,3]  child AABBs
+  ``c0_idx/c1_idx``               [M]    child node index OR first-primitive offset
+  ``c0_count/c1_count``           [M]    0 => internal child, >0 => leaf with
+                                          that many primitives, -1 => no child
 """
 
 from __future__ import annotations
@@ -195,3 +203,94 @@ def chunk_partition(aabb_min: np.ndarray, aabb_max: np.ndarray, chunk: int):
     finally:
         sys.setrecursionlimit(old_limit)
     return perm, np.asarray(starts), np.asarray(spans)
+
+
+# Sentinel for "no child" boxes (finite, as in the JAX package, whose node
+# tables pass through one-hot matmul gathers): 3e37 never passes a slab test.
+NO_CHILD_BOUND = np.float32(3.0e37)
+
+
+def flatten(nodes: list[_Node], root: int) -> dict[str, np.ndarray]:
+    """Flatten the tree into dual-child SoA records (see the module note).
+
+    Node ids are renumbered in DFS order with the root at 0 so traversal can
+    start at index 0. A root that is itself a leaf gets a synthetic parent with
+    an empty second child. A copy of the JAX package's ``flatten``.
+    """
+    inf = NO_CHILD_BOUND
+
+    recs: list[dict] = []
+
+    def emit_placeholder() -> int:
+        recs.append({})
+        return len(recs) - 1
+
+    def fill(slot: int, node: _Node):
+        """Fill `slot` with the internal node `node` (must be internal)."""
+        left = nodes[node.a]
+        right = nodes[node.b]
+        rec = {
+            "c0_min": left.bb_min, "c0_max": left.bb_max,
+            "c1_min": right.bb_min, "c1_max": right.bb_max,
+        }
+        if left.is_leaf:
+            rec["c0_idx"], rec["c0_count"] = left.a, left.b
+        else:
+            child_slot = emit_placeholder()
+            rec["c0_idx"], rec["c0_count"] = child_slot, 0
+            fill(child_slot, left)
+        if right.is_leaf:
+            rec["c1_idx"], rec["c1_count"] = right.a, right.b
+        else:
+            child_slot = emit_placeholder()
+            rec["c1_idx"], rec["c1_count"] = child_slot, 0
+            fill(child_slot, right)
+        recs[slot] = rec
+
+    root_node = nodes[root]
+    slot0 = emit_placeholder()
+    if root_node.is_leaf:
+        recs[slot0] = {
+            "c0_min": root_node.bb_min, "c0_max": root_node.bb_max,
+            "c1_min": np.full(3, inf), "c1_max": np.full(3, -inf),
+            "c0_idx": root_node.a, "c0_count": root_node.b,
+            "c1_idx": 0, "c1_count": -1,
+        }
+    else:
+        import sys
+
+        old_limit = sys.getrecursionlimit()
+        sys.setrecursionlimit(max(old_limit, 100000))
+        try:
+            fill(slot0, root_node)
+        finally:
+            sys.setrecursionlimit(old_limit)
+
+    out = {}
+    for key in ("c0_min", "c0_max", "c1_min", "c1_max"):
+        out[key] = np.stack([r[key] for r in recs]).astype(np.float32)
+    for key in ("c0_idx", "c0_count", "c1_idx", "c1_count"):
+        out[key] = np.array([r[key] for r in recs], dtype=np.int32)
+    out["root_min"] = np.minimum(out["c0_min"][0], np.where(out["c1_count"][0] == -1, NO_CHILD_BOUND, out["c1_min"][0])).astype(np.float32)
+    out["root_max"] = np.maximum(out["c0_max"][0], np.where(out["c1_count"][0] == -1, -NO_CHILD_BOUND, out["c1_max"][0])).astype(np.float32)
+    return out
+
+
+def tree_depth(nodes: list[_Node], root: int) -> int:
+    """Max depth (edges) of the tree — bounds the traversal stack usage."""
+    depth = 0
+    stack = [(root, 0)]
+    while stack:
+        i, d = stack.pop()
+        depth = max(depth, d)
+        node = nodes[i]
+        if not node.is_leaf:
+            stack.append((node.a, d + 1))
+            stack.append((node.b, d + 1))
+    return depth
+
+
+def build_bvh(aabb_min: np.ndarray, aabb_max: np.ndarray, max_leaf: int = 4):
+    """Convenience: build + flatten. Returns ``(flat_nodes, perm, depth)``."""
+    nodes, perm, root = build_sah_tree(aabb_min, aabb_max, max_leaf=max_leaf)
+    return flatten(nodes, root), perm, tree_depth(nodes, root)

@@ -15,9 +15,11 @@ can be fed identical tables:
   ``dense`` (the dense engine's ``aux`` table, `trace.dense_cuda`), ``walk``
   (the walk engine's tables, `trace.walk.pack_walk`) or ``stream`` (the
   streamed dense engine's ``aux``/``cab``/``pab``,
-  `trace.dense_stream.pack_dense_stream`);
+  `trace.dense_stream.pack_dense_stream`)
+  or ``bvh`` (the stack BVH's ``nodes``/``tris``, `trace.bvh_stack.pack`);
 * ``light`` (scenes with emitters): ``cdf``, ``rows`` (pdf, area, emitted rgb,
-  pad), ``normals_flat``, ``positions_flat`` and ``dense``;
+  pad), ``normals_flat``, ``positions_flat`` and ``dense`` (or ``bvh`` above
+  ``DENSE_MAX_TRIS`` light triangles);
 * ``mat``: ``rows`` (`materials.pack_material_rows`);
 * ``env``: ``[H, W, 3]``;
 * ``twolevel`` (scenes built with ``two_level=True``): ``{"iwalk": the
@@ -31,11 +33,18 @@ kernels (this also covers the <=256-tri tables the TPU build sends to the
 flat stream of ``trace/sweep.py``, which runs the same naive-precision test
 with the same tie rule). A larger world soup goes through the walk kernels
 up to ``WALK_PARTS_MAX_TRIS``, then through the streamed dense kernels up to
-``DENSE_STREAM_MAX_TRIS``; above that the port raises. ``engine="stream"``
-sends a baked soup of any size to the streamed engine, the counterpart of
-the JAX package's ``PT_WALK=0`` (`env_engine` reads that variable for the
-CLI). Chunk and part boxes come from the host scene's ``positions``. The
-lights stay on the dense kernels.
+``DENSE_STREAM_MAX_TRIS``; above that through the stack BVH
+(`trace.bvh_stack`, torch ops), which is where the JAX package's soup with
+no engine key goes (``path_tracer_tpu/scene/scene.py:294-335``).
+``engine="stream"`` sends a baked soup up to that size to the streamed
+engine, the counterpart of the JAX package's ``PT_WALK=0`` (`env_engine`
+reads that variable for the CLI). Chunk and part boxes come from the host
+scene's ``positions``. The lights take the dense kernels up to
+``DENSE_MAX_TRIS`` triangles and the stack BVH above, over the lights' own
+SAH tree, as the JAX package's lights BVH (``scene.py:110-115``): the light
+table is in that tree's leaf order either way, so light order, pdf and cdf
+are the JAX package's. The stack BVH checks its tree's depth against the
+traversal stack, as the JAX scene does (``scene.py:96-97``).
 
 Two-level mode keeps each model's chunk tables in object space, shared by
 its instances, and traces the world through the vwalk or iwalk kernels
@@ -54,11 +63,11 @@ import torch
 
 from path_tracer_tpu_torch.core.constants import DEFAULT_BACKGROUND
 from path_tracer_tpu_torch.scene import triangle as tri_mod
-from path_tracer_tpu_torch.scene.bvh import build_sah_tree
+from path_tracer_tpu_torch.scene.bvh import build_sah_tree, flatten, tree_depth
 from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_materials
 from path_tracer_tpu_torch.scene.model import Model
 from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry
-from path_tracer_tpu_torch.trace import dense_stream, iwalk
+from path_tracer_tpu_torch.trace import bvh_stack, dense_stream, iwalk
 from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux
 from path_tracer_tpu_torch.trace.walk import WALK_PARTS_MAX_TRIS, pack_walk
 
@@ -67,31 +76,42 @@ SceneData = dict  # nested dict of tensors handed to the integrator
 
 def world_engine(n_tris: int, engine: str | None = None) -> str:
     """The engine of a baked world soup of ``n_tris`` triangles: "dense",
-    "walk" or "stream" by size, or "stream" where ``engine`` asks for it.
-    Raises above the streamed engine's limit."""
+    "walk", "stream" or "bvh" by size, or "stream" where ``engine`` asks for
+    it and the soup fits the streamed engine."""
     if engine not in (None, "stream"):
         raise ValueError(f"engine {engine!r}: a baked scene takes None or 'stream'")
+    if n_tris > dense_stream.DENSE_STREAM_MAX_TRIS:
+        return "bvh"
     if engine is None and n_tris <= DENSE_MAX_TRIS:
         return "dense"
     if engine is None and n_tris <= WALK_PARTS_MAX_TRIS:
         return "walk"
-    if n_tris > dense_stream.DENSE_STREAM_MAX_TRIS:
-        raise NotImplementedError(
-            f"{n_tris} world triangles exceed the streamed engine's {dense_stream.DENSE_STREAM_MAX_TRIS}")
     return "stream"
 
 
 def env_engine(num_world_tris: int, two_level: bool = False) -> str | None:
-    """The engine the JAX package's ``PT_WALK=0`` picks for a baked soup:
-    "stream" above ``DENSE_MAX_TRIS`` triangles, else None (the default
-    rule; ``PT_WALK`` does not touch two-level scenes)."""
+    """The engine the JAX package's switches pick: ``PT_WALK=0`` sends a
+    baked soup above ``DENSE_MAX_TRIS`` triangles to "stream", ``PT_VWALK=0``
+    sends a two-level scene to "iwalk"
+    (``path_tracer_tpu/scene/twolevel_scene.py:137-141``); else None (the
+    default rule). Neither switch touches the other kind of scene."""
+    if two_level:
+        return "iwalk" if os.environ.get("PT_VWALK", "1") == "0" else None
     off = os.environ.get("PT_WALK", "1") == "0"
-    return "stream" if off and not two_level and num_world_tris > DENSE_MAX_TRIS else None
+    return "stream" if off and num_world_tris > DENSE_MAX_TRIS else None
 
 
-def _sah_perm(positions: np.ndarray) -> np.ndarray:
+def _sah_tree(positions: np.ndarray):
+    """The SAH tree over the triangles: ``(nodes, perm, root)``."""
     bmin, bmax = tri_mod.aabbs(positions)
-    return build_sah_tree(bmin, bmax, max_leaf=4)[1]
+    return build_sah_tree(bmin, bmax, max_leaf=bvh_stack.MAX_LEAF)
+
+
+def _stack_tables(tree, tab: dict) -> dict:
+    """The stack BVH's tables for the SAH tree ``(nodes, perm, root)`` of
+    the (already permuted) triangle table ``tab``."""
+    nodes, _, root = tree
+    return bvh_stack.pack(flatten(nodes, root), tree_depth(nodes, root), tab)
 
 
 def _pack_tris(positions: np.ndarray, normals: np.ndarray) -> dict[str, np.ndarray]:
@@ -133,26 +153,33 @@ class Scene:
 
         if two_level:
             self.twolevel = TwoLevelGeometry(models)
-            self.tri = None
+            self.tri = self.world_bvh = None
             self.num_world_tris = sum(m.positions.shape[0] * len(m.matrices) for m in models)
         else:
             world_pos = np.concatenate(world_pos)
-            self.perm = perm = _sah_perm(world_pos)
+            tree = _sah_tree(world_pos)
+            self.perm = perm = tree[1]
             world_model = np.concatenate(world_model)[perm]
             self.tri = _pack_tris(world_pos[perm], np.concatenate(world_nrm)[perm])
             # one material per model: material id == model id
             self.tri["mat"] = world_model
             self.tri["model"] = world_model
             self.num_world_tris = world_pos.shape[0]
+            # the tree itself only where the stack BVH traverses it
+            self.world_bvh = (_stack_tables(tree, self.tri)
+                              if world_engine(self.num_world_tris) == "bvh" else None)
 
         # Lights: emissive triangles only (scene.rs:23-28) with a
         # power-weighted CDF (light weight = area * |emitted|, blas.rs:203-212).
         self.has_lights = len(light_pos) > 0
         if self.has_lights:
             lp = np.concatenate(light_pos)
-            lperm = _sah_perm(lp)
+            ltree = _sah_tree(lp)
+            lperm = ltree[1]
             lm = np.concatenate(light_mat)[lperm]
             self.light = _pack_tris(lp[lperm], np.concatenate(light_nrm)[lperm])
+            self.lights_bvh = (_stack_tables(ltree, self.light)
+                               if lp.shape[0] > DENSE_MAX_TRIS else None)
             self.light["mat"] = lm
             emitted = mat_table["emitted"][lm]
             weight = self.light["area"] * np.linalg.norm(emitted, axis=-1)
@@ -161,7 +188,7 @@ class Scene:
             self.light["pdf"] = pdf
             self.light["cdf"] = np.cumsum(pdf).astype(np.float32)
         else:
-            self.light = None
+            self.light = self.lights_bvh = None
 
         self.mat = mat_table
         # which material models exist and whether any medium is attached:
@@ -187,6 +214,8 @@ class Scene:
                 "model_rows": self.tri["model"].astype(np.float32)[:, None],
                 "positions": self.tri["positions"],
             }
+            if self.world_bvh is not None:
+                tri["bvh"] = self.world_bvh
         data = {"tri": tri, "mat": {"rows": pack_material_rows(self.mat)}, "env": self.env}
         if self.has_lights:
             lt = self.light["pdf"].shape[0]
@@ -202,6 +231,8 @@ class Scene:
                 "cdf": self.light["cdf"],
                 "rows": lrows,
             }
+            if self.lights_bvh is not None:
+                data["light"]["bvh"] = self.lights_bvh
         out = _upload(data, device, engine)
         if self.two_level:
             out["twolevel"] = self.twolevel.device(device, engine)
@@ -209,7 +240,8 @@ class Scene:
 
 
 def _dense_table(tab: dict, with_shading: bool) -> dict:
-    """Dense engine tables for one triangle table (world or lights)."""
+    """Dense engine tables for one triangle table (world or lights; a larger
+    one takes the stack BVH)."""
     t = tab["n0"].shape[0]
     if t > DENSE_MAX_TRIS:
         raise NotImplementedError(
@@ -227,9 +259,10 @@ _PLANE_KEYS = ("n0", "d0", "n1", "d1", "n2", "d2")
 
 
 def _upload(data: dict, device, engine: str | None = None) -> SceneData:
-    """Add the world engine's tables (`world_engine`; ``stream`` tables
-    already in ``tri`` are kept), drop the host-only plane and position
-    arrays, move to ``device``."""
+    """Add the world engine's tables (`world_engine`; ``stream`` and ``bvh``
+    tables already in ``tri`` are kept, and the ``bvh`` engine needs them)
+    and the lights' (dense, unless ``bvh`` tables are there), drop the
+    host-only plane and position arrays, move to ``device``."""
     tri = data["tri"]
     if tri:  # empty in two-level mode
         kind = world_engine(tri["n0"].shape[0], engine)
@@ -240,10 +273,14 @@ def _upload(data: dict, device, engine: str | None = None) -> SceneData:
             if "stream" not in tri:
                 tables = dense_stream.pack_dense_stream(*shading)
                 tri["stream"] = {k: tables[k] for k in dense_stream.TABLES}
+        elif kind == "bvh":
+            if "bvh" not in tri:
+                raise ValueError("a world soup above the streamed engine's limit needs its "
+                                 "stack BVH tables (Scene.device builds them)")
         else:
             tri["dense"] = _dense_table(tri, with_shading=True)
         tri.pop("positions")
-    if "light" in data:
+    if "light" in data and "bvh" not in data["light"]:
         data["light"]["dense"] = _dense_table(data["light"], with_shading=False)
     for tab in (tri, data.get("light")):
         for k in _PLANE_KEYS:
@@ -265,7 +302,9 @@ def from_jax_scene(data: dict, device) -> SceneData:
     ``dense``, ``dense_pl``, ``walk``) are ignored and the port's dense or
     walk tables rebuilt (the walk's from ``tri["positions"]``), except a
     ``dense_stream`` engine, whose ``aux``/``cab``/``pab`` are carried over
-    as they are and traced by the port's streamed engine. A two-level
+    as they are and traced by the port's streamed engine, and the stack BVH
+    row tables (``bvh``/``lights_bvh`` ``packed`` and the triangle tables'
+    ``packed``) of a table the port traces through its stack BVH. A two-level
     dict (empty ``tri``) must hold a single-part vwalk or iwalk engine in
     ``twolevel["iwalk"]``, whose kept tables are carried over as they are;
     the JAX gather machine's tables and multi-part engines raise."""
@@ -278,12 +317,16 @@ def from_jax_scene(data: dict, device) -> SceneData:
             tri[k] = a(jt[k])
         if "dense_stream" in jt:
             tri["stream"] = {k: a(jt["dense_stream"][k]) for k in dense_stream.TABLES}
+        if world_engine(tri["n0"].shape[0]) == "bvh":
+            tri["bvh"] = {"nodes": a(data["bvh"]["packed"]), "tris": a(jt["packed"])}
     out = {"tri": tri, "mat": {"rows": a(data["mat"]["rows"])}, "env": a(data["env"])}
     if "light" in data:
         jl = data["light"]
         out["light"] = {k: a(jl[k]) for k in _PLANE_KEYS}
         for k in ("normals_flat", "positions_flat", "cdf", "rows"):
             out["light"][k] = a(jl[k])
+        if jl["n0"].shape[0] > DENSE_MAX_TRIS:
+            out["light"]["bvh"] = {"nodes": a(data["lights_bvh"]["packed"]), "tris": a(jl["packed"])}
     ported = _upload(out, device, "stream" if "stream" in tri else None)
     if "twolevel" in data:
         eng = data["twolevel"].get("iwalk")

@@ -58,6 +58,7 @@ from path_tracer_tpu_torch.trace.walk import (
     _BIG,
     _PLAIN_PAIRS,
     CH_W,
+    NSTATS,
     _block_octant,
     _candidate_t,
     _closest_columns,
@@ -70,6 +71,7 @@ from path_tracer_tpu_torch.trace.walk import (
     _shadow_hits,
     _sorted_rays,
     _unsort_rows,
+    lane_enters,
 )
 
 VWALK_MAX_VCH = 16 * 1536  # vwalk's limit: 24,576 virtual chunks
@@ -335,11 +337,45 @@ def pack_vwalk(models, shared: dict | None = None) -> dict:
     }
 
 
+def lane_slack(tables: dict) -> float:
+    """The widening of vwalk's world gate boxes for its lanes' segment tests.
+    A virtual chunk's world box holds the 8 float32-transformed corners of
+    an unpadded object chunk box, while the pair test that must not be lost
+    runs on the object-space ray: its rounding scales with object
+    coordinates, the box's with world ones. Bound both: world coordinates by
+    the root box W, object ones by sqrt(3) W plus the largest inverse
+    translation T (rigid transforms keep lengths); the slack is the walk's
+    chunk pad (1e-4 of the largest coordinate plus 1e-6) of the larger.
+
+    What it covers. Let the pair test on q = G(r) (G the float32 inverse
+    transform, as ``_obj_rays`` rounds it) accept a triangle of object
+    chunk C at t in (EPSILON, t_limit), and X = r.o + t r.d. Per
+    coordinate, with u = 2**-24: G(X) lies within d1 of C, d1 = the pair
+    test's acceptance rounding (a few u of |q.o| + t) + the rounding of
+    q.o (4u (|r.o| + T): three products, three sums) + t times that of q.d
+    (3u). Mapping back by the forward transform F adds F(G(X)) - X (F, G
+    float32 inverses: ~2u (|X| + |translation|)), each world box corner
+    its own rounding (4u (|corner| + |translation|)), and the world slab
+    test its own (3u |box - r.o|). Every term is at most about 20u S, S =
+    |r.o| + t + sqrt(3) W + T, so a lane is kept whenever 1.2e-6 S <= slack,
+    i.e. for rays whose origin lies within about 80 (sqrt(3) W + T) of the
+    world origin: every ray the integrator casts starts on a scene surface
+    or at the camera. The baked walk's padded chunk boxes make the same
+    assumption about the origin's scale."""
+    w = float(max(np.abs(tables["root_lo"]).max(), np.abs(tables["root_hi"]).max(), 1.0))
+    t_inv = float(np.linalg.norm(np.asarray(tables["inst_f"])[:, 9:12], axis=1).max(initial=0.0))
+    return 1e-4 * (3.0 ** 0.5 * w + t_inv) + 1e-6
+
+
 def upload(tables: dict, device) -> dict:
     """An engine's tables as tensors on ``device``, plus ``gates`` (an int:
-    the gate entries, the columns of ``cb_oct`` that are not 2e30 pads)."""
+    the gate entries, the columns of ``cb_oct`` that are not 2e30 pads) and,
+    for vwalk, ``lane_slack`` (`lane_slack`, a 0-dim float32 tensor kept on
+    the CPU: the kernel takes it by value)."""
     eng = {k: torch.from_numpy(np.array(v, order="C")).to(device) for k, v in tables.items()}
     eng["gates"] = int((np.asarray(tables["cb_oct"])[0, 0] < 1e30).sum())
+    if "vinst" in tables:
+        eng["lane_slack"] = torch.tensor(lane_slack(tables), dtype=torch.float32)
     return eng
 
 
@@ -375,7 +411,7 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return load("iwalk_hit", {
         "vwalk_closest": [i, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p, p, p],
-        "vwalk_any": [i, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p],
+        "vwalk_any": [i, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i, p, p, p],
         "iwalk_closest": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p, p, p],
         "iwalk_any": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p],
     })
@@ -428,8 +464,9 @@ def _num_flags(eng) -> int:
 
 def _check_stats(eng, origin, stats):
     if stats is not None and (stats.device != origin.device or stats.dtype != torch.int64
-                              or stats.shape != (5 + _num_flags(eng),)):
-        raise ValueError("stats must be an int64 [5 + gate entries] tensor on the rays' device")
+                              or stats.shape != (NSTATS + _num_flags(eng),)):
+        raise ValueError(f"stats must be an int64 [{NSTATS} + gate entries] tensor on the rays' "
+                         "device")
     return None if stats is None else stats.data_ptr()
 
 
@@ -441,8 +478,10 @@ def _launch(eng, query, origin, direction, t_limit, outs, stats):
     fn = getattr(_lib(), key)
     tables = [eng[k].data_ptr() for k in ("aux", "cb_oct", "ord_oct", *_index_tables(eng), "inst_f")]
     dev = origin.device
+    # vwalk's any hit widens its boxes for the lanes' segment tests
+    slack = (float(eng["lane_slack"]),) if key == "vwalk_any" else ()
     LAUNCHES[key] += 1
-    err = fn(dev.index, *tables, eng["gates"], eng["ord_oct"].shape[1], origin.data_ptr(),
+    err = fn(dev.index, *tables, eng["gates"], eng["ord_oct"].shape[1], *slack, origin.data_ptr(),
              direction.data_ptr(), t_limit.data_ptr(), origin.shape[0],
              *[x.data_ptr() for x in outs], stats_ptr, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -455,9 +494,9 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
     ``(best_t [N] f32, slot [N] i32, inst [N] i32)``: the object-global
     slot (chunk * 128 + lane) and the instance of the winner, or
     (1e30, -1, -1) on a miss. ``stats``, a zeroed int64 CUDA tensor
-    [5 + gate entries] (virtual chunks, or instances), receives (blocks
+    [6 + gate entries] (virtual chunks, or instances), receives (blocks
     with a live lane, gate entries visited, survivors skipped by the
-    window, lanes testing a staged chunk, staged chunks), then a 1 for
+    window, lanes testing a staged chunk, staged chunks, 0), then a 1 for
     every gate entry visited."""
     n, dev = origin.shape[0], origin.device
     best_t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -470,7 +509,9 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
 def any_cuda(eng, origin, direction, t_limit, stats=None):
     """Kernel shadow test (raw origin/direction, exit-clamped t_limit): bool
     ``[N]``, False on dead and non-finite lanes. ``stats`` as for
-    `closest_cuda`."""
+    `closest_cuda`; vwalk's, as for ``walk.any_cuda``, counts the lanes
+    that entered a staged chunk and, last, the (lane, real triangle) pairs
+    it tested."""
     out = torch.empty(origin.shape[0], dtype=torch.bool, device=origin.device)
     _launch(eng, "any", origin, direction, t_limit, (out,), stats)
     return out
@@ -585,6 +626,56 @@ def any_plain(eng, origin, direction, t_limit):
     return out
 
 
+# --- the any-hit kernel's segment cull, as a plain model (tests, chip_smoke.py) ---
+
+
+def virtual_boxes(eng):
+    """vwalk's gate boxes widened by its ``lane_slack`` in layout order:
+    ``(lo, hi)`` [g, 3], the box of layout slot v at row v."""
+    g = eng["gates"]
+    cols = eng["ord_oct"][0, :g].long()
+    lo = torch.empty((g, 3), dtype=eng["cb_oct"].dtype, device=cols.device)
+    hi = torch.empty_like(lo)
+    slack = float(eng["lane_slack"])  # float32-exact
+    lo[cols] = eng["cb_oct"][0, 0:3, :g].T - slack
+    hi[cols] = eng["cb_oct"][0, 3:6, :g].T + slack
+    return lo, hi
+
+
+def entry_hits(eng, o, d, tl):
+    """``[n, g]``: whether each lane (lane values ``o, d``, ``tl [n]``) has
+    a hit in (EPSILON, t_limit) in each of vwalk's virtual chunks (layout
+    slots), on its object-space ray, by the any-hit kernels' sign tests."""
+    g = eng["gates"]
+    vi = eng["vinst"][:g].to(device=o.device, dtype=torch.int64)
+    vg = eng["vglob"][:g].to(device=o.device, dtype=torch.int64)
+    planes = eng["aux"][:, :12].to(o.dtype)
+    inst_f = eng["inst_f"].to(o.dtype)
+    hits = torch.zeros((o.shape[0], g), dtype=torch.bool, device=o.device)
+    for i in torch.unique(vi).tolist():
+        cols = (vi == i).nonzero()[:, 0]
+        oo, dd = _obj_rays(inst_f[i], o, d)
+        per_chunk = _shadow_hits(planes, oo, dd, tl[:, None]).view(o.shape[0], -1, CH_W).any(dim=2)
+        hits[:, cols] = per_chunk[:, vg[cols]]
+    return hits
+
+
+def culled_any_plain(eng, origin, direction, t_limit):
+    """vwalk's any hit through its kernel's segment cull: a lane tests the
+    object chunk of a virtual chunk on its object-space ray only if
+    ``walk.lane_enters`` passes the virtual chunk's widened world box
+    (`virtual_boxes`) within the lane's t_limit. Equal to `any_plain` when
+    the cull is exact."""
+    o, d, tl = _lanes(origin, direction, t_limit)
+    live = (tl > 0.0).nonzero()[:, 0]
+    out = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+    if live.numel():
+        o, d, tl = o[live], d[live], tl[live]
+        enter = lane_enters(*virtual_boxes(eng), o, d, tl)
+        out[live] = (entry_hits(eng, o, d, tl) & enter).any(dim=1)
+    return out
+
+
 # --- public queries (the JAX iwalk_* contracts) ---
 
 
@@ -629,18 +720,24 @@ def iwalk_any_hit(eng: dict, origin, direction, t_limit) -> torch.Tensor:
 def iwalk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") -> dict:
     """Gate economics of one ``query`` ("closest" or "any") on the card, with
     the public query's ray order: ``blocks`` (with a live lane), ``visits``
-    (gate entries a block visited: virtual chunks or instances),
+    (gate entries a block admitted: virtual chunks or instances),
     ``skipped`` (gated survivors the live window skipped), ``lane_visits``
-    (lanes testing a staged chunk), ``stagings`` (chunks staged), summed
-    over blocks, and ``entries`` (distinct gate entries visited). CUDA
-    tensors only."""
+    (lanes testing a staged chunk; vwalk's any hit: those whose own segment
+    test entered it and that were not yet occluded), ``staged`` (chunks
+    staged), summed over blocks, and ``entries``
+    (distinct gate entries visited; vwalk's any hit: staged); vwalk's any
+    hit adds ``pairs``, the (lane, real triangle) pair tests. CUDA tensors
+    only."""
     o, d, tl = _f32(origin, direction, t_limit)
-    stats = torch.zeros(5 + _num_flags(eng), dtype=torch.int64, device=o.device)
+    stats = torch.zeros(NSTATS + _num_flags(eng), dtype=torch.int64, device=o.device)
     if query == "closest":
         _, o_s, d_s, tl_s = _sorted_rays(eng, o, d, tl)
         closest_cuda(eng, o_s, d_s, tl_s, stats=stats)
     else:
         any_cuda(eng, o, d, _exit_clamp(eng, o, d, tl).contiguous(), stats=stats)
-    blocks, visits, skipped, lane_visits, stagings = (int(x) for x in stats[:5].cpu())
-    return {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
-            "stagings": stagings, "entries": int(stats[5:].sum())}
+    blocks, visits, skipped, lane_visits, staged, pairs = (int(x) for x in stats[:NSTATS].cpu())
+    out = {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
+           "staged": staged, "entries": int(stats[NSTATS:].sum())}
+    if query != "closest" and "vinst" in eng:
+        out["pairs"] = pairs
+    return out

@@ -23,18 +23,24 @@ Port of ``path_tracer_tpu/trace/walk.py`` (``_walk_closest_kernel`` and
   32-bit coherence sort key (`_coherence_order`, int64 words masked to 32
   bits) with a stable argsort, and the unsort. The any-hit query is not
   sorted (the JAX default ``WALK_SORT_ANY=0``).
-* The kernels take the sorted rays in blocks of 128, gate every chunk box
+* The kernels take the rays in blocks of 128, gate every chunk box
   against the block's conservative ray bounds, visit the survivors in the
   octant order of the block's first ray, and skip an entry whose
   conservative entry t fails the block's live window
   (``te <= win*1.00002 + 1e-5``). Closest: best t and the padded slot of
   the winner; ties go to the first visited chunk, then the lowest lane.
-  Any hit: the division-free sign test, early exit once every live lane of
-  the block is occluded.
+  Any hit: each live, unoccluded lane runs its own segment test of every
+  surviving box within its t_limit (`lane_enters`, exact: the chunk boxes
+  are padded), a chunk no lane enters is not staged, and only the entering
+  lanes' (ray, triangle) pairs are tested, with the division-free sign
+  test; the block leaves once every live lane is occluded.
 * Plain versions: one dense pass over every slot, ungated. The gates and
   the window are conservative, so the closest winner is the slot at the
   minimum t that comes first in the ray's block octant order (rank =
   position in ``ord_oct`` * 128 + lane): the walk's winner, ties included.
+  `lane_enters` is the plain model of the any-hit kernels' segment cull and
+  `culled_any_plain` the any hit through it, which the tests hold equal to
+  the ungated plain version.
 
 Each kernel has one wrapper: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel or raises. ``LAUNCHES["walk_closest"]`` and
@@ -56,9 +62,10 @@ from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue, _same
 CH_W = 128  # chunk capacity (tris per leaf test)
 SBLK = 128  # rays per block
 WALK_PARTS_MAX_TRIS = 1_572_864  # the engine's limit
-# live t-window admit test: te <= win * WIN_MUL + WIN_ADD
+# live t-window admit test: te <= win * WIN_MUL + WIN_ADD (csrc/segment.cuh)
 WIN_MUL = 1.00002
 WIN_ADD = 1e-5
+NSTATS = 6  # the kernels' counters before their per-entry flags
 _BIG = 1e30  # "no winner" sentinel
 _T_CLAMP = 3.0e38  # finite stand-in for an infinite t_limit
 _KEY_OBITS = 15  # origin morton bits of the coherence key (5 per axis)
@@ -355,8 +362,8 @@ def _tables(eng):
 
 def _check_stats(eng, origin, stats):
     if stats is not None and (stats.device != origin.device or stats.dtype != torch.int64
-                              or stats.shape != (4 + num_chunks(eng),)):
-        raise ValueError("stats must be an int64 [4 + chunks] tensor on the rays' device")
+                              or stats.shape != (NSTATS + num_chunks(eng),)):
+        raise ValueError(f"stats must be an int64 [{NSTATS} + chunks] tensor on the rays' device")
     return None if stats is None else stats.data_ptr()
 
 
@@ -364,9 +371,10 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
     """Kernel closest hit over rays in sorted order (raw origin/direction,
     exit-clamped t_limit). Returns ``(best_t [N] f32, slot [N] i32)``,
     best_t = 1e30 and slot = -1 on a miss. ``stats``, a zeroed int64 CUDA
-    tensor [4 + chunks], receives (blocks with a live lane, chunks visited,
+    tensor [6 + chunks], receives (blocks with a live lane, chunks visited,
     gated survivors skipped by the live window, lanes testing a visited
-    chunk) summed over blocks, then a 1 for every chunk visited."""
+    chunk, chunks staged (the visits), 0) summed over blocks, then a 1 for
+    every chunk visited."""
     _check_cuda(eng, origin, direction, t_limit)
     stats_ptr = _check_stats(eng, origin, stats)
     fn = _lib().walk_closest
@@ -386,7 +394,10 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
 def any_cuda(eng, origin, direction, t_limit, stats=None):
     """Kernel shadow test (raw origin/direction, exit-clamped t_limit): bool
     ``[N]``, False on dead and non-finite lanes. ``stats`` as for
-    `closest_cuda`."""
+    `closest_cuda`, counting (blocks with a live lane, gate survivors
+    admitted by the block window, those the window skipped, lanes that
+    entered a staged chunk, chunks staged, (lane, real triangle) pairs
+    tested), then a 1 for every chunk staged."""
     _check_cuda(eng, origin, direction, t_limit)
     stats_ptr = _check_stats(eng, origin, stats)
     fn = _lib().walk_any
@@ -519,6 +530,56 @@ def any_plain(eng, origin, direction, t_limit):
     return out
 
 
+# --- the any-hit kernels' segment cull, as a plain model (tests, chip_smoke.py) ---
+
+
+def lane_enters(lo, hi, o, d, tw):
+    """``[n, E]``: whether each ray ``o, d [n, 3]`` meets each box ``lo, hi
+    [E, 3]`` within ``[0, tw*WIN_MUL + WIN_ADD]`` (``tw [n]``), the any-hit
+    kernels' per-lane segment test (``csrc/segment.cuh`` enters) in its
+    expressions and order: fmin/fmax ignore a NaN as fminf/fmaxf do, an
+    inverted box is never entered, and on an axis where the direction is 0
+    the origin must lie within the slab."""
+    d0 = d == 0.0
+    inv = torch.where(d0, 0.0, 1.0 / torch.where(d0, 1.0, d))
+    t_near = torch.zeros((o.shape[0], lo.shape[0]), dtype=o.dtype, device=o.device)
+    t_far = (tw * WIN_MUL + WIN_ADD)[:, None].expand_as(t_near)
+    ok = (lo <= hi).all(dim=1)[None, :].expand_as(t_near)
+    for a in range(3):
+        oa, za, ia = o[:, a : a + 1], d0[:, a : a + 1], inv[:, a : a + 1]
+        t1 = (lo[:, a] - oa) * ia
+        t2 = (hi[:, a] - oa) * ia
+        ok = ok & (~za | ((oa >= lo[:, a]) & (oa <= hi[:, a])))
+        t_near = torch.where(za, t_near, torch.fmax(t_near, torch.fmin(t1, t2)))
+        t_far = torch.where(za, t_far, torch.fmin(t_far, torch.fmax(t1, t2)))
+    return ok & (t_near <= t_far)
+
+
+def chunk_boxes(eng):
+    """The gate boxes of the layout chunks: ``(lo, hi)`` [k, 3], chunk c's
+    box at row c (octant 0's columns put back in layout order)."""
+    k = num_chunks(eng)
+    cols = eng["ord_oct"][0, :k].long()
+    lo = torch.empty((k, 3), dtype=eng["cb_oct"].dtype, device=cols.device)
+    hi = torch.empty_like(lo)
+    lo[cols] = eng["cb_oct"][0, 0:3, :k].T
+    hi[cols] = eng["cb_oct"][0, 3:6, :k].T
+    return lo, hi
+
+
+def culled_any_plain(eng, origin, direction, t_limit):
+    """The any hit through the kernels' segment cull: a lane tests a
+    chunk's slots only if `lane_enters` passes its box within the lane's
+    t_limit. Equal to `any_plain` when the cull is exact."""
+    lo, hi = chunk_boxes(eng)
+    planes, live, steps = _live_steps(eng, origin, direction, t_limit)
+    out = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
+    for o, d, tl, s in steps:
+        hits = _shadow_hits(planes, o, d, tl).view(o.shape[0], -1, CH_W).any(dim=2)
+        out[live[s : s + o.shape[0]]] = (hits & lane_enters(lo, hi, o, d, tl[:, 0])).any(dim=1)
+    return out
+
+
 # --- public queries (the JAX walk_* contracts) ---
 
 
@@ -570,18 +631,25 @@ def walk_any_hit(eng: dict, origin, direction, t_limit) -> torch.Tensor:
 def walk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") -> dict:
     """Gate economics of one ``query`` ("closest" or "any") on the card, with
     the public query's ray order (the closest hit's coherence sort; any hit
-    unsorted): ``blocks`` (with a live lane), ``visits`` (chunks tested by a
-    block), ``skipped`` (gated survivors the live window skipped),
-    ``lane_visits`` (lanes testing a visited chunk: live, and for any hit
-    not yet occluded), summed over blocks, and ``chunks`` (distinct chunks
-    visited). A port of the JAX ``walk_stats``; CUDA tensors only."""
+    unsorted): ``blocks`` (with a live lane), ``visits`` (gate survivors a
+    block admitted by its live window; the closest hit stages each),
+    ``skipped`` (gated survivors the live window skipped), ``lane_visits``
+    (lanes testing a staged chunk: live, and for the any hit those whose
+    own segment test entered it and that were not yet occluded),
+    ``staged`` (chunks staged), summed over blocks, and ``chunks``
+    (distinct chunks staged); the any hit adds ``pairs``, the (lane, real
+    triangle) pair tests. A port of the JAX ``walk_stats``; CUDA tensors
+    only."""
     o, d, tl = _f32(origin, direction, t_limit)
-    stats = torch.zeros(4 + num_chunks(eng), dtype=torch.int64, device=o.device)
+    stats = torch.zeros(NSTATS + num_chunks(eng), dtype=torch.int64, device=o.device)
     if query == "closest":
         _, o_s, d_s, tl_s = _sorted_rays(eng, o, d, tl)
         closest_cuda(eng, o_s, d_s, tl_s, stats=stats)
     else:
         any_cuda(eng, o, d, _exit_clamp(eng, o, d, tl).contiguous(), stats=stats)
-    blocks, visits, skipped, lane_visits = (int(x) for x in stats[:4].cpu())
-    return {"blocks": blocks, "visits": visits, "skipped": skipped,
-            "lane_visits": lane_visits, "chunks": int(stats[4:].sum())}
+    blocks, visits, skipped, lane_visits, staged, pairs = (int(x) for x in stats[:NSTATS].cpu())
+    out = {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
+           "staged": staged, "chunks": int(stats[NSTATS:].sum())}
+    if query != "closest":
+        out["pairs"] = pairs
+    return out

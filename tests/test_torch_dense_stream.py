@@ -227,8 +227,8 @@ def test_engine_rule_matches_jax():
     """The baked world engine by size, as the JAX package's TPU build picks
     it: dense up to 16,384 tris, walk up to 1,572,864, the streamed engine up
     to 2,000,000 (soups between the two limits used to raise in
-    ``pack_walk``), then a raise; ``engine="stream"`` at any size up to the
-    stream's limit."""
+    ``pack_walk``), then the stack BVH (such soups used to raise);
+    ``engine="stream"`` at any size up to the stream's limit."""
     assert (twalk.WALK_PARTS_MAX_TRIS, tds.DENSE_STREAM_MAX_TRIS) == (
         jwalk.WALK_PARTS_MAX_TRIS, jds.DENSE_STREAM_MAX_TRIS)
     assert (tds.PART_TRIS, tds.CH, tds.SBLK) == (jds.PART_TRIS, jds.CH, jds.SBLK)
@@ -237,8 +237,7 @@ def test_engine_rule_matches_jax():
         "dense", "dense", "walk", "walk", "stream", "stream"]
     assert rule(100, "stream") == rule(2_000_000, "stream") == "stream"
     for n, engine in ((2_000_001, None), (2_000_001, "stream")):
-        with pytest.raises(NotImplementedError):
-            rule(n, engine)
+        assert rule(n, engine) == "bvh"
     for engine in ("walk", "vwalk"):
         with pytest.raises(ValueError):
             rule(100, engine)
@@ -246,9 +245,10 @@ def test_engine_rule_matches_jax():
 
 def test_engine_rule_on_a_scene(monkeypatch):
     """A 24,588-triangle soup with the limits patched small: the walk, then
-    the streamed engine (no walk packed), then a raise; ``engine="stream"``
-    and ``PT_WALK=0`` (`env_engine`) pick the streamed engine below the walk's
-    limit."""
+    the streamed engine (no walk packed), then the stack BVH (a scene built
+    under that limit; one built before it cannot give the tree it did not
+    keep); ``engine="stream"`` and ``PT_WALK=0`` (`env_engine`) pick the
+    streamed engine below the walk's limit."""
     sh, _ = tscenes.dragon_scene(**DRAGON_KW)
     assert sh.num_world_tris == 24588
     assert set(sh.device("cpu")["tri"]) >= {"walk"}
@@ -261,8 +261,10 @@ def test_engine_rule_on_a_scene(monkeypatch):
     for k in tds.TABLES:
         assert torch.equal(tri["stream"][k], stream["stream"][k]), k
     monkeypatch.setattr(tds, "DENSE_STREAM_MAX_TRIS", 20_000)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         sh.device("cpu")
+    tri = tscenes.dragon_scene(**DRAGON_KW)[0].device("cpu", engine="stream")["tri"]
+    assert "bvh" in tri and not {"walk", "stream", "dense"} & set(tri)
     monkeypatch.setenv("PT_WALK", "0")
     assert tscene.env_engine(24588) == "stream"
     assert tscene.env_engine(16384) is None and tscene.env_engine(24588, two_level=True) is None

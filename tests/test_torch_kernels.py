@@ -20,6 +20,8 @@ from path_tracer_tpu_torch.probes import gather
 from path_tracer_tpu_torch.scene import procedural
 from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.model import Model, rigid_transform, rotation_y
+from path_tracer_tpu_torch.scene.bvh import build_bvh
+from path_tracer_tpu_torch.trace import bvh_stack
 from path_tracer_tpu_torch.trace import dense_cuda as dc
 from path_tracer_tpu_torch.trace import dense_stream as ds
 from path_tracer_tpu_torch.trace import iwalk
@@ -187,15 +189,22 @@ def test_walk_kernel_rejects_bad_inputs(walk_case):
 
 def test_walk_stats_counts(walk_case):
     """The counters of both walk kernels: live blocks, visits, lanes testing
-    a visited chunk (at most 128 per visit), distinct chunks; the results
-    of a counted launch equal an uncounted one's."""
+    a staged chunk (at most 128 per staging), staged and distinct chunks;
+    the any hit stages at most its visits and tests at least one pair per
+    occluded lane; the results of a counted launch equal an uncounted
+    one's."""
     eng, (o, d, tl), (o_s, d_s, tl_s) = walk_case
     k = walk.num_chunks(eng)
     for query in ("closest", "any"):
         s = walk.walk_stats(eng, o, d, tl, query=query)
         assert 0 < s["blocks"] <= 8 and 0 < s["chunks"] <= k
-        assert s["visits"] >= s["chunks"] and 0 < s["lane_visits"] <= 128 * s["visits"]
-    stats = torch.zeros(4 + k, dtype=torch.int64, device=o.device)
+        assert s["staged"] >= s["chunks"] and 0 < s["lane_visits"] <= 128 * s["staged"]
+        if query == "closest":
+            assert s["staged"] == s["visits"] and "pairs" not in s
+        else:
+            occluded = int(walk.walk_any_hit(eng, o, d, tl).sum())
+            assert s["staged"] <= s["visits"] and occluded <= s["pairs"] <= 128 * s["lane_visits"]
+    stats = torch.zeros(walk.NSTATS + k, dtype=torch.int64, device=o.device)
     assert all(torch.equal(a, b) for a, b in zip(walk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats),
                                                  walk.closest_cuda(eng, o_s, d_s, tl_s)))
     with pytest.raises(ValueError):
@@ -302,18 +311,115 @@ def test_two_level_stats_counts(iwalk_case):
     for iwalk), lanes per staging; a counted launch's results equal an
     uncounted one's."""
     eng, (o, d, tl), (o_s, d_s, tl_s) = iwalk_case
+    vwalk = iwalk.engine_name(eng) == "vwalk"
     for query in ("closest", "any"):
         s = iwalk.iwalk_stats(eng, o, d, tl, query=query)
         assert 0 < s["blocks"] <= 8 and 0 < s["entries"] <= eng["gates"]
-        assert s["visits"] >= s["entries"] and s["stagings"] >= s["visits"]
-        assert 0 < s["lane_visits"] <= 128 * s["stagings"]
-        if iwalk.engine_name(eng) == "vwalk":
-            assert s["stagings"] == s["visits"]
-    stats = torch.zeros(5 + iwalk._num_flags(eng), dtype=torch.int64, device=o.device)
+        assert 0 < s["lane_visits"] <= 128 * s["staged"]
+        if vwalk and query == "any":  # the segment cull stages what a lane enters
+            occluded = int(iwalk.iwalk_any_hit(eng, o, d, tl).sum())
+            assert s["entries"] <= s["staged"] <= s["visits"]
+            assert occluded <= s["pairs"] <= 128 * s["lane_visits"]
+        else:
+            assert s["visits"] >= s["entries"] and s["staged"] >= s["visits"]
+            assert "pairs" not in s
+            if vwalk:
+                assert s["staged"] == s["visits"]
+    stats = torch.zeros(walk.NSTATS + iwalk._num_flags(eng), dtype=torch.int64, device=o.device)
     assert all(torch.equal(a, b) for a, b in zip(iwalk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats),
                                                  iwalk.closest_cuda(eng, o_s, d_s, tl_s)))
     with pytest.raises(ValueError):
         iwalk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats[:-1])
+
+
+def _edge_rays(eng, lo, hi, kt, ks, o, d, tl, seed):
+    """The segment cull's edge cases on the rays of a case: axis-parallel
+    rays, rays from and along chunk box faces, and limits one ulp either
+    side of each hit ray's closest t (``kt``/``ks``: the closest hit of
+    ``o, d``)."""
+    g = torch.Generator(device=o.device).manual_seed(seed)
+    n, dev = 512, o.device
+    s_lo, s_hi = eng["root_lo"], eng["root_hi"]
+    o_ax = s_lo + (s_hi - s_lo) * torch.rand((n, 3), generator=g, device=dev)
+    d_ax = torch.zeros((n, 3), device=dev)
+    d_ax[torch.arange(n, device=dev), torch.arange(n, device=dev) % 3] = 1.0 - 2.0 * (
+        torch.arange(n, device=dev) % 2)
+    c = torch.randint(0, lo.shape[0], (n,), generator=g, device=dev)
+    a = torch.randint(0, 3, (n,), generator=g, device=dev)
+    o_f = lo[c] + (hi[c] - lo[c]) * torch.rand((n, 3), generator=g, device=dev)
+    o_f[torch.arange(n, device=dev), a] = torch.where(torch.arange(n, device=dev) % 2 == 0,
+                                                      lo[c, a], hi[c, a])
+    d_f = torch.randn((n, 3), generator=g, device=dev)
+    along = torch.arange(n, device=dev) % 4 < 2
+    d_f[along, a[along]] = 0.0
+    d_f = d_f / d_f.norm(dim=1, keepdim=True)
+    hit = (ks >= 0).nonzero()[:, 0]
+    t = kt[hit]
+    up = torch.nextafter(t, torch.full_like(t, float("inf")))
+    down = torch.nextafter(t, torch.zeros_like(t))
+    big = torch.full((n,), 3.0e38, device=dev)
+    return (torch.cat([o_ax, o_f, o[hit], o[hit]]).contiguous(),
+            torch.cat([d_ax, d_f, d[hit], d[hit]]).contiguous(),
+            torch.cat([big, big, up, down]).contiguous())
+
+
+def test_walk_any_edge_cases_equal_plain(walk_case):
+    """The any-hit kernel's segment cull on its edge cases equals the
+    ungated plain version and the plain model of the cull."""
+    eng, _, (o, d, tl) = walk_case
+    kt, ks = walk.closest_cuda(eng, o, d, tl)
+    eo, ed, et = _edge_rays(eng, *walk.chunk_boxes(eng), kt, ks, o, d, tl, 17)
+    etc = walk._exit_clamp(eng, eo, ed, et).contiguous()
+    k = walk.any_cuda(eng, eo, ed, etc)
+    p = walk.any_plain(eng, eo, ed, etc)
+    assert 0.1 < p.float().mean() < 0.9
+    assert torch.equal(k, p) and torch.equal(walk.culled_any_plain(eng, eo, ed, etc), p)
+
+
+def test_two_level_any_edge_cases_equal_plain(iwalk_case):
+    """As for the walk, on the gate boxes (vwalk: the virtual chunks' boxes
+    its lanes test; iwalk: the instance boxes)."""
+    eng, _, (o, d, tl) = iwalk_case
+    vwalk = iwalk.engine_name(eng) == "vwalk"
+    g = eng["gates"]
+    boxes = (iwalk.virtual_boxes(eng) if vwalk else
+             (eng["cb_oct"][0, 0:3, :g].T.contiguous(), eng["cb_oct"][0, 3:6, :g].T.contiguous()))
+    kt, ks, _ = iwalk.closest_cuda(eng, o, d, tl)
+    eo, ed, et = _edge_rays(eng, *boxes, kt, ks, o, d, tl, 19)
+    etc = walk._exit_clamp(eng, eo, ed, et).contiguous()
+    k = iwalk.any_cuda(eng, eo, ed, etc)
+    p = iwalk.any_plain(eng, eo, ed, etc)
+    assert 0.1 < p.float().mean() < 0.9
+    assert torch.equal(k, p)
+    if vwalk:
+        assert torch.equal(iwalk.culled_any_plain(eng, eo, ed, etc), p)
+
+
+def test_stack_bvh_on_card_equals_cpu(cuda):
+    """The stack BVH's torch ops give the same bits on the card as on the
+    CPU, for both queries."""
+    rng = np.random.default_rng(23)
+    pos, _ = procedural.bumpy_sphere(nu=40, nv=40)
+    lo, hi = tri_mod.aabbs(pos)
+    flat, perm, depth = build_bvh(lo, hi)
+    tab = bvh_stack.pack(flat, depth, tri_mod.precompute(pos[perm]))
+    n = 1024
+    o = rng.normal(size=(n, 3))
+    o = (3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+    d = -o + 0.5 * rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tl = np.full(n, np.inf, np.float32)
+    tl[:64] = 0.0
+    cpu = {k: torch.from_numpy(v) for k, v in tab.items()}
+    gpu = {k: v.to(cuda) for k, v in cpu.items()}
+    rays = [torch.from_numpy(x) for x in (o, d, tl)]
+    c = bvh_stack.closest_hit(cpu, *rays)
+    g = bvh_stack.closest_hit(gpu, *(x.to(cuda) for x in rays))
+    assert (c[0] >= 0).sum() > 300
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(c, g))
+    lim = torch.where(c[0] >= 0, c[1] * 1.01, rays[2])
+    ca = bvh_stack.any_hit(cpu, rays[0], rays[1], lim)
+    assert torch.equal(ca, bvh_stack.any_hit(gpu, rays[0].to(cuda), rays[1].to(cuda), lim.to(cuda)).cpu())
 
 
 @pytest.fixture
