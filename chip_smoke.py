@@ -1,6 +1,7 @@
 """End-to-end smoke test of the PyTorch + CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent <csrc directory of a parent commit> [<another> ...]
 
 Phases (any failure raises and the script exits non-zero without the final
 ``ok`` line):
@@ -22,14 +23,19 @@ Phases (any failure raises and the script exits non-zero without the final
 6. walk kernels against their plain versions on the full ``dragon_scene``
    world table (884,748 tris; 32,768 camera + 32,768 random rays with inf /
    0 / NaN lanes), plus the float64 plain closest hit on 4,096 of them;
-7. the walk any-hit's segment-cull edge cases against the plain version
-   (axis-parallel rays, rays from and along chunk box faces, limits one ulp
-   either side of a closest t); the walk kernels timed at the render's
+7. the walk kernels' segment-cull edge cases against the plain versions,
+   both queries (axis-parallel rays, rays from and along chunk box faces,
+   limits one ulp either side of a closest t), and the closest hit on the
+   tie set (``walk.tie_soup``: one triangle in two chunks and twice within
+   one, every ray's closest hit); the walk kernels timed at the render's
    shapes (589,824 camera rays, 589,824 bounce rays in random directions
    from the camera hits, 1,179,648 shadow rays toward the light), compared
-   with the plain versions on 16,384 rays of each, with visited and skipped
-   chunks per block, and for the shadow rays the chunks staged per block
-   and the tested against the needed pairs;
+   with the plain versions on 16,384 rays of each, with gate survivors
+   admitted and skipped, chunks staged per block, entering lanes per staged
+   chunk and the tested against the needed pairs; with ``--parent``, the
+   closest hit at the camera and bounce shapes beside the kernel built from
+   each directory given, a parent commit's csrc or a variant of it (other,
+   this, this, other);
 8. the offline render of ``dragon_scene`` at 1024x576, 2 spp, 64 bounces
    through the CLI, with bounce steps and launch counts (the CLI gets phase
    6's host scene, built once: phases 8 and 18 print no build time of
@@ -45,13 +51,15 @@ Phases (any failure raises and the script exits non-zero without the final
     same rays (hit flags, t);
 12. the two-level kernels timed at the render's shapes: vwalk on the
     two-level dragon (589,824 camera, 589,824 bounce, 1,179,648 shadow
-    rays), iwalk on 4,096 of the dragon's bounce and shadow rays, and iwalk
-    on ``many_instance_scene`` at 1920x1080 (2,073,600 camera and bounce
-    rays, 4,147,200 shadow rays), each compared with its plain version on
-    16,384 rays (4,096 for the dragon's iwalk), with gate entries visited
-    and chunks staged per block (and for vwalk's shadow rays the tested
-    against the needed pairs), then vwalk's any-hit edge cases as in
-    phase 7;
+    rays; with ``--parent``, the closest hit beside the parent's as in
+    phase 7), iwalk on 4,096 of the dragon's bounce and shadow rays, and
+    iwalk on ``many_instance_scene`` at 1920x1080 (2,073,600 camera and
+    bounce rays, 4,147,200 shadow rays), each compared with its plain
+    version on 16,384 rays (4,096 for the dragon's iwalk), with gate
+    entries visited and chunks staged per block (and for vwalk the tested
+    against the needed pairs), then vwalk's edge cases for both queries as
+    in phase 7 and its tie set (two coincident instances of the tie soup
+    with its triangle held twice);
 13. ``dragon_scene --two-level`` through the CLI at 1024x576, 2 spp: host
     build, engine table bytes against the baked walk's, trace, bounce
     steps, launch counts (vwalk > 0, walk 0);
@@ -89,7 +97,10 @@ Phases (any failure raises and the script exits non-zero without the final
     over 65,536 rays of that light table, timed.
 
 Phases run in the order 1-9, 16-21, 10-15. Each render's launch counts
-(and the probes') are set to 0 just before it and read just after.
+(and the probes') are set to 0 just before it and read just after. The
+walk and vwalk closest hits are held to winners and t equal to the plain
+versions on every ray of every set (their cull is exact and their
+arithmetic the plain versions'); the other kernels' winners on 99.99%.
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the query must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (H100 SXM data sheet), counting the ray x
@@ -118,6 +129,7 @@ and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -126,6 +138,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -486,14 +499,15 @@ def cross_backend(make, width, height, spp, engine=None):
 
 def check_walk_closest(label, kt, ks, pt, ps, nan_lane, kind="walk") -> float:
     """Kernel (best_t, slot) against plain on the same rays (sorted for the
-    walk); returns max |t_kernel - t_plain| over the lanes whose winners
-    agree."""
+    walk): winners and t equal on every ray (the walk's cull is exact and
+    its arithmetic the plain version's); returns max |t_kernel - t_plain|
+    over the lanes whose winners agree."""
     same = ks == ps
     agree = same.float().mean().item()
     err = (kt[same] - pt[same]).abs().max().item() if bool(same.any()) else 0.0
     print(f"{kind} closest {label}: {ks.shape[0]} rays, winners equal to plain {agree:.6f}, "
           f"max |t kernel - t plain| {err:.3g}, hits {(ps >= 0).float().mean().item():.3f}")
-    check(agree >= WINNER_AGREE, (label, agree))
+    check(bool(same.all()) and torch.equal(kt, pt), (label, agree, err))
     check(bool((ks[nan_lane] == -1).all()), f"{label}: NaN lanes must report no hit")
     return err
 
@@ -617,9 +631,130 @@ def edge_rays(rng, lo, hi, root_lo, root_hi, o, d, kt, ks, dev):
                        torch.nextafter(t, torch.zeros_like(t))]).contiguous())
 
 
-def phase_walk(walk, scene, cam, dev, card):
+def walk_ties(walk, dev) -> float:
+    """The tie set (`walk.tie_soup`): every ray's closest hit is one triangle
+    held in two chunks of the walk tables, twice within one; kernel against
+    plain, winners and t equal on every ray, each chunk winning some
+    octants."""
+    pos, o, d = walk.tie_soup()
+    tables, slots = walk.tie_tables(pos, pos.shape[0] - 1)
+    eng = {k: torch.from_numpy(v).to(dev) for k, v in tables.items()}
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    tl = torch.full((o.shape[0],), math.inf, device=dev)
+    kt, ks = walk.closest_cuda(eng, o, d, tl)
+    pt, ps = walk.closest_plain(eng, o, d, tl)
+    check(set(ps.tolist()) == set(slots[:2]), ("tie set winners", slots, torch.unique(ps)))
+    return check_walk_closest("tie set", kt, ks, pt, ps, torch.zeros_like(ks, dtype=torch.bool))
+
+
+def vwalk_ties(iwalk, walk, dev) -> float:
+    """The tie set of vwalk: two coincident instances of `walk.tie_soup`
+    with its triangle T held twice, every ray's closest hit T; kernel
+    against plain, winners, instances and t equal on every ray."""
+    from path_tracer_tpu_torch.scene.model import Model, rigid_transform, rotation_y
+
+    pos, o, d = walk.tie_soup()
+    m = rigid_transform(rotation_y(0.7), (0.5, 0.2, -0.1))
+    veng = iwalk.upload(iwalk.pack_vwalk(
+        [Model(None, matrices=[m, m], positions=np.concatenate([pos, pos[-1:]]))]), dev)
+    rot, tr = torch.from_numpy(m[:, :3]).to(dev), torch.from_numpy(m[:, 3]).to(dev)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    ow, dw = (o @ rot.T + tr).contiguous(), (d @ rot.T).contiguous()
+    tl = torch.full((o.shape[0],), math.inf, device=dev)
+    k, p = iwalk.closest_cuda(veng, ow, dw, tl), iwalk.closest_plain(veng, ow, dw, tl)
+    check(bool((p[1] >= 0).all()), "vwalk tie set: every ray hits")
+    return check_two_level_closest("vwalk closest tie set", k, p, torch.zeros_like(k[1], dtype=torch.bool))
+
+
+def start_other_builds(srcs):
+    """Start nvcc on ``walk_hit.cu`` and ``iwalk_hit.cu`` of each csrc
+    directory in ``srcs`` (a parent commit's, or a variant of it) with this
+    tree's flags, beside phase 2's builds; returns a function that waits for
+    them, prints their ptxas lines and returns, per directory, its label and
+    its closest-hit entry points (ctypes; ``vwalk_slack``: whether its
+    vwalk_closest takes this tree's ``slack`` argument, which the parent
+    commit's does not)."""
+    import ctypes
+    import shutil
+
+    from path_tracer_tpu_torch.trace import cuda_lib
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    jobs = []
+    for idx, src in enumerate(srcs):
+        out = OUT_DIR / "parent" / str(idx)
+        out.mkdir(parents=True, exist_ok=True)
+        for name in ("walk_hit", "iwalk_hit"):
+            proc = subprocess.Popen(
+                [nvcc, *cuda_lib.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((idx, src, name, out / f"lib{name}.so", proc))
+
+    def finish():
+        libs = {}
+        for idx, src, name, lib, proc in jobs:
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"{src} {name}: nvcc failed:\n{log}")
+            for line in log.splitlines():
+                if ptxas_line(line):
+                    print(f"  ptxas {src} {name}:", line.strip())
+            libs[idx, name] = ctypes.CDLL(str(lib))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        others = []
+        for idx, src in enumerate(srcs):
+            decl = (src / "iwalk_hit.cu").read_text().split('extern "C" int vwalk_closest(')[1]
+            slack = "float slack" in decl.split(")")[0]
+            fns = {"walk_closest": (libs[idx, "walk_hit"].walk_closest,
+                                    [i, p, p, p, i, i, p, p, p, i, p, p, p, p]),
+                   "vwalk_closest": (libs[idx, "iwalk_hit"].vwalk_closest,
+                                     [i, p, p, p, p, p, p, i, i, *[ctypes.c_float] * slack,
+                                      p, p, p, i, p, p, p, p, p])}
+            for fn, types in fns.values():
+                fn.argtypes, fn.restype = types, ctypes.c_int
+            others.append(SimpleNamespace(label=str(src), vwalk_slack=slack,
+                                          **{k: fn for k, (fn, _) in fns.items()}))
+        return others
+
+    return finish
+
+
+def ptxas_line(line: str) -> bool:
+    """The lines of nvcc's ptxas output worth printing: each kernel's name,
+    registers and spills."""
+    return "Compiling entry function" in line or "registers" in line or "spill" in line
+
+
+def time_against(label, fn, tables, this, rays, n_out, reps, card):
+    """Time another tree's closest hit ``fn`` (its C entry point; ``tables``
+    its arguments before the rays) against this tree's (``this()``) on the
+    same rays, in turns: other, this, this, other, ``reps`` launches each.
+    Their outputs (t, slot, and for vwalk the instance; ``n_out``) must be
+    equal."""
+    qo, qd, qt = rays
+    n, dev = qo.shape[0], qo.device
+    outs = [torch.empty(n, dtype=torch.float32, device=dev)]
+    outs += [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(n_out - 1)]
+
+    def run_other():
+        err = fn(dev.index, *tables, qo.data_ptr(), qd.data_ptr(), qt.data_ptr(), n,
+                 *[x.data_ptr() for x in outs], None, torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"{label}: cudaError {err}")
+        return outs
+
+    times = [time_ms(run_other if who == "other" else this, reps)[0]
+             for who in ("other", "this", "this", "other")]
+    check(all(torch.equal(a, b) for a, b in zip(this(), run_other())), f"{label}: outputs differ")
+    print(f"A/B {label} closest, {n} rays, {reps} launches each: other {times[0]:.3f} ms, this "
+          f"{times[1]:.3f} ms, this {times[2]:.3f} ms, other {times[3]:.3f} ms; other / this "
+          f"{(times[0] + times[3]) / (times[1] + times[2]):.2f}x ({card})")
+
+
+def phase_walk(walk, scene, cam, dev, card, others=()):
     """Phases 6-7: the walk kernels against their plain versions on the full
-    dragon world table, on a mixed ray set and at the render's shapes."""
+    dragon world table, on a mixed ray set, the cull's edge cases, the tie
+    set and at the render's shapes; each of ``others`` (other trees'
+    libraries, `start_other_builds`) has its closest hit timed beside this
+    one's."""
     eng = scene["tri"]["walk"]
     rng = np.random.default_rng(4321)
     k = walk.num_chunks(eng)
@@ -657,13 +792,18 @@ def phase_walk(walk, scene, cam, dev, card):
     pa = walk.any_plain(eng, o, d, tl_anyc)
     errs["walk_any"] = check_any("walk mixed", ka, pa, o, d, tl_any)
 
-    # 7: the segment cull's edge cases, then the render's shapes
+    # 7: the segment cull's edge cases and the tie set, then the render's shapes
     eo, ed, et = edge_rays(rng, *walk.chunk_boxes(eng), eng["root_lo"], eng["root_hi"],
                            o_s, d_s, kt, ks, dev)
     etc = walk._exit_clamp(eng, eo, ed, et).contiguous()
     errs["walk_any"] = max(errs["walk_any"], check_any(
         "walk edge cases", walk.any_cuda(eng, eo, ed, etc), walk.any_plain(eng, eo, ed, etc),
         eo, ed, etc))
+    nan_e = torch.zeros(eo.shape[0], dtype=torch.bool, device=dev)
+    errs["walk_closest"] = max(errs["walk_closest"], check_walk_closest(
+        "edge cases", *walk.closest_cuda(eng, eo, ed, etc), *walk.closest_plain(eng, eo, ed, etc),
+        nan_e))
+    errs["walk_closest"] = max(errs["walk_closest"], walk_ties(walk, dev))
 
     o_f, d_f = camera_rays(cam, WIDTH, HEIGHT, dev)
     nf = o_f.shape[0]
@@ -707,6 +847,9 @@ def phase_walk(walk, scene, cam, dev, card):
             stats = walk.walk_stats(eng, *public)
             need = needed_walk_work(walk, eng, qo, qd, qt, torch.where(ks >= 0, kt, qt))
             out_bytes = 8
+            for other in others:
+                time_against(f"walk {name} vs {other.label}", other.walk_closest, walk._tables(eng),
+                             lambda: walk.closest_cuda(eng, qo, qd, qt), (qo, qd, qt), 2, reps, card)
         else:
             km, ka = time_ms(lambda: walk.any_cuda(eng, qo, qd, qt), reps)
             live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
@@ -716,15 +859,15 @@ def phase_walk(walk, scene, cam, dev, card):
             stats = walk.walk_stats(eng, *public, query="any")
             need = needed_walk_work(walk, eng, o_ss, d_ss, tl_ss, tl_ss, occ_chunk)
             out_bytes = 1
-            print(f"walk {name}: pairs tested {stats['pairs']}, needed {need[0]}: tested / "
-                  f"needed {stats['pairs'] / max(need[0], 1):.3f}; per block: gate survivors "
-                  f"admitted {stats['visits'] / max(stats['blocks'], 1):.1f}, chunks staged "
-                  f"{stats['staged'] / max(stats['blocks'], 1):.1f}; entering lanes per staged "
-                  f"chunk {stats['lane_visits'] / max(stats['staged'], 1):.2f}")
+        print(f"walk {name}: pairs tested {stats['pairs']}, needed {need[0]}: tested / "
+              f"needed {stats['pairs'] / max(need[0], 1):.3f}; per block: gate survivors "
+              f"admitted {stats['visits'] / max(stats['blocks'], 1):.1f}, chunks staged "
+              f"{stats['staged'] / max(stats['blocks'], 1):.1f}; entering lanes per staged "
+              f"chunk {stats['lane_visits'] / max(stats['staged'], 1):.2f}")
         errs[key] = max(errs[key], err)
         bms, by = walk_bound(nq, out_bytes, need, key)
         live = max(stats["blocks"], 1)
-        tested = stats.get("pairs", stats["lane_visits"] * walk.CH_W)
+        tested = stats["pairs"]
         results[name] = {"key": key, "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                          "rays": nq, "stats": stats, "needed_pairs": need[0],
                          "tested_pairs": tested}
@@ -744,14 +887,18 @@ def phase_walk(walk, scene, cam, dev, card):
 # --- the two-level kernels (two-level dragon_scene, many_instance_scene) ---
 
 
-def check_two_level_closest(label, k, p, nan_lane) -> float:
-    """Kernel (best_t, slot, inst) against plain on the same sorted rays;
-    returns max |t kernel - t plain| over the lanes whose winners agree."""
+def check_two_level_closest(label, k, p, nan_lane, exact=True) -> float:
+    """Kernel (best_t, slot, inst) against plain on the same sorted rays:
+    winners and t equal on every ray (``exact``: vwalk) or winners on
+    ``WINNER_AGREE`` of them (iwalk); returns max |t kernel - t plain| over
+    the lanes whose winners agree."""
     same = (k[1] == p[1]) & (k[2] == p[2])
     agree = same.float().mean().item()
     err = (k[0][same].double() - p[0][same].double()).abs().max().item() if bool(same.any()) else 0.0
     print(f"{label}: {k[1].shape[0]} rays, winners (slot, instance) equal to plain {agree:.6f}, "
           f"max |t kernel - t plain| {err:.3g}, hits {(p[1] >= 0).float().mean().item():.3f}")
+    if exact:
+        check(bool(same.all()) and torch.equal(k[0], p[0]), (label, agree, err))
     check(agree >= WINNER_AGREE, (label, agree))
     check(bool((k[1][nan_lane] == -1).all()) and bool((k[2][nan_lane] == -1).all()),
           f"{label}: NaN lanes must report no hit")
@@ -839,7 +986,8 @@ def phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev, card):
     sub = (o_s[rows].contiguous(), d_s[rows].contiguous(), tl_s[rows].contiguous())
     ik_ms, ik = time_ms(lambda: iwalk.closest_cuda(ieng, *sub), 1)
     ip = iwalk.closest_plain(ieng, *sub)
-    errs["iwalk_closest"] = check_two_level_closest("iwalk closest mixed subset", ik, ip, nan_s[rows])
+    errs["iwalk_closest"] = check_two_level_closest("iwalk closest mixed subset", ik, ip, nan_s[rows],
+                                                    exact=False)
     check(bool((ik[1] == k[1][rows]).all()), "iwalk and vwalk winners on the subset")
     print(f"  iwalk closest on the {rows.numel()}-ray subset: {ik_ms:.3f} ms ({card})")
     # any hit: limits around each ray's closest t (unsorted rays), plus the edge lanes
@@ -913,11 +1061,13 @@ def render_shapes(iwalk, walk, eng, scene, cam, w, h, rng, dev):
 
 
 def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, plain_rays=PLAIN_RAYS,
-                   reps=(5, 2, 2)):
+                   reps=(5, 2, 2), others=()):
     """Each shape of `render_shapes` on ``eng``'s kernel, timed with CUDA
     events, compared with the plain version on ``plain_rays`` of its rays,
     with its gate counters and its need (`two_level_need` over ``veng``,
-    the vwalk tables of the same scene) and bound."""
+    the vwalk tables of the same scene) and bound; each of ``others``
+    (vwalk: other trees' libraries) has its closest hit timed beside this
+    one's."""
     name = iwalk.engine_name(eng)
     results = {}
     for (shape, (query, (qo, qd, qt), public)), rep in zip(shapes.items(), reps):
@@ -927,9 +1077,16 @@ def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, 
             rows = whole_blocks(rng, walk._valid(qo, qd, qt), plain_rays // 128)
             pm, p = time_ms(lambda: iwalk.closest_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
             nan_r = ~(torch.isfinite(qo[rows]).all(1) & torch.isfinite(qd[rows]).all(1))
-            err = check_two_level_closest(f"{label} {shape}", [x[rows] for x in k], p, nan_r)
+            err = check_two_level_closest(f"{label} {shape}", [x[rows] for x in k], p, nan_r,
+                                          exact=name == "vwalk")
             need = two_level_need(walk, veng, qo, qd, qt, torch.where(k[1] >= 0, k[0], qt))
             out_bytes = 12
+            for other in others:
+                tables = [eng[t].data_ptr() for t in ("aux", "cb_oct", "ord_oct", "vinst", "vglob", "inst_f")]
+                slack = (float(eng["lane_slack"]),) if other.vwalk_slack else ()
+                time_against(f"{label} {shape} vs {other.label}", other.vwalk_closest,
+                             (*tables, eng["gates"], eng["ord_oct"].shape[1], *slack),
+                             lambda: iwalk.closest_cuda(eng, qo, qd, qt), (qo, qd, qt), 3, rep, card)
         else:
             km, ka = time_ms(lambda: iwalk.any_cuda(eng, qo, qd, qt), rep)
             live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
@@ -962,12 +1119,15 @@ def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, 
     return results
 
 
-def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, card):
-    """Phase 12: vwalk at the dragon's render shapes, iwalk on 4,096 of its
-    bounce and shadow rays, iwalk at many_instance_scene's 1920x1080."""
+def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, card, others=()):
+    """Phase 12: vwalk at the dragon's render shapes (its closest hit beside
+    each of ``others``), on the cull's edge cases and the tie set, iwalk on
+    4,096 of its bounce and shadow rays, iwalk at many_instance_scene's
+    1920x1080."""
     rng = np.random.default_rng(8765)
     shapes, occ = render_shapes(iwalk, walk, veng, scene2, cam, WIDTH, HEIGHT, rng, dev)
-    res = {"dragon": time_two_level(iwalk, walk, veng, veng, shapes, occ, "vwalk dragon", rng, card)}
+    res = {"dragon": time_two_level(iwalk, walk, veng, veng, shapes, occ, "vwalk dragon", rng, card,
+                                    others=others)}
     # vwalk's segment-cull edge cases, the ulp limits on camera rays
     _, (qo, qd, qt), _ = shapes["camera"]
     cam_rows = torch.arange(0, qo.shape[0], qo.shape[0] // (4 * EDGE_ULP), device=dev)
@@ -979,6 +1139,11 @@ def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, ca
     edge_err = check_any("vwalk edge cases", iwalk.any_cuda(veng, eo, ed, etc),
                          iwalk.any_plain(veng, eo, ed, etc), eo, ed, etc)
     res["dragon"]["shadow"]["err"] = max(res["dragon"]["shadow"]["err"], edge_err)
+    nan_e = torch.zeros(eo.shape[0], dtype=torch.bool, device=dev)
+    edge_err = check_two_level_closest("vwalk closest edge cases", iwalk.closest_cuda(veng, eo, ed, etc),
+                                       iwalk.closest_plain(veng, eo, ed, etc), nan_e)
+    res["dragon"]["bounce"]["err"] = max(res["dragon"]["bounce"]["err"], edge_err,
+                                         vwalk_ties(iwalk, walk, dev))
     # iwalk on whole blocks of the dragon's bounce rays and on shadow rays
     sub = {}
     for name in ("bounce", "shadow"):
@@ -1267,7 +1432,12 @@ def phase_light_bvh(dev, card):
           f"card equal to CPU on {sub.numel()} rays ({card})")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, nargs="+", default=[],
+                    help="csrc directories of a parent commit (or variants of it): time their walk "
+                         "and vwalk closest hits beside this tree's (phases 7 and 12)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1283,12 +1453,16 @@ def main() -> int:
     from path_tracer_tpu_torch.trace import iwalk, walk
 
     t0 = time.perf_counter()
+    finish_others = start_other_builds(args.parent)
     libs = cuda_lib.build("dense_hit", "walk_hit", "iwalk_hit", "dense_stream", "gather_probe")
     print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in libs)})")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ptxas_line(line):
                 print(f"  ptxas {lib.name}:", line.strip())
+    others = finish_others()
+    if others:
+        print(f"--parent builds: {time.perf_counter() - t0:.1f} s")
     dev = torch.device(DEVICE)
 
     sh, cam = scenes.mesh_scene(aspect=WIDTH / HEIGHT)
@@ -1304,7 +1478,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"dragon_scene: {sh.num_world_tris} world tris, scene build {t1 - t0:.1f} s, "
           f"upload with walk packing {time.perf_counter() - t1:.1f} s")
-    walk_errs, walk_t = phase_walk(walk, scene, cam, dev, card)
+    walk_errs, walk_t = phase_walk(walk, scene, cam, dev, card, others)
     errs.update(walk_errs)
     walk_eng = scene["tri"]["walk"]  # phases 16-18 and 11 hold other engines against it
     print(f"phases 6-7: {time.perf_counter() - t0:.1f} s")
@@ -1346,7 +1520,7 @@ def main() -> int:
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     two_t, sh_m, cam_m = phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev,
-                                                card)
+                                                card, others)
     for rs in two_t.values():
         for r in rs.values():
             errs[r["key"]] = max(errs[r["key"]], r["err"])
@@ -1397,7 +1571,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "rays": r["rays"],
             **({"tested_pairs": r["tested_pairs"], "needed_pairs": r["needed_pairs"]}
-               if key in ("walk_any", "vwalk_any") else {}),
+               if key.startswith(("walk_", "vwalk_")) else {}),
             "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

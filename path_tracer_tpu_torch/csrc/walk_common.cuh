@@ -2,12 +2,12 @@
 // iwalk_hit.cu: the two-level vwalk and iwalk): the ray load, the block's
 // conservative ray bounds, the box gate with a warp ballot, the staging of
 // one chunk's plane rows, the block-wide window reduction, the counters,
-// the object-space ray, the ray x triangle pair tests, and the any-hit walk
-// of the baked and virtual chunks (any_walk: the per-lane segment cull and
-// the lane-compacted pair tests). See the note at the top of walk_hit.cu for
-// the design and the floating-point rules (-fmad=false; the plain torch
-// versions in trace/walk.py and trace/iwalk.py repeat these expressions in
-// this order).
+// the object-space ray, the ray x triangle pair tests, and the lane walk of
+// the baked and virtual chunks (lane_walk: the closest hit and the any hit
+// through the per-lane segment cull and the lane-compacted pair tests). See
+// the note at the top of walk_hit.cu for the design and the floating-point
+// rules (-fmad=false; the plain torch versions in trace/walk.py and
+// trace/iwalk.py repeat these expressions in this order).
 
 #pragma once
 
@@ -255,6 +255,20 @@ __device__ __forceinline__ Terms terms(const Ray& r, float4 a, float4 b, float4 
   return q;
 }
 
+// Candidate t of ray r against one plane row: whether the row is hit at
+// EPS < t < r.tl, with t in ``tt`` (exact reciprocal, one Newton step).
+__device__ __forceinline__ bool closest_pair(const Ray& r, float4 a, float4 b, float4 c,
+                                             float& tt) {
+  const Terms t = terms(r, a, b, c);
+  const bool c2 = same_sign(t.ud, t.det - t.ud);
+  const bool c3 = same_sign(t.vd, t.det - t.ud - t.vd);
+  const float safe = t.det == 0.0f ? 1.0f : t.det;
+  float rr = 1.0f / safe;
+  rr = rr * (2.0f - safe * rr);  // one Newton step, as on the TPU
+  tt = t.td * rr;
+  return c2 && c3 && t.det != 0.0f && tt > EPS && tt < r.tl;
+}
+
 // Closest hit of ray r against the staged chunk c: lowers best and sets
 // slot = c*CH_W + lane on a nearer hit; returns whether it did. Strict <:
 // the first visited chunk, then the lowest lane, wins ties.
@@ -262,14 +276,9 @@ __device__ __forceinline__ bool closest_chunk(const Ray& r, const Shared& sh, in
                                               float& best, int& slot) {
   bool upd = false;
   for (int j = 0; j < CH_W; ++j) {
-    const Terms t = terms(r, sh.planes[j], sh.planes[CH_W + j], sh.planes[2 * CH_W + j]);
-    const bool c2 = same_sign(t.ud, t.det - t.ud);
-    const bool c3 = same_sign(t.vd, t.det - t.ud - t.vd);
-    const float safe = t.det == 0.0f ? 1.0f : t.det;
-    float rr = 1.0f / safe;
-    rr = rr * (2.0f - safe * rr);  // one Newton step, as on the TPU
-    const float tt = t.td * rr;
-    if (c2 && c3 && t.det != 0.0f && tt > EPS && tt < r.tl && tt < best) {
+    float tt;
+    if (closest_pair(r, sh.planes[j], sh.planes[CH_W + j], sh.planes[2 * CH_W + j], tt) &&
+        tt < best) {
       best = tt;
       slot = c * CH_W + j;
       upd = true;
@@ -314,24 +323,32 @@ __device__ __forceinline__ Ray obj_ray(const Ray& r, const float* __restrict__ i
   return q;
 }
 
-// --- the any-hit walk (walk_any_kernel, vwalk_any_kernel) ---
+// --- the lane walk: walk and vwalk, closest hit and any hit ---
 
-// One listed lane of a staged chunk: its ray (object space for vwalk),
-// t_limit in o.w and the lane in d.w (int bits).
+// One listed lane of a staged chunk: its ray (object space for vwalk), its
+// limit in o.w (closest: min(best, t_limit) when listed; any: t_limit) and
+// the lane in d.w (int bits).
 struct Entry {
   float4 o, d;
 };
 
-struct AnyShared {
+constexpr unsigned long long NO_KEY = ~0ull;  // a listed lane without a hit
+
+struct LaneShared {
   float4 planes[2][3 * CH_W];  // the staged chunk, double-buffered
   Entry list[2][WARPS][32];    // each warp's entering lanes, same buffers
   int cnt[2][WARPS];
+  // closest: each listed lane's least (t bits << 32 | triangle) in the
+  // staged chunk, same buffers; any: occluded lanes
+  union {
+    unsigned long long key[2][SBLK];
+    int occ[SBLK];
+  };
   float box[SBLK][6];          // the gate batch's boxes (slack applied)
   float te[SBLK];              // and their gate entry t
   unsigned bits[WARPS];        // gate survivors, one word per warp
   unsigned mask[3];            // block OR of the lanes' entered-box masks
-  unsigned wmax[3];            // block max of unoccluded t_limit (bits)
-  int occ[SBLK];               // occluded lanes
+  unsigned wmax[3];            // block max of the live lanes' windows (bits)
   float red[WARPS][13];
   Bounds bb;
 };
@@ -340,7 +357,7 @@ struct AnyShared {
 // gate_batch, and keep each survivor's box widened by ``slack`` on every
 // side. Starts and ends with a barrier.
 __device__ void gate_boxes(const float* __restrict__ cb_oct, int k, int kq, int base,
-                           float slack, AnyShared& sh) {
+                           float slack, LaneShared& sh) {
   const int p = base + threadIdx.x;
   const float* cb = cb_oct + (size_t)sh.bb.oct * 6 * kq;
   float te = BIG;
@@ -371,24 +388,26 @@ __device__ __forceinline__ int entry_chunk(const int* __restrict__ vglob, int e)
   }
 }
 
-// The any-hit walk over baked chunks (VIRTUAL false: a gate entry e is the
-// layout chunk e) or virtual chunks (VIRTUAL true: the object chunk
-// vglob[e] of instance vinst[e], tested on the lane's object-space ray).
-// Writes one flag per ray; ``stats`` as count() plus stats[5] += pairs and
-// a flag per staged gate entry at stats[NSTATS + e]. The design is in the
-// note at the top of walk_hit.cu.
-template <bool VIRTUAL>
-__device__ __forceinline__ void any_walk(
+// The walk over baked chunks (VIRTUAL false: a gate entry e is the layout
+// chunk e) or virtual chunks (VIRTUAL true: the object chunk vglob[e] of
+// instance vinst[e], tested on the lane's object-space ray), as a closest
+// hit (CLOSEST true: out_t, out_slot and, vwalk, out_inst) or a shadow test
+// (one flag per ray in out_any). ``stats`` as count() plus stats[5] +=
+// pairs and a flag per staged gate entry at stats[NSTATS + e]. The design
+// is in the note at the top of walk_hit.cu.
+template <bool VIRTUAL, bool CLOSEST>
+__device__ __forceinline__ void lane_walk(
     const float* __restrict__ aux, const float* __restrict__ cb_oct,
     const int* __restrict__ ord_oct, const int* __restrict__ vinst,
     const int* __restrict__ vglob, const float* __restrict__ inst_f, int k, int kq,
     float slack, const float* __restrict__ orig, const float* __restrict__ dir,
-    const float* __restrict__ tlim, int n, uint8_t* __restrict__ out,
+    const float* __restrict__ tlim, int n, float* __restrict__ out_t,
+    int* __restrict__ out_slot, int* __restrict__ out_inst, uint8_t* __restrict__ out_any,
     unsigned long long* __restrict__ stats) {
-  __shared__ AnyShared sh;
+  __shared__ LaneShared sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   volatile int* occs = sh.occ;
-  occs[tid] = 0;
+  if constexpr (!CLOSEST) occs[tid] = 0;
   if (tid < 3) {
     sh.mask[tid] = 0u;
     sh.wmax[tid] = 0u;
@@ -399,14 +418,35 @@ __device__ __forceinline__ void any_walk(
   const float inv[3] = {r.dx == 0.0f ? 0.0f : 1.0f / r.dx, r.dy == 0.0f ? 0.0f : 1.0f / r.dy,
                         r.dz == 0.0f ? 0.0f : 1.0f / r.dz};
 
-  bool occ = false;
+  bool occ = false;             // any hit
+  float best = BIG;             // closest: the merged winner,
+  int slot = -1, inst = -1;
+  int pend = -1, pbase = 0, pinst = -1;  // and the staged chunk not yet merged
+  // closest: merge the key of the chunk this lane last listed in, once a
+  // barrier has passed since its tests; strict <, so of two chunks at one
+  // t the first visited keeps the win
+  auto settle = [&]() {
+    if constexpr (CLOSEST) {
+      if (pend >= 0) {
+        const unsigned long long key = sh.key[pend][tid];
+        const float t = __uint_as_float((unsigned)(key >> 32));
+        if (key != NO_KEY && t < best) {
+          best = t;
+          slot = pbase + (int)(key & 0xffffffffu);
+          inst = pinst;
+        }
+        pend = -1;
+      }
+    }
+  };
   unsigned long long visits = 0, skips = 0, lanes = 0, staged = 0, pairs = 0;
   if (sh.bb.anyv) {
     const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
-    float win = sh.bb.tmax;  // uniform; 0 once every live lane is occluded
-    int slot = 0, buf = 0;
+    float win = sh.bb.tmax;  // uniform; any hit: 0 once every live lane is occluded
+    int mslot = 0, buf = 0;
     for (int base = 0; base < k && win > 0.0f; base += SBLK) {
       gate_boxes(cb_oct, k, kq, base, slack, sh);
+      settle();
       for (int w = 0; w < WARPS && win > 0.0f; ++w) {
         // this warp word's survivors within the block window
         unsigned todo = 0u;
@@ -420,49 +460,69 @@ __device__ __forceinline__ void any_walk(
         }
         visits += __popc(todo);
         if (todo != 0u) {
-          // each live, unoccluded lane's own segment test of every box of
-          // the word; the masks are ORed block-wide behind one barrier
-          const bool open = r.valid && !occ;
+          // each live (any hit: unoccluded) lane's own segment test of every
+          // box of the word within its window; the masks are ORed and the
+          // windows' max taken block-wide behind one barrier
+          const bool open = CLOSEST ? r.valid : r.valid && !occ;
+          const float tw = CLOSEST ? fminf(best, r.tl) : r.tl;
           unsigned mine = 0u;
           if (open) {
             for (unsigned m = todo; m; m &= m - 1) {
               const int j = __ffs(m) - 1;
-              if (enters(o, d, inv, sh.box[w * 32 + j], r.tl)) mine |= 1u << j;
+              if (enters(o, d, inv, sh.box[w * 32 + j], tw)) mine |= 1u << j;
             }
           }
           const unsigned wm = __reduce_or_sync(0xffffffffu, mine);
-          const unsigned wt = __reduce_max_sync(0xffffffffu, open ? __float_as_uint(r.tl) : 0u);
+          const unsigned wt = __reduce_max_sync(0xffffffffu, open ? __float_as_uint(tw) : 0u);
           if (lane == 0) {
-            atomicOr(&sh.mask[slot], wm);
-            atomicMax(&sh.wmax[slot], wt);
+            atomicOr(&sh.mask[mslot], wm);
+            atomicMax(&sh.wmax[mslot], wt);
           }
           __syncthreads();
-          const unsigned entered = sh.mask[slot];
-          win = fminf(win, __uint_as_float(sh.wmax[slot]));
+          settle();
+          const unsigned entered = sh.mask[mslot];
+          win = fminf(win, __uint_as_float(sh.wmax[mslot]));
           // the slot two batches on was last read before this barrier
           if (tid == 0) {
-            const int next = slot == 0 ? 2 : slot - 1;
+            const int next = mslot == 0 ? 2 : mslot - 1;
             sh.mask[next] = 0u;
             sh.wmax[next] = 0u;
           }
-          slot = slot == 2 ? 0 : slot + 1;
-          // stage each entered box's chunk; only the entering lanes test it
+          mslot = mslot == 2 ? 0 : mslot + 1;
+          // stage each entered box's chunk, in visit order; only the
+          // entering lanes test it (closest: those that still enter it
+          // within their window, which may have fallen since the mask)
           for (unsigned m = entered; m; m &= m - 1) {
             const int j = __ffs(m) - 1;
             const int e = ord[base + w * 32 + j];
-            const bool want = ((mine >> j) & 1u) && !occ;
+            const int c = entry_chunk<VIRTUAL>(vglob, e);
+            bool want = (mine >> j) & 1u;
+            if constexpr (CLOSEST) {
+              want = want && enters(o, d, inv, sh.box[w * 32 + j], fminf(best, r.tl));
+            } else {
+              want = want && !occ;
+            }
             const unsigned b = __ballot_sync(0xffffffffu, want);
             if (want) {
               Ray q = r;
               if constexpr (VIRTUAL) q = obj_ray(r, inst_f, vinst[e]);
               Entry& en = sh.list[buf][warp][__popc(b & ((1u << lane) - 1u))];
-              en.o = make_float4(q.ox, q.oy, q.oz, q.tl);
+              en.o = make_float4(q.ox, q.oy, q.oz, CLOSEST ? fminf(best, q.tl) : q.tl);
               en.d = make_float4(q.dx, q.dy, q.dz, __int_as_float(tid));
+              if constexpr (CLOSEST) sh.key[buf][tid] = NO_KEY;
             }
             if (lane == 0) sh.cnt[buf][warp] = __popc(b);
-            stage_rows(aux, entry_chunk<VIRTUAL>(vglob, e), sh.planes[buf]);
+            stage_rows(aux, c, sh.planes[buf]);
             if (stats != nullptr && tid == 0) stats[NSTATS + e] = 1ull;
             const int listed = __syncthreads_count(want);
+            if constexpr (CLOSEST) {
+              settle();  // the previous staged chunk's tests are done
+              if (want) {
+                pend = buf;
+                pbase = c * CH_W;
+                if constexpr (VIRTUAL) pinst = vinst[e];
+              }
+            }
             ++staged;
             lanes += listed;
             if (listed > 0) {
@@ -477,14 +537,27 @@ __device__ __forceinline__ void any_walk(
                 for (int i = 0; i < cnt; ++i) {
                   const Entry en = sh.list[buf][lw][i];
                   const int who = __float_as_int(en.d.w);
-                  if (occs[who]) continue;
+                  if constexpr (!CLOSEST) {
+                    if (occs[who]) continue;
+                  }
                   pairs += real;
                   const Ray t = {en.o.x, en.o.y, en.o.z, en.d.x, en.d.y, en.d.z, en.o.w, true};
-                  if (any_pair(t, pa, pb, pc)) occs[who] = 1;
+                  if constexpr (CLOSEST) {
+                    // the least t, then the lowest triangle, of this chunk:
+                    // t > 0, so its bits order as the floats
+                    float tt;
+                    if (closest_pair(t, pa, pb, pc, tt)) {
+                      atomicMin(&sh.key[buf][who],
+                                ((unsigned long long)__float_as_uint(tt) << 32) | (unsigned)tid);
+                    }
+                  } else {
+                    if (any_pair(t, pa, pb, pc)) occs[who] = 1;
+                  }
                 }
               }
             }
-            occ = occs[tid] != 0;  // later hits by other threads show at the next read
+            // any hit: later hits by other threads show at the next read
+            if constexpr (!CLOSEST) occ = occs[tid] != 0;
             buf ^= 1;
           }
         }
@@ -492,9 +565,17 @@ __device__ __forceinline__ void any_walk(
     }
   }
   __syncthreads();
-  occ = occs[tid] != 0;
+  settle();
   const int ray = blockIdx.x * SBLK + tid;
-  if (ray < n) out[ray] = occ ? 1 : 0;
+  if (ray < n) {
+    if constexpr (CLOSEST) {
+      out_t[ray] = best;
+      out_slot[ray] = slot;
+      if constexpr (VIRTUAL) out_inst[ray] = slot >= 0 ? inst : -1;
+    } else {
+      out_any[ray] = occs[tid] != 0 ? 1 : 0;
+    }
+  }
   count(stats, sh.bb.anyv, visits, skips, lanes, staged);
   if (stats != nullptr && sh.bb.anyv) {
 #pragma unroll

@@ -410,7 +410,7 @@ def _obj_rays(m, o, d):
 def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     return load("iwalk_hit", {
-        "vwalk_closest": [i, p, p, p, p, p, p, i, i, p, p, p, i, p, p, p, p, p],
+        "vwalk_closest": [i, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i, p, p, p, p, p],
         "vwalk_any": [i, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i, p, p, p],
         "iwalk_closest": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p, p, p],
         "iwalk_any": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p],
@@ -478,8 +478,8 @@ def _launch(eng, query, origin, direction, t_limit, outs, stats):
     fn = getattr(_lib(), key)
     tables = [eng[k].data_ptr() for k in ("aux", "cb_oct", "ord_oct", *_index_tables(eng), "inst_f")]
     dev = origin.device
-    # vwalk's any hit widens its boxes for the lanes' segment tests
-    slack = (float(eng["lane_slack"]),) if key == "vwalk_any" else ()
+    # vwalk widens its boxes for the lanes' segment tests
+    slack = (float(eng["lane_slack"]),) if "vinst" in eng else ()
     LAUNCHES[key] += 1
     err = fn(dev.index, *tables, eng["gates"], eng["ord_oct"].shape[1], *slack, origin.data_ptr(),
              direction.data_ptr(), t_limit.data_ptr(), origin.shape[0],
@@ -496,8 +496,10 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
     (1e30, -1, -1) on a miss. ``stats``, a zeroed int64 CUDA tensor
     [6 + gate entries] (virtual chunks, or instances), receives (blocks
     with a live lane, gate entries visited, survivors skipped by the
-    window, lanes testing a staged chunk, staged chunks, 0), then a 1 for
-    every gate entry visited."""
+    window, lanes testing a staged chunk, staged chunks, and for vwalk the
+    (lane, real triangle) pairs tested; vwalk's lanes are those whose own
+    segment test entered the chunk), then a 1 for every gate entry visited
+    (vwalk: staged)."""
     n, dev = origin.shape[0], origin.device
     best_t = torch.empty(n, dtype=torch.float32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
@@ -509,9 +511,8 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
 def any_cuda(eng, origin, direction, t_limit, stats=None):
     """Kernel shadow test (raw origin/direction, exit-clamped t_limit): bool
     ``[N]``, False on dead and non-finite lanes. ``stats`` as for
-    `closest_cuda`; vwalk's, as for ``walk.any_cuda``, counts the lanes
-    that entered a staged chunk and, last, the (lane, real triangle) pairs
-    it tested."""
+    `closest_cuda` (vwalk's lanes: those that entered a staged chunk and
+    were not yet occluded)."""
     out = torch.empty(origin.shape[0], dtype=torch.bool, device=origin.device)
     _launch(eng, "any", origin, direction, t_limit, (out,), stats)
     return out
@@ -557,8 +558,17 @@ def _rank_columns(eng, segs, col_slot, col_inst, device):
         start[[i for i, *_ in segs]] = torch.tensor([c for *_, c in segs], device=device)
         within = torch.arange(col_slot.numel(), device=device) - start[col_inst]
         return pos[:, col_inst] * col_slot.numel() + within
-    # the column chunk of each virtual chunk: its instance's first column
-    # chunk plus its object chunk's offset in the instance's range
+    vcol = _column_vchunks(eng, segs, device)
+    pos = _order_positions(eng["ord_oct"], g, g, device)
+    j = torch.arange(col_slot.numel(), device=device)
+    return pos[:, vcol[j // CH_W]] * CH_W + j % CH_W
+
+
+def _column_vchunks(eng, segs, device):
+    """vwalk: the virtual chunk (layout slot) of each column chunk of
+    `_columns`: its instance's first column chunk plus its object chunk's
+    offset in the instance's range (int64 [g])."""
+    n_inst, g = eng["inst_f"].shape[0], eng["gates"]
     vi = eng["vinst"][:g].to(device=device, dtype=torch.int64)
     vg = eng["vglob"][:g].to(device=device, dtype=torch.int64)
     first_col = torch.zeros(n_inst, dtype=torch.int64, device=device)
@@ -567,9 +577,7 @@ def _rank_columns(eng, segs, col_slot, col_inst, device):
     first_row[[i for i, *_ in segs]] = torch.tensor([a // CH_W for _, a, _, _ in segs], device=device)
     vcol = torch.empty(g, dtype=torch.int64, device=device)
     vcol[first_col[vi] + vg - first_row[vi]] = torch.arange(g, device=device)
-    pos = _order_positions(eng["ord_oct"], g, g, device)
-    j = torch.arange(col_slot.numel(), device=device)
-    return pos[:, vcol[j // CH_W]] * CH_W + j % CH_W
+    return vcol
 
 
 def _plain_steps(eng, origin, direction, t_limit):
@@ -626,7 +634,7 @@ def any_plain(eng, origin, direction, t_limit):
     return out
 
 
-# --- the any-hit kernel's segment cull, as a plain model (tests, chip_smoke.py) ---
+# --- vwalk's segment cull, as a plain model (tests, chip_smoke.py) ---
 
 
 def virtual_boxes(eng):
@@ -658,6 +666,38 @@ def entry_hits(eng, o, d, tl):
         per_chunk = _shadow_hits(planes, oo, dd, tl[:, None]).view(o.shape[0], -1, CH_W).any(dim=2)
         hits[:, cols] = per_chunk[:, vg[cols]]
     return hits
+
+
+def culled_closest_plain(eng, origin, direction, t_limit):
+    """vwalk's closest hit through its kernel's segment cull at its
+    tightest: a lane tests the object chunk of a virtual chunk on its
+    object-space ray only if ``walk.lane_enters`` passes the virtual
+    chunk's widened world box (`virtual_boxes`) within ``min(t*,
+    t_limit)``, t* the lane's plain closest t (the least window a kernel
+    lane can reach). Equal to `closest_plain` when the cull is exact."""
+    n, dev = origin.shape[0], origin.device
+    t_star, _, _ = closest_plain(eng, origin, direction, t_limit)
+    segs, col_slot, col_inst, planes, inst_f, live, steps = _plain_steps(
+        eng, origin, direction, t_limit)
+    oct_live = _block_octant(direction)[live]
+    rank = _rank_columns(eng, segs, col_slot, col_inst, dev) if steps else None
+    vcol = _column_vchunks(eng, segs, dev)
+    lo, hi = virtual_boxes(eng)
+    best_t = torch.full((n,), _BIG, dtype=origin.dtype, device=dev)
+    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for o, d, tl, s in steps:
+        rows = live[s : s + o.shape[0]]
+        enter = lane_enters(lo, hi, o, d, torch.minimum(t_star[rows], tl[:, 0]))
+        tm = torch.cat([_candidate_t(planes[a:b], *_obj_rays(inst_f[i], o, d), tl)
+                        for i, a, b, _ in segs], dim=1)
+        tm = torch.where(enter[:, vcol].repeat_interleave(CH_W, dim=1), tm, _BIG)
+        bt, first = _closest_columns(tm, rank, oct_live[s : s + o.shape[0]])
+        hit = bt < _BIG
+        best_t[rows] = bt
+        slot[rows] = torch.where(hit, col_slot[first], -1).to(torch.int32)
+        inst[rows] = torch.where(hit, col_inst[first], -1).to(torch.int32)
+    return best_t, slot, inst
 
 
 def culled_any_plain(eng, origin, direction, t_limit):
@@ -722,12 +762,11 @@ def iwalk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") -
     the public query's ray order: ``blocks`` (with a live lane), ``visits``
     (gate entries a block admitted: virtual chunks or instances),
     ``skipped`` (gated survivors the live window skipped), ``lane_visits``
-    (lanes testing a staged chunk; vwalk's any hit: those whose own segment
-    test entered it and that were not yet occluded), ``staged`` (chunks
-    staged), summed over blocks, and ``entries``
-    (distinct gate entries visited; vwalk's any hit: staged); vwalk's any
-    hit adds ``pairs``, the (lane, real triangle) pair tests. CUDA tensors
-    only."""
+    (lanes testing a staged chunk; vwalk: those whose own segment test
+    entered it, and for the any hit that were not yet occluded), ``staged``
+    (chunks staged), summed over blocks, and ``entries`` (distinct gate
+    entries visited; vwalk: staged); vwalk adds ``pairs``, the (lane, real
+    triangle) pair tests. CUDA tensors only."""
     o, d, tl = _f32(origin, direction, t_limit)
     stats = torch.zeros(NSTATS + _num_flags(eng), dtype=torch.int64, device=o.device)
     if query == "closest":
@@ -738,6 +777,6 @@ def iwalk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") -
     blocks, visits, skipped, lane_visits, staged, pairs = (int(x) for x in stats[:NSTATS].cpu())
     out = {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
            "staged": staged, "entries": int(stats[NSTATS:].sum())}
-    if query != "closest" and "vinst" in eng:
+    if "vinst" in eng:
         out["pairs"] = pairs
     return out

@@ -24,23 +24,25 @@ Port of ``path_tracer_tpu/trace/walk.py`` (``_walk_closest_kernel`` and
   bits) with a stable argsort, and the unsort. The any-hit query is not
   sorted (the JAX default ``WALK_SORT_ANY=0``).
 * The kernels take the rays in blocks of 128, gate every chunk box
-  against the block's conservative ray bounds, visit the survivors in the
-  octant order of the block's first ray, and skip an entry whose
-  conservative entry t fails the block's live window
-  (``te <= win*1.00002 + 1e-5``). Closest: best t and the padded slot of
-  the winner; ties go to the first visited chunk, then the lowest lane.
-  Any hit: each live, unoccluded lane runs its own segment test of every
-  surviving box within its t_limit (`lane_enters`, exact: the chunk boxes
-  are padded), a chunk no lane enters is not staged, and only the entering
-  lanes' (ray, triangle) pairs are tested, with the division-free sign
-  test; the block leaves once every live lane is occluded.
-* Plain versions: one dense pass over every slot, ungated. The gates and
-  the window are conservative, so the closest winner is the slot at the
-  minimum t that comes first in the ray's block octant order (rank =
-  position in ``ord_oct`` * 128 + lane): the walk's winner, ties included.
-  `lane_enters` is the plain model of the any-hit kernels' segment cull and
-  `culled_any_plain` the any hit through it, which the tests hold equal to
-  the ungated plain version.
+  against the block's conservative ray bounds in the octant order of the
+  block's first ray, and skip an entry whose conservative entry t fails the
+  block's live window (``te <= win*1.00002 + 1e-5``). Each live lane then
+  runs its own segment test of every surviving box within its own window
+  (`lane_enters`, exact: the chunk boxes are padded; closest:
+  ``min(best, t_limit)``, any hit: ``t_limit`` while unoccluded), a chunk no
+  lane enters is not staged, and only the entering lanes' (ray, triangle)
+  pairs are tested. Closest: best t and the padded slot of the winner, each
+  chunk's least (t, lane) merged in visit order with strict <, so ties go
+  to the first visited chunk, then the lowest lane. Any hit: the
+  division-free sign test; the block leaves once every live lane is
+  occluded.
+* Plain versions: one dense pass over every slot, ungated. The gates, the
+  window and the lanes' cull are conservative, so the closest winner is
+  the slot at the minimum t that comes first in the ray's block octant
+  order (rank = position in ``ord_oct`` * 128 + lane): the walk's winner,
+  ties included. `lane_enters` is the plain model of the kernels' segment
+  cull, and `culled_closest_plain` / `culled_any_plain` the queries through
+  it, which the tests hold equal to the ungated plain versions.
 
 Each kernel has one wrapper: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel or raises. ``LAUNCHES["walk_closest"]`` and
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from path_tracer_tpu_torch.core.constants import EPSILON
+from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.bvh import build_sah_tree, chunk_partition
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES, load
 from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue, _same
@@ -371,10 +374,10 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
     """Kernel closest hit over rays in sorted order (raw origin/direction,
     exit-clamped t_limit). Returns ``(best_t [N] f32, slot [N] i32)``,
     best_t = 1e30 and slot = -1 on a miss. ``stats``, a zeroed int64 CUDA
-    tensor [6 + chunks], receives (blocks with a live lane, chunks visited,
-    gated survivors skipped by the live window, lanes testing a visited
-    chunk, chunks staged (the visits), 0) summed over blocks, then a 1 for
-    every chunk visited."""
+    tensor [6 + chunks], receives (blocks with a live lane, gate survivors
+    admitted by the block window, those the window skipped, lanes that
+    entered a staged chunk, chunks staged, (lane, real triangle) pairs
+    tested) summed over blocks, then a 1 for every chunk staged."""
     _check_cuda(eng, origin, direction, t_limit)
     stats_ptr = _check_stats(eng, origin, stats)
     fn = _lib().walk_closest
@@ -530,12 +533,12 @@ def any_plain(eng, origin, direction, t_limit):
     return out
 
 
-# --- the any-hit kernels' segment cull, as a plain model (tests, chip_smoke.py) ---
+# --- the kernels' segment cull, as a plain model (tests, chip_smoke.py) ---
 
 
 def lane_enters(lo, hi, o, d, tw):
     """``[n, E]``: whether each ray ``o, d [n, 3]`` meets each box ``lo, hi
-    [E, 3]`` within ``[0, tw*WIN_MUL + WIN_ADD]`` (``tw [n]``), the any-hit
+    [E, 3]`` within ``[0, tw*WIN_MUL + WIN_ADD]`` (``tw [n]``), the walk
     kernels' per-lane segment test (``csrc/segment.cuh`` enters) in its
     expressions and order: fmin/fmax ignore a NaN as fminf/fmaxf do, an
     inverted box is never entered, and on an axis where the direction is 0
@@ -567,6 +570,30 @@ def chunk_boxes(eng):
     return lo, hi
 
 
+def culled_closest_plain(eng, origin, direction, t_limit):
+    """The closest hit through the kernels' segment cull at its tightest: a
+    lane tests a chunk's slots only if `lane_enters` passes its box within
+    ``min(t*, t_limit)``, t* the lane's plain closest t (the least window a
+    kernel lane can reach). Equal to `closest_plain` when the cull is
+    exact."""
+    n, dev = origin.shape[0], origin.device
+    lo, hi = chunk_boxes(eng)
+    t_star, _ = closest_plain(eng, origin, direction, t_limit)
+    planes, live, steps = _live_steps(eng, origin, direction, t_limit)
+    oct_live = _block_octant(direction)[live]
+    rank = _rank_table(eng, dev) if steps else None
+    best_t = torch.full((n,), _BIG, dtype=origin.dtype, device=dev)
+    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for o, d, tl, s in steps:
+        rows = live[s : s + o.shape[0]]
+        enter = lane_enters(lo, hi, o, d, torch.minimum(t_star[rows], tl[:, 0]))
+        tm = torch.where(enter.repeat_interleave(CH_W, dim=1), _candidate_t(planes, o, d, tl), _BIG)
+        bt, first = _closest_columns(tm, rank, oct_live[s : s + o.shape[0]])
+        best_t[rows] = bt
+        slot[rows] = torch.where(bt < _BIG, first, -1).to(torch.int32)
+    return best_t, slot
+
+
 def culled_any_plain(eng, origin, direction, t_limit):
     """The any hit through the kernels' segment cull: a lane tests a
     chunk's slots only if `lane_enters` passes its box within the lane's
@@ -578,6 +605,63 @@ def culled_any_plain(eng, origin, direction, t_limit):
         hits = _shadow_hits(planes, o, d, tl).view(o.shape[0], -1, CH_W).any(dim=2)
         out[live[s : s + o.shape[0]]] = (hits & lane_enters(lo, hi, o, d, tl[:, 0])).any(dim=1)
     return out
+
+
+def tie_soup(seed: int = 0, n: int = 2047):
+    """A soup and rays on which every winner ties (tests, chip_smoke.py):
+    ``n`` small triangles scattered in [-1, 1]^3 outside the ball of radius
+    0.25, then triangle T (index ``n``) at the origin; 1,024 rays in eight
+    blocks of 128, block b's directions in octant b (bit2 x<0, bit1 y<0,
+    bit0 z<0) and at least 17 degrees off T's plane, each from 0.1 before a
+    point inside T, so that T is every ray's closest hit. Returns
+    (positions [n+1, 3, 3], origin [1024, 3], direction [1024, 3]), float32
+    NumPy."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.0, 1.0, (4 * n, 3))
+    c = c[np.linalg.norm(c, axis=1) > 0.25][:n]
+    tri_t = np.array([[-0.05, -0.04, 0.01], [0.05, -0.03, -0.02], [0.0, 0.06, 0.02]])
+    pos = np.concatenate([c[:, None, :] + rng.normal(scale=0.01, size=(n, 3, 3)), tri_t[None]])
+    normal = np.cross(tri_t[1] - tri_t[0], tri_t[2] - tri_t[0])
+    normal /= np.linalg.norm(normal)
+    sign = 1.0 - 2.0 * ((np.arange(8)[:, None] >> np.array([2, 1, 0])) & 1)
+    d = []
+    for b in range(8):
+        v = np.abs(rng.normal(size=(1024, 3))) * sign[b]
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        d.append(v[np.abs(v @ normal) > 0.3][:SBLK])
+    d = np.concatenate(d)
+    target = rng.dirichlet([4.0, 4.0, 4.0], size=d.shape[0]) @ tri_t
+    return pos.astype(np.float32), (target - 0.1 * d).astype(np.float32), d.astype(np.float32)
+
+
+def tie_tables(positions, index: int):
+    """`pack_walk` tables of the soup ``positions`` with triangle ``index``
+    also copied into the first two pad slots of another chunk B (tests,
+    chip_smoke.py): one triangle in two chunks and twice within one. B is,
+    among the chunks with two pad slots, one that the octant orders put
+    before the triangle's own chunk A about as often as after it; B's box
+    grows to hold A's in every octant's columns, so the gates stay exact.
+    Returns (tables, the three slots that hold the triangle)."""
+    pos = np.asarray(positions, np.float32)
+    tables = pack_walk(tri_mod.precompute(pos), None, None, pos)
+    aux, cb, orders = tables["aux"], tables["cb_oct"], tables["ord_oct"]
+    k = aux.shape[0] // CH_W
+    real = (aux[:, :12] != 0).any(axis=1).reshape(k, CH_W)
+    src = int(np.flatnonzero((tables["origmap"] == index) & real.reshape(-1))[0])
+    a = src // CH_W
+    at = np.argsort(orders[:, :k], axis=1)  # [8, k] position of each chunk
+    before = (at < at[:, a : a + 1]).sum(axis=0)  # octants that visit c before A
+    cand = np.flatnonzero(real.sum(axis=1) <= CH_W - 2)
+    cand = cand[cand != a]
+    b = int(cand[np.argmin(np.abs(before[cand] - 4))])
+    dst = [b * CH_W + int(real[b].sum()) + i for i in range(2)]
+    aux[dst] = aux[src]
+    tables["origmap"][dst] = tables["origmap"][src]
+    for o in range(8):
+        pa, pb = at[o, a], at[o, b]
+        cb[o, 0:3, pb] = np.minimum(cb[o, 0:3, pb], cb[o, 0:3, pa])
+        cb[o, 3:6, pb] = np.maximum(cb[o, 3:6, pb], cb[o, 3:6, pa])
+    return tables, (src, *dst)
 
 
 # --- public queries (the JAX walk_* contracts) ---
@@ -632,14 +716,13 @@ def walk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") ->
     """Gate economics of one ``query`` ("closest" or "any") on the card, with
     the public query's ray order (the closest hit's coherence sort; any hit
     unsorted): ``blocks`` (with a live lane), ``visits`` (gate survivors a
-    block admitted by its live window; the closest hit stages each),
-    ``skipped`` (gated survivors the live window skipped), ``lane_visits``
-    (lanes testing a staged chunk: live, and for the any hit those whose
-    own segment test entered it and that were not yet occluded),
-    ``staged`` (chunks staged), summed over blocks, and ``chunks``
-    (distinct chunks staged); the any hit adds ``pairs``, the (lane, real
-    triangle) pair tests. A port of the JAX ``walk_stats``; CUDA tensors
-    only."""
+    block admitted by its live window), ``skipped`` (gated survivors the
+    live window skipped), ``lane_visits`` (lanes testing a staged chunk:
+    those whose own segment test entered it, and for the any hit that were
+    not yet occluded), ``staged`` (chunks staged), ``pairs`` (the (lane,
+    real triangle) pair tests), summed over blocks, and ``chunks``
+    (distinct chunks staged). A port of the JAX ``walk_stats``; CUDA
+    tensors only."""
     o, d, tl = _f32(origin, direction, t_limit)
     stats = torch.zeros(NSTATS + num_chunks(eng), dtype=torch.int64, device=o.device)
     if query == "closest":
@@ -648,8 +731,5 @@ def walk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") ->
     else:
         any_cuda(eng, o, d, _exit_clamp(eng, o, d, tl).contiguous(), stats=stats)
     blocks, visits, skipped, lane_visits, staged, pairs = (int(x) for x in stats[:NSTATS].cpu())
-    out = {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
-           "staged": staged, "chunks": int(stats[NSTATS:].sum())}
-    if query != "closest":
-        out["pairs"] = pairs
-    return out
+    return {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
+            "staged": staged, "pairs": pairs, "chunks": int(stats[NSTATS:].sum())}

@@ -190,9 +190,9 @@ def test_walk_kernel_rejects_bad_inputs(walk_case):
 def test_walk_stats_counts(walk_case):
     """The counters of both walk kernels: live blocks, visits, lanes testing
     a staged chunk (at most 128 per staging), staged and distinct chunks;
-    the any hit stages at most its visits and tests at least one pair per
-    occluded lane; the results of a counted launch equal an uncounted
-    one's."""
+    both stage at most their visits (the lanes' segment cull) and test at
+    least one pair per hit lane; the results of a counted launch equal an
+    uncounted one's."""
     eng, (o, d, tl), (o_s, d_s, tl_s) = walk_case
     k = walk.num_chunks(eng)
     for query in ("closest", "any"):
@@ -200,10 +200,10 @@ def test_walk_stats_counts(walk_case):
         assert 0 < s["blocks"] <= 8 and 0 < s["chunks"] <= k
         assert s["staged"] >= s["chunks"] and 0 < s["lane_visits"] <= 128 * s["staged"]
         if query == "closest":
-            assert s["staged"] == s["visits"] and "pairs" not in s
+            hits = int((walk.walk_closest_hit_shade(eng, o, d, tl)[0] >= 0).sum())
         else:
-            occluded = int(walk.walk_any_hit(eng, o, d, tl).sum())
-            assert s["staged"] <= s["visits"] and occluded <= s["pairs"] <= 128 * s["lane_visits"]
+            hits = int(walk.walk_any_hit(eng, o, d, tl).sum())
+        assert s["staged"] <= s["visits"] and hits <= s["pairs"] <= 128 * s["lane_visits"]
     stats = torch.zeros(walk.NSTATS + k, dtype=torch.int64, device=o.device)
     assert all(torch.equal(a, b) for a, b in zip(walk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats),
                                                  walk.closest_cuda(eng, o_s, d_s, tl_s)))
@@ -307,24 +307,25 @@ def test_two_level_kernel_rejects_bad_inputs(iwalk_case):
 
 def test_two_level_stats_counts(iwalk_case):
     """The counters of both two-level kernels: live blocks, gate entries
-    visited, staged chunks (one per visit for vwalk, the instance's range
-    for iwalk), lanes per staging; a counted launch's results equal an
-    uncounted one's."""
+    visited, staged chunks (vwalk: at most one per visit, the lanes'
+    segment cull; iwalk: the instance's range), lanes per staging; a
+    counted launch's results equal an uncounted one's."""
     eng, (o, d, tl), (o_s, d_s, tl_s) = iwalk_case
     vwalk = iwalk.engine_name(eng) == "vwalk"
     for query in ("closest", "any"):
         s = iwalk.iwalk_stats(eng, o, d, tl, query=query)
         assert 0 < s["blocks"] <= 8 and 0 < s["entries"] <= eng["gates"]
         assert 0 < s["lane_visits"] <= 128 * s["staged"]
-        if vwalk and query == "any":  # the segment cull stages what a lane enters
-            occluded = int(iwalk.iwalk_any_hit(eng, o, d, tl).sum())
+        if vwalk:  # the segment cull stages what a lane enters
+            if query == "closest":
+                hits = int((iwalk.iwalk_closest_hit_shade(eng, o, d, tl)[0] >= 0).sum())
+            else:
+                hits = int(iwalk.iwalk_any_hit(eng, o, d, tl).sum())
             assert s["entries"] <= s["staged"] <= s["visits"]
-            assert occluded <= s["pairs"] <= 128 * s["lane_visits"]
+            assert hits <= s["pairs"] <= 128 * s["lane_visits"]
         else:
             assert s["visits"] >= s["entries"] and s["staged"] >= s["visits"]
             assert "pairs" not in s
-            if vwalk:
-                assert s["staged"] == s["visits"]
     stats = torch.zeros(walk.NSTATS + iwalk._num_flags(eng), dtype=torch.int64, device=o.device)
     assert all(torch.equal(a, b) for a, b in zip(iwalk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats),
                                                  iwalk.closest_cuda(eng, o_s, d_s, tl_s)))
@@ -364,8 +365,8 @@ def _edge_rays(eng, lo, hi, kt, ks, o, d, tl, seed):
 
 
 def test_walk_any_edge_cases_equal_plain(walk_case):
-    """The any-hit kernel's segment cull on its edge cases equals the
-    ungated plain version and the plain model of the cull."""
+    """The walk kernels' segment cull on its edge cases: both queries equal
+    the ungated plain versions and the plain models of the cull."""
     eng, _, (o, d, tl) = walk_case
     kt, ks = walk.closest_cuda(eng, o, d, tl)
     eo, ed, et = _edge_rays(eng, *walk.chunk_boxes(eng), kt, ks, o, d, tl, 17)
@@ -374,6 +375,9 @@ def test_walk_any_edge_cases_equal_plain(walk_case):
     p = walk.any_plain(eng, eo, ed, etc)
     assert 0.1 < p.float().mean() < 0.9
     assert torch.equal(k, p) and torch.equal(walk.culled_any_plain(eng, eo, ed, etc), p)
+    kc, pc = walk.closest_cuda(eng, eo, ed, etc), walk.closest_plain(eng, eo, ed, etc)
+    assert all(torch.equal(a, b) for a, b in zip(kc, pc))
+    assert all(torch.equal(a, b) for a, b in zip(walk.culled_closest_plain(eng, eo, ed, etc), pc))
 
 
 def test_two_level_any_edge_cases_equal_plain(iwalk_case):
@@ -391,8 +395,34 @@ def test_two_level_any_edge_cases_equal_plain(iwalk_case):
     p = iwalk.any_plain(eng, eo, ed, etc)
     assert 0.1 < p.float().mean() < 0.9
     assert torch.equal(k, p)
+    kc, pc = iwalk.closest_cuda(eng, eo, ed, etc), iwalk.closest_plain(eng, eo, ed, etc)
+    assert all(torch.equal(a, b) for a, b in zip(kc, pc))
     if vwalk:
         assert torch.equal(iwalk.culled_any_plain(eng, eo, ed, etc), p)
+        assert all(torch.equal(a, b) for a, b in zip(iwalk.culled_closest_plain(eng, eo, ed, etc), pc))
+
+
+def test_walk_closest_ties_equal_plain(cuda):
+    """``walk.tie_soup``: every ray's closest hit is one triangle held in
+    two chunks of the walk tables (twice in one), and in two coincident
+    instances of a model that holds it twice (vwalk). The kernels pick the
+    plain versions' winner (the first chunk in the block's octant order,
+    then the lowest lane, as tests/test_torch_walk_cull.py holds) and t."""
+    pos, o, d = walk.tie_soup()
+    tables, slots = walk.tie_tables(pos, pos.shape[0] - 1)
+    eng = {k: torch.from_numpy(v).to(cuda) for k, v in tables.items()}
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    tl = torch.full((o.shape[0],), float("inf"), device=cuda)
+    k, p = walk.closest_cuda(eng, o, d, tl), walk.closest_plain(eng, o, d, tl)
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert set(k[1].tolist()) == set(slots[:2])
+    m = rigid_transform(rotation_y(0.7), (0.5, 0.2, -0.1))
+    veng = iwalk.upload(iwalk.pack_vwalk([Model(None, matrices=[m, m],
+                                                positions=np.concatenate([pos, pos[-1:]]))]), cuda)
+    rot, tr = torch.from_numpy(m[:, :3]).to(cuda), torch.from_numpy(m[:, 3]).to(cuda)
+    ow, dw = (o @ rot.T + tr).contiguous(), (d @ rot.T).contiguous()
+    k, p = iwalk.closest_cuda(veng, ow, dw, tl), iwalk.closest_plain(veng, ow, dw, tl)
+    assert all(torch.equal(a, b) for a, b in zip(k, p)) and bool((k[1] >= 0).all())
 
 
 def test_stack_bvh_on_card_equals_cpu(cuda):

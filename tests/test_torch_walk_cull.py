@@ -1,5 +1,5 @@
-"""The per-lane segment cull of the walk and vwalk any-hit kernels
-(``csrc/segment.cuh`` enters, used by ``csrc/walk_common.cuh`` any_walk),
+"""The per-lane segment cull of the walk and vwalk kernels
+(``csrc/segment.cuh`` enters, used by ``csrc/walk_common.cuh`` lane_walk),
 through its plain torch model (``trace/walk.py`` lane_enters, the kernel's
 float expressions in its order), on the walk tables of
 ``dragon_scene(nu=96, nv=64, env_h=64)`` (24,588 triangles) and on
@@ -7,9 +7,15 @@ float expressions in its order), on the walk tables of
 
 The cull must be exact: every (ray, chunk) pair that holds a hit in
 (EPSILON, t_limit) passes the lane's test, so the culled any hit equals the
-ungated plain one on every ray. Held on random rays, shadow-shaped rays
+ungated plain one on every ray; and the closest hit, culled at the least
+window a kernel lane can reach (its closest t), equals the ungated plain
+one bit for bit, ties included. Held on random rays, shadow-shaped rays
 toward a light, axis-parallel rays, rays along chunk box faces and from
 origins on them, and limits one ulp either side of each ray's closest t.
+The tie rule (minimum t, then the first chunk in the block's octant order,
+then the lowest lane) is held on a soup with one triangle in two chunks and
+twice within one, and on two coincident instances of a model that holds a
+triangle twice.
 """
 
 import numpy as np
@@ -158,3 +164,67 @@ def test_lane_enters_edge_cases():
     assert e[2, 0]  # origin on the face, zero window
     # window end tw*1.00002 + 1e-5 = 1.90004... < 2: the box starts at t = 2
     assert not e[3, 0] and walk.lane_enters(lo, hi, o[3:], d[3:], torch.tensor([2.0]))[0, 0]
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("kind", ["walk", "vwalk"])
+def test_closest_cull_is_exact(engines, kind, name):
+    eng, lo, hi, light = engines[kind]
+    mod = walk if kind == "walk" else iwalk
+    o, d, tl = _rays(kind, eng, lo, hi, light, name)
+    tlc = walk._exit_clamp(eng, o, d, tl)
+    plain = mod.closest_plain(eng, o, d, tlc)
+    culled = mod.culled_closest_plain(eng, o, d, tlc)
+    assert all(torch.equal(a, b) for a, b in zip(culled, plain)), (kind, name)
+    assert int((plain[1] >= 0).sum()) > 0
+    # the cull does cut: most live (ray, entry) pairs are not entered
+    o_, d_, tl_ = walk._lanes(o, d, tlc)
+    live = tl_ > 0
+    window = torch.minimum(plain[0], tl_)
+    assert walk.lane_enters(lo, hi, o_, d_, window)[live].float().mean() < 0.5
+
+
+def test_closest_tie_rule():
+    """Every ray's closest hit is the one triangle T, which lies in two
+    chunks (and twice within one), or in two coincident instances' virtual
+    chunks: the plain versions, and the culled ones, take the first chunk
+    in the block's octant order, then the lowest lane, at T's t."""
+    pos, o, d = walk.tie_soup()
+    index = pos.shape[0] - 1
+    tables, slots = walk.tie_tables(pos, index)
+    eng = {k: torch.from_numpy(v) for k, v in tables.items()}
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    tl = torch.full((o.shape[0],), float("inf"))
+    t, slot = walk.closest_plain(eng, o, d, tl)
+    cand = torch.tensor(slots)
+    k = walk.num_chunks(eng)
+    at = torch.argsort(eng["ord_oct"][:, :k].long(), dim=1)  # position of each chunk
+    rank = at[walk._block_octant(d)][:, cand // walk.CH_W] * walk.CH_W + cand % walk.CH_W
+    want = cand[rank.argmin(dim=1)]
+    assert torch.equal(slot, want.to(torch.int32))
+    assert set(want.tolist()) == {slots[0], slots[1]}  # each chunk wins some octants
+    assert torch.equal(t, walk._candidate_t(eng["aux"][slots[0]:slots[0] + 1, :12], o, d,
+                                            tl[:, None])[:, 0])
+    assert all(torch.equal(a, b) for a, b in zip(walk.culled_closest_plain(eng, o, d, tl), (t, slot)))
+
+    # two coincident instances of the soup with T twice
+    m = rigid_transform(rotation_y(0.7), (0.5, 0.2, -0.1))
+    veng = iwalk.upload(iwalk.pack_vwalk([TModel(None, matrices=[m, m],
+                                                 positions=np.concatenate([pos, pos[-1:]]))]), "cpu")
+    rot, tr = torch.from_numpy(m[:, :3]), torch.from_numpy(m[:, 3])
+    ow, dw = o @ rot.T + tr, d @ rot.T
+    vt, vslot, vinst = iwalk.closest_plain(veng, ow, dw, tl)
+    g = veng["gates"]
+    vi, vg = veng["vinst"][:g].long(), veng["vglob"][:g].long()
+    copies = ((veng["origmap"] >= index) & (veng["aux"][:, :12] != 0).any(1)).nonzero()[:, 0]
+    v_of = [(v, s) for v in range(g) for s in copies.tolist() if vg[v] == s // walk.CH_W]
+    cv = torch.tensor([v for v, _ in v_of])
+    cs = torch.tensor([s for _, s in v_of])
+    at = torch.argsort(veng["ord_oct"][:, :g].long(), dim=1)
+    rank = at[walk._block_octant(dw)][:, cv] * walk.CH_W + cs % walk.CH_W
+    first = rank.argmin(dim=1)
+    assert torch.equal(vslot, cs[first].to(torch.int32)) and torch.equal(vinst, vi[cv[first]].to(torch.int32))
+    assert (vslot == cs.min()).all()  # T's lower lane in its object chunk
+    assert (vt > 0.09).all() and (vt < 0.11).all()
+    assert all(torch.equal(a, b) for a, b in zip(iwalk.culled_closest_plain(veng, ow, dw, tl),
+                                                 (vt, vslot, vinst)))
