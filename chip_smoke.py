@@ -11,11 +11,20 @@ Phases (any failure raises and the script exits non-zero without the final
    of phases 10 and 16) from ``path_tracer_tpu_torch/csrc``, one nvcc
    each, started together; print ptxas registers and spills;
 3. dense kernels against their plain torch versions on ``mesh_scene``'s
-   world table (65,536 camera + 65,536 random rays, with inf / 0 / NaN
-   lanes), plus a float64 run of the plain closest hit as a precision
-   oracle; then both compared again, and timed, at the render's shapes: the
-   world query over 589,824 camera rays, the lights pretest over 589,824
-   rays, the any-hit over 1,179,648 shadow rays;
+   world table (5,132 rows, 41 chunks; 65,536 camera + 65,536 random rays,
+   with inf / 0 / NaN lanes), plus a float64 run of the plain closest hit
+   as a precision oracle; the chunk cull's edge cases for both queries
+   (axis-parallel rays, rays from and along chunk box faces, limits one ulp
+   either side of a closest t) and the closest hit on the tie set
+   (``dense_cuda.tie_soup``: one triangle in two chunks and twice within
+   one); then both compared again, and timed, at the render's shapes: the
+   world query over 589,824 camera rays and 589,824 bounce rays in random
+   directions from the camera hits, the lights pretest over 589,824 rays,
+   the any-hit over 1,179,648 shadow rays, with chunks entered per lane,
+   chunks staged per block, entering lanes per staged chunk and the tested
+   against the needed pairs; with ``--parent``, each of these queries
+   beside the kernels built from each directory given (other, this, this,
+   other);
 4. the offline render of ``mesh_scene`` at 1024x576, 8 spp, 64 bounces
    through ``path_tracer_tpu_torch.cli``, with the kernels' launch counts;
 5. ``cornell_specular`` at 32x32, 4 spp rendered on the CPU (plain
@@ -98,16 +107,18 @@ Phases (any failure raises and the script exits non-zero without the final
 
 Phases run in the order 1-9, 16-21, 10-15. Each render's launch counts
 (and the probes') are set to 0 just before it and read just after. The
-walk and vwalk closest hits are held to winners and t equal to the plain
-versions on every ray of every set (their cull is exact and their
-arithmetic the plain versions'); the other kernels' winners on 99.99%.
+dense closest hit is held to winners and every output column equal to the
+plain version on every ray of every set and shape, and the walk and vwalk
+closest hits to winners and t (their cull is exact and their arithmetic
+the plain versions'); every any-hit to every flag; the other kernels'
+winners on 99.99%.
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the query must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (H100 SXM data sheet), counting the ray x
-triangle pairs these rays need: every row for a live lane of a dense closest
-hit, rows up to the first hit for a dense shadow test. For a walk query the
-need is set by each ray's own slab test against every chunk box, not by the
-kernel's block gate: a live closest-hit ray tests the real (not pad)
+triangle pairs these rays need. For a dense or walk query (a dense
+table's chunks: its runs of 128 rows, ``cab``) the need is set by each
+ray's own slab test against every chunk box, not by the kernel's block
+gate: a live closest-hit ray tests the real (not pad)
 triangles of every chunk it enters before its own closest hit (or its
 limit on a miss); a live shadow ray with an occluder tests the real
 triangles of the one chunk that holds its closest occluder, one without
@@ -134,6 +145,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,7 +163,6 @@ CAMERA_GRID = 256  # 256 x 256 = 65,536 camera rays
 N_RANDOM = 65536
 WINNER_AGREE = 0.9999  # kernel vs plain, same f32 expressions
 ORACLE_AGREE = 0.999  # kernel vs the float64 plain version
-REL_TOL = 1e-6  # t/u/v/normal: |a - b| <= REL_TOL * max(|b|, 1)
 MEAN_TOL = 0.01  # cross-backend image means
 PLAIN_RAYS = 16384  # walk plain versions at the render's shapes
 PEAK_FLOPS = 67e12  # H100 SXM float32, outside the tensor cores
@@ -223,10 +234,6 @@ def bound_ms(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def close_rel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a - b).abs() <= REL_TOL * torch.clamp(b.abs(), min=1.0)
-
-
 def camera_rays(cam, w, h, dev):
     """Pixel-centre camera rays of a w x h film."""
     from path_tracer_tpu_torch.camera import ray_directions
@@ -270,69 +277,127 @@ def light_targets(rng, scene, n, dev):
 # --- the dense kernels (mesh_scene) ---
 
 
-def check_closest(label, k, p, o, d) -> float:
+def show_rays(label, bad, o, d, t_limit, k_cols, p_cols) -> None:
+    """Print up to 5 rays of ``bad`` (a mask) with the kernel's and the
+    plain version's answers (tuples of columns)."""
+    for i in bad.nonzero()[:5, 0].tolist():
+        print(f"  {label} ray {i}: origin {o[i].tolist()}, direction {d[i].tolist()}, "
+              f"t_limit {float(t_limit[i])!r}, kernel {[float(c[i]) for c in k_cols]}, "
+              f"plain {[float(c[i]) for c in p_cols]}")
+
+
+def check_closest(label, k, p, o, d, t_limit) -> float:
     """Kernel rows ``k`` against plain rows ``p`` (``[N, 8]``: t, idx, u, v,
-    normal xyz, model) on the same rays; returns max |k - p| over the
-    lanes whose winners agree."""
-    same = k[:, 1] == p[:, 1]
-    agree = same.float().mean().item()
-    hit = same & (p[:, 1] >= 0)
-    ok_vals = torch.stack([close_rel(k[:, c], p[:, c]) for c in (0, 2, 3, 4, 5, 6)], 1).all(1)
-    ok_model = k[:, 7] == p[:, 7]
+    normal xyz, model) on the same rays: winners, and every column of every
+    ray but a NaN ray's (NaN in both), equal; prints the rays that differ.
+    Returns max |k - p| over the rays with finite inputs."""
     nan_lane = ~(torch.isfinite(o).all(1) & torch.isfinite(d).all(1))
-    cmp = same & ~nan_lane  # a NaN ray's epilogue values are NaN in both
-    err = (k[cmp] - p[cmp]).abs().max().item()
-    print(f"closest {label}: {k.shape[0]} rays, winners equal to plain {agree:.6f}, "
-          f"t/u/v/normal within {REL_TOL:g} on {ok_vals[hit].float().mean().item():.6f} "
-          f"of common hits, model equal {ok_model[same].float().mean().item():.6f}, "
+    same = k[:, 1] == p[:, 1]
+    bad = ~same | (~nan_lane & ~(k == p).all(1))
+    cmp = ~nan_lane
+    err = (k[cmp] - p[cmp]).abs().max().item() if bool(cmp.any()) else 0.0
+    print(f"closest {label}: {k.shape[0]} rays, winners equal to plain "
+          f"{same.float().mean().item():.6f}, rays differing in any column {int(bad.sum())}, "
           f"max |kernel - plain| {err:.3g}, hits {(p[:, 1] >= 0).float().mean().item():.3f}")
-    check(agree >= WINNER_AGREE, (label, agree))
-    check(bool(ok_vals[hit].all()) and bool(ok_model[same].all()),
-          f"{label}: t/u/v/normal/model of common winners")
+    show_rays(f"closest {label}", bad, o, d, t_limit, (k[:, 1], k[:, 0]), (p[:, 1], p[:, 0]))
+    check(not bool(bad.any()), (label, int(bad.sum())))
     check(bool((k[nan_lane, 1] == -1).all()), f"{label}: NaN lanes must report no hit")
     return err
 
 
 def check_any(label, k, p, o, d, t_limit) -> float:
     """Kernel any-hit flags against plain ones on lanes with t_limit > 0;
-    returns max |k - p| over those lanes."""
+    prints the rays that differ; returns max |k - p| over those lanes."""
     pos = t_limit > 0
     # counted, not averaged: a float mean of all-equal flags need not be 1.0
-    differ = int((k[pos] != p[pos]).sum())
-    err = (k[pos].float() - p[pos].float()).abs().max().item()
+    bad = pos & (k != p)
+    differ = int(bad.sum())
+    err = (k[pos].float() - p[pos].float()).abs().max().item() if bool(pos.any()) else 0.0
     nan_lane = ~(torch.isfinite(o).all(1) & torch.isfinite(d).all(1))
     print(f"any {label}: {k.shape[0]} rays, flags differing from plain on the "
           f"{int(pos.sum())} t_limit > 0 lanes: {differ}, occluded "
           f"{p[pos].float().mean().item():.3f}, NaN lanes flagged {int(k[nan_lane].sum())}")
+    show_rays(f"any {label}", bad, o, d, t_limit, (k,), (p,))
     check(differ == 0, (label, differ))
     check(not bool(k[nan_lane].any()), f"{label}: NaN lanes must report no hit")
     return err
 
 
-def dense_pairs(dc, key, aux, o, d, t_limit) -> int:
-    """Ray x row pairs the dense query needs on these rays: a live lane of
-    the closest hit tests every row; a live lane of the shadow test tests
-    rows up to its first hit in table order (all if none); dead lanes none."""
-    live = ((t_limit > 0) & torch.isfinite(o).all(1) & torch.isfinite(d).all(1)).nonzero()[:, 0]
-    nt = aux.shape[0]
-    if key == "closest":
-        return live.numel() * nt
-    total, step = 0, max(1, (1 << 25) // nt)
-    for s in range(0, live.numel(), step):
-        r = live[s : s + step]
-        det, td, ud, vd = dc._search_terms(aux, *dc._ray_cols(o[r], d[r]))
-        hit = (dc._same(td - det * dc.EPSILON, det * t_limit[r, None] - td)
-               & dc._same(ud, det - ud) & dc._same(vd, det - ud - vd) & (det != 0.0))
-        total += int(torch.where(hit.any(1), hit.to(torch.uint8).argmax(1) + 1, nt).sum())
-    return total
+def dense_need(dc, walk, eng, o, d, t_limit, t_stop, stop_chunk=None):
+    """(ray x row pairs, distinct chunks, their rows) that a dense query on
+    these rays needs: `needed_work` over the table's chunk boxes (``cab``),
+    the rows of each chunk a ray's own slab test enters before ``t_stop``;
+    with ``stop_chunk`` (a shadow query) the chunk of each ray's closest
+    occluder alone."""
+    cab, t = eng["cab"], eng["aux"].shape[0]
+    span = torch.clamp(t - torch.arange(cab.shape[0], device=cab.device) * dc.CH, max=dc.CH)
+    pairs, used, _ = needed_work(walk, cab[:, 0:3], cab[:, 3:6], span, o, d, t_limit, t_stop,
+                                 stop_chunk)
+    return pairs, int(used.sum()), int(span[used].sum())
 
 
-def phase_dense(dc, scene, cam, dev, card):
-    """Phase 3: kernel vs plain vs float64 oracle on a mixed ray set, then
-    kernel vs plain again, and both timed, at the render's shapes."""
-    aux = scene["tri"]["dense"]["aux"]
-    light_aux = scene["light"]["dense"]["aux"]
+def dense_bound(n, key, need):
+    """Least time of one dense query on n rays from `dense_need`'s count:
+    the needed pairs' float32 operations; the rays in and out, the needed
+    chunks' rows (closest: the 96-byte rows, shading included; any hit: the
+    48-byte planes) and boxes read once."""
+    pairs, chunks, rows = need
+    out_bytes, row_bytes = (32, 96) if key == "closest" else (1, 48)
+    return bound_ms(pairs * FLOPS[key], n * (28 + out_bytes) + rows * row_bytes + chunks * 24)
+
+
+def dense_ties(dc, dev) -> float:
+    """The tie set (`dense_cuda.tie_soup`: one triangle in chunks 7 and 15,
+    twice in chunk 7, every ray's closest hit): kernel against plain on
+    every ray, the lowest index winning."""
+    from path_tracer_tpu_torch.scene import triangle as tri_mod
+
+    pos, o, d = dc.tie_soup()
+    eng = {"aux": torch.from_numpy(dc.pack_dense_aux(tri_mod.precompute(pos))).to(dev),
+           "cab": torch.from_numpy(dc.pack_dense_cab(pos)).to(dev)}
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    tl = torch.full((o.shape[0],), 3.0e38, device=dev)
+    p = dc.closest_plain(eng["aux"], o, d, tl)
+    check(bool((p[:, 1] == dc.TIE_ROWS[0]).all()), "dense tie set: the lowest index wins")
+    return check_closest("tie set", dc.closest_cuda(eng, o, d, tl), p, o, d, tl)
+
+
+def time_dense_against(label, other, key, eng, this, rays, reps, card):
+    """Time another tree's dense kernel (``other``, `start_other_builds`)
+    against this tree's (``this()``) on the same rays, in turns (other,
+    this, this, other); their outputs must be equal (closest: on the rays
+    with finite inputs)."""
+    qo, qd, qt = rays
+    n, dev = qo.shape[0], qo.device
+    out = (torch.empty((n, 8), dtype=torch.float32, device=dev) if key == "closest"
+           else torch.empty(n, dtype=torch.bool, device=dev))
+    fn = other.dense_closest if key == "closest" else other.dense_any
+    aux, cab = eng["aux"], eng["cab"]
+
+    def run_other():
+        tables = (aux.data_ptr(), cab.data_ptr()) if other.dense_cab else (aux.data_ptr(),)
+        stats = (None,) if other.dense_cab else ()
+        err = fn(dev.index, *tables, aux.shape[0], qo.data_ptr(), qd.data_ptr(), qt.data_ptr(), n,
+                 out.data_ptr(), *stats, torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"{label}: cudaError {err}")
+        return out
+
+    finite = torch.isfinite(qo).all(1) & torch.isfinite(qd).all(1)
+    same = ((lambda a, b: torch.equal(a[finite], b[finite])) if key == "closest" else torch.equal)
+    turns(f"{label} {key}, {n} rays", run_other, this, reps, card, same)
+
+
+def phase_dense(dc, walk, scene, cam, dev, card, others=()):
+    """Phase 3: kernel vs plain vs float64 oracle on a mixed ray set, the
+    cull's edge cases and the tie set; then kernel vs plain again, and both
+    timed, at the render's shapes, with the cull's counters and the tested
+    against the needed pairs; each of ``others`` (other trees' libraries)
+    has its dense kernels timed beside this one's at every shape."""
+    eng, leng = scene["tri"]["dense"], scene["light"]["dense"]
+    aux = eng["aux"]
     rng = np.random.default_rng(1234)
+    print(f"dense table: {aux.shape[0]} rows, {eng['cab'].shape[0]} chunks of {dc.CH}; lights: "
+          f"{leng['aux'].shape[0]} rows, {leng['cab'].shape[0]} chunk")
 
     # 65,536 camera rays + 65,536 random rays inside the Cornell box
     o_cam, d_cam = camera_rays(cam, CAMERA_GRID, CAMERA_GRID, dev)
@@ -344,9 +409,9 @@ def phase_dense(dc, scene, cam, dev, card):
     lanes = edge_lanes(rng, o, d, tl, dev)
     tlc = torch.clamp(tl, max=3.0e38)
 
-    k = dc.closest_cuda(aux, o, d, tlc)
+    k = dc.closest_cuda(eng, o, d, tlc)
     p = dc.closest_plain(aux, o, d, tlc)
-    errs = {"closest": check_closest("mixed", k, p, o, d)}
+    errs = {"closest": check_closest("mixed", k, p, o, d, tlc)}
     oracle = dc.closest_plain(aux.double(), o.double(), d.double(), tlc.double())
     oracle_agree = (k[:, 1].double() == oracle[:, 1]).float().mean().item()
     print(f"closest mixed: winners equal to the float64 oracle {oracle_agree:.6f}")
@@ -358,49 +423,84 @@ def phase_dense(dc, scene, cam, dev, card):
     tl_any = torch.where(torch.isinf(tl), t_hit * scale, tl)
     tl_any[torch.as_tensor(lanes[1152:1664], device=dev)] = math.inf
     tl_anyc = torch.clamp(tl_any, max=3.0e38)
-    ka = dc.any_cuda(aux, o, d, tl_anyc)
+    ka = dc.any_cuda(eng, o, d, tl_anyc)
     pa = dc.any_plain(aux, o, d, tl_anyc)
     errs["any"] = check_any("mixed", ka, pa, o, d, tl_any)
 
+    # the cull's edge cases (axis-parallel rays, rays from and along chunk
+    # box faces, limits one ulp either side of a closest t) and the tie set
+    lo, hi = eng["cab"][:, 0:3], eng["cab"][:, 3:6]
+    finite = torch.isfinite(o).all(1) & torch.isfinite(d).all(1)
+    ks = torch.where(finite & (tlc > 0), k[:, 1], -1.0).long()
+    eo, ed, et = edge_rays(rng, lo, hi, lo.amin(0), hi.amax(0), o, d, k[:, 0], ks, dev)
+    errs["any"] = max(errs["any"], check_any(
+        "edge cases", dc.any_cuda(eng, eo, ed, et), dc.any_plain(aux, eo, ed, et), eo, ed, et))
+    errs["closest"] = max(errs["closest"], check_closest(
+        "edge cases", dc.closest_cuda(eng, eo, ed, et), dc.closest_plain(aux, eo, ed, et), eo, ed,
+        et))
+    errs["closest"] = max(errs["closest"], dense_ties(dc, dev))
+
     # The render's shapes: the world query over the whole film's camera
-    # rays, the lights pretest over as many rays from the surface (half
-    # toward the light, half in random directions), and one any-hit over 2N
-    # shadow rays toward the light. Kernel and plain are compared on each.
+    # rays, then over as many bounce rays (random directions from the
+    # camera hits), the lights pretest over as many rays from the surface
+    # (half toward the light, half in random directions), and one any-hit
+    # over 2N shadow rays toward the light. Kernel and plain are compared on
+    # every ray of each.
     o_f, d_f = camera_rays(cam, WIDTH, HEIGHT, dev)
     nf = o_f.shape[0]
     tl_f = torch.full((nf,), 3.0e38, device=dev)
-    hit_f = dc.closest_plain(aux, o_f, d_f, tl_f)
-    p_hit = o_f + d_f * torch.where(hit_f[:, 1] >= 0, hit_f[:, 0], 0.0)[:, None]
+    hit_f = dc.closest_cuda(eng, o_f, d_f, tl_f)
+    hit_m = hit_f[:, 1] >= 0
+    p_hit = (o_f + d_f * torch.where(hit_m, hit_f[:, 0], 0.0)[:, None]).contiguous()
+    d_b = unit_rows(rng, nf, dev)
+    tl_b = torch.where(hit_m, 3.0e38, 0.0)
     o_s = torch.cat([p_hit, p_hit])
     vec = light_targets(rng, scene, 2 * nf, dev) - o_s
     dist = vec.norm(dim=1)
     d_s = (vec / dist[:, None]).contiguous()
-    tl_s = torch.where(torch.cat([hit_f[:, 1], hit_f[:, 1]]) >= 0, dist * (1 - 5e-4), 0.0)
+    tl_s = torch.where(torch.cat([hit_m, hit_m]), dist * (1 - 5e-4), 0.0)
     d_l = torch.where((torch.arange(nf, device=dev) % 2 == 0)[:, None], d_s[:nf],
                       unit_rows(rng, nf, dev)).contiguous()
+    # each shadow ray's closest occluder, for the shadow query's need
+    occ = dc.closest_cuda(eng, o_s, d_s, tl_s)[:, 1].long()
+    occ_chunk = torch.where(occ >= 0, occ // dc.CH, -1)
+    # name: (key, table, rays, reps)
     queries = {
-        "closest": (dc.closest_cuda, dc.closest_plain, aux, o_f, d_f, tl_f),
-        "closest lights": (dc.closest_cuda, dc.closest_plain, light_aux, p_hit, d_l, tl_f),
-        "any": (dc.any_cuda, dc.any_plain, aux, o_s, d_s, tl_s),
+        "camera": ("closest", eng, (o_f, d_f, tl_f), 5),
+        "bounce": ("closest", eng, (p_hit, d_b, tl_b), 5),
+        "lights": ("closest", leng, (p_hit, d_l, tl_f), 5),
+        "shadow": ("any", eng, (o_s, d_s, tl_s), 5),
     }
     results = {}
-    for name, (kern, plain, tab, qo, qd, qt) in queries.items():
-        km, kout = time_ms(lambda: kern(tab, qo, qd, qt), 5)
-        pm, pout = time_ms(lambda: plain(tab, qo, qd, qt), 1)
-        if name == "any":
-            err = check_any("render shape", kout, pout, qo, qd, qt)
+    for name, (key, tab, (qo, qd, qt), reps) in queries.items():
+        kern = dc.closest_cuda if key == "closest" else dc.any_cuda
+        plain = dc.closest_plain if key == "closest" else dc.any_plain
+        km, kout = time_ms(lambda: kern(tab, qo, qd, qt), reps)
+        pm, pout = time_ms(lambda: plain(tab["aux"], qo, qd, qt), 1)
+        if key == "any":
+            err = check_any(f"render shape {name}", kout, pout, qo, qd, qt)
+            need = dense_need(dc, walk, tab, qo, qd, qt, qt, occ_chunk)
         else:
-            err = check_closest(f"render shape{name[7:]}", kout, pout, qo, qd)
-        key = name.split()[0]
+            err = check_closest(f"render shape {name}", kout, pout, qo, qd, qt)
+            need = dense_need(dc, walk, tab, qo, qd, qt, torch.where(kout[:, 1] >= 0, kout[:, 0], qt))
         errs[key] = max(errs[key], err)
-        nq, nt = qo.shape[0], tab.shape[0]
-        # bytes: rays in, the rows' planes and shading, results out
-        out_bytes = 32 if key == "closest" else 1
-        bms, by = bound_ms(dense_pairs(dc, key, tab, qo, qd, qt) * FLOPS[key],
-                           nq * (28 + out_bytes) + nt * 96)
-        results[name] = {"ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by, "rays": nq}
-        print(f"time {name}: kernel {km:.3f} ms, plain {pm:.3f} ms, bound {bms:.3f} ms ({by}) "
-              f"at {nq} rays x {nt} table rows ({card})")
+        stats = dc.dense_stats(tab, qo, qd, qt, query=key)
+        nq, nt = qo.shape[0], tab["aux"].shape[0]
+        bms, by = dense_bound(nq, key, need)
+        results[name] = {"ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by, "rays": nq,
+                         "stats": stats, "needed_pairs": need[0], "tested_pairs": stats["pairs"]}
+        lanes_, blocks = max(stats["lanes"], 1), max(stats["blocks"], 1)
+        print(f"dense {name}: pairs tested {stats['pairs']}, needed {need[0]}: tested / needed "
+              f"{stats['pairs'] / max(need[0], 1):.3f} (every row: {stats['lanes'] * nt}); chunks "
+              f"entered per lane {stats['entered'] / lanes_:.2f}, staged per block "
+              f"{stats['staged'] / blocks:.2f}; entering lanes per staged chunk "
+              f"{stats['listed'] / max(stats['staged'], 1):.2f}")
+        print(f"time {name}: kernel {km:.3f} ms, plain {pm:.3f} ms, bound {bms:.4f} ms ({by}) "
+              f"from {need[0]} needed pairs in {need[1]} chunks, at {nq} rays x {nt} table rows "
+              f"({card})")
+        for other in (o for o in others if o.dense_closest is not None):
+            time_dense_against(f"dense {name} vs {other.label}", other, key, tab,
+                               lambda: kern(tab, qo, qd, qt), (qo, qd, qt), reps, card)
     return errs, results
 
 
@@ -666,14 +766,29 @@ def vwalk_ties(iwalk, walk, dev) -> float:
     return check_two_level_closest("vwalk closest tie set", k, p, torch.zeros_like(k[1], dtype=torch.bool))
 
 
+def kernel_sources(csrc: Path, name: str) -> list:
+    """(file, text) of ``csrc/<name>.cu`` and of every header it includes
+    (quoted includes, followed), sorted."""
+    seen, todo = {}, [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f not in seen:
+            seen[f] = (csrc / f).read_text()
+            todo += re.findall(r'#include "([^"]+)"', seen[f])
+    return sorted(seen.items())
+
+
 def start_other_builds(srcs):
-    """Start nvcc on ``walk_hit.cu`` and ``iwalk_hit.cu`` of each csrc
-    directory in ``srcs`` (a parent commit's, or a variant of it) with this
-    tree's flags, beside phase 2's builds; returns a function that waits for
-    them, prints their ptxas lines and returns, per directory, its label and
-    its closest-hit entry points (ctypes; ``vwalk_slack``: whether its
-    vwalk_closest takes this tree's ``slack`` argument, which the parent
-    commit's does not)."""
+    """Start nvcc on ``dense_hit.cu``, ``walk_hit.cu`` and ``iwalk_hit.cu``
+    of each csrc directory in ``srcs`` (a parent commit's, or a variant of
+    it) with this tree's flags, beside phase 2's builds, skipping a source
+    whose text and headers equal this tree's (nothing to compare); returns
+    a function that waits for them, prints their ptxas lines and returns,
+    per directory, its label and its entry points (ctypes; None where
+    skipped): ``dense_closest``/``dense_any`` (``dense_cab``: whether they
+    take this tree's chunk boxes and counters, which the parent commit's
+    do not), ``walk_closest`` and ``vwalk_closest`` (``vwalk_slack``:
+    whether it takes this tree's ``slack`` argument)."""
     import ctypes
     import shutil
 
@@ -684,7 +799,10 @@ def start_other_builds(srcs):
     for idx, src in enumerate(srcs):
         out = OUT_DIR / "parent" / str(idx)
         out.mkdir(parents=True, exist_ok=True)
-        for name in ("walk_hit", "iwalk_hit"):
+        for name in ("dense_hit", "walk_hit", "iwalk_hit"):
+            if kernel_sources(src, name) == kernel_sources(cuda_lib.CSRC, name):
+                print(f"{src}: {name}.cu and its headers equal this tree's; not timed")
+                continue
             proc = subprocess.Popen(
                 [nvcc, *cuda_lib.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"), str(src / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -702,17 +820,27 @@ def start_other_builds(srcs):
         p, i = ctypes.c_void_p, ctypes.c_int
         others = []
         for idx, src in enumerate(srcs):
-            decl = (src / "iwalk_hit.cu").read_text().split('extern "C" int vwalk_closest(')[1]
-            slack = "float slack" in decl.split(")")[0]
-            fns = {"walk_closest": (libs[idx, "walk_hit"].walk_closest,
-                                    [i, p, p, p, i, i, p, p, p, i, p, p, p, p]),
-                   "vwalk_closest": (libs[idx, "iwalk_hit"].vwalk_closest,
-                                     [i, p, p, p, p, p, p, i, i, *[ctypes.c_float] * slack,
-                                      p, p, p, i, p, p, p, p, p])}
-            for fn, types in fns.values():
+            fns, other = {}, SimpleNamespace(label=str(src), dense_closest=None, dense_any=None,
+                                             walk_closest=None, vwalk_closest=None)
+            if (idx, "dense_hit") in libs:
+                decl = (src / "dense_hit.cu").read_text().split('extern "C" int dense_closest(')[1]
+                other.dense_cab = "const float* cab" in decl.split(")")[0]
+                sig = [i, p, *[p] * other.dense_cab, i, p, p, p, i, p, *[p] * other.dense_cab, p]
+                fns["dense_closest"] = (libs[idx, "dense_hit"].dense_closest, sig)
+                fns["dense_any"] = (libs[idx, "dense_hit"].dense_any, sig)
+            if (idx, "walk_hit") in libs:
+                fns["walk_closest"] = (libs[idx, "walk_hit"].walk_closest,
+                                       [i, p, p, p, i, i, p, p, p, i, p, p, p, p])
+            if (idx, "iwalk_hit") in libs:
+                decl = (src / "iwalk_hit.cu").read_text().split('extern "C" int vwalk_closest(')[1]
+                other.vwalk_slack = "float slack" in decl.split(")")[0]
+                fns["vwalk_closest"] = (libs[idx, "iwalk_hit"].vwalk_closest,
+                                        [i, p, p, p, p, p, p, i, i, *[ctypes.c_float] * other.vwalk_slack,
+                                         p, p, p, i, p, p, p, p, p])
+            for key, (fn, types) in fns.items():
                 fn.argtypes, fn.restype = types, ctypes.c_int
-            others.append(SimpleNamespace(label=str(src), vwalk_slack=slack,
-                                          **{k: fn for k, (fn, _) in fns.items()}))
+                setattr(other, key, fn)
+            others.append(other)
         return others
 
     return finish
@@ -732,6 +860,7 @@ def time_against(label, fn, tables, this, rays, n_out, reps, card):
     equal."""
     qo, qd, qt = rays
     n, dev = qo.shape[0], qo.device
+    label = f"{label}, {n} rays"
     outs = [torch.empty(n, dtype=torch.float32, device=dev)]
     outs += [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(n_out - 1)]
 
@@ -741,10 +870,18 @@ def time_against(label, fn, tables, this, rays, n_out, reps, card):
         check(err == 0, f"{label}: cudaError {err}")
         return outs
 
+    turns(f"{label} closest", run_other, this, reps, card,
+          lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
+
+
+def turns(label, run_other, this, reps, card, same) -> None:
+    """Time ``run_other()`` and ``this()`` in turns (other, this, this,
+    other; ``reps`` launches each), check ``same(this(), run_other())`` and
+    print the four times and the ratio."""
     times = [time_ms(run_other if who == "other" else this, reps)[0]
              for who in ("other", "this", "this", "other")]
-    check(all(torch.equal(a, b) for a, b in zip(this(), run_other())), f"{label}: outputs differ")
-    print(f"A/B {label} closest, {n} rays, {reps} launches each: other {times[0]:.3f} ms, this "
+    check(same(this(), run_other()), f"{label}: outputs differ")
+    print(f"A/B {label}, {reps} launches each: other {times[0]:.3f} ms, this "
           f"{times[1]:.3f} ms, this {times[2]:.3f} ms, other {times[3]:.3f} ms; other / this "
           f"{(times[0] + times[3]) / (times[1] + times[2]):.2f}x ({card})")
 
@@ -847,7 +984,7 @@ def phase_walk(walk, scene, cam, dev, card, others=()):
             stats = walk.walk_stats(eng, *public)
             need = needed_walk_work(walk, eng, qo, qd, qt, torch.where(ks >= 0, kt, qt))
             out_bytes = 8
-            for other in others:
+            for other in (o for o in others if o.walk_closest is not None):
                 time_against(f"walk {name} vs {other.label}", other.walk_closest, walk._tables(eng),
                              lambda: walk.closest_cuda(eng, qo, qd, qt), (qo, qd, qt), 2, reps, card)
         else:
@@ -1081,7 +1218,7 @@ def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, 
                                           exact=name == "vwalk")
             need = two_level_need(walk, veng, qo, qd, qt, torch.where(k[1] >= 0, k[0], qt))
             out_bytes = 12
-            for other in others:
+            for other in (o for o in others if o.vwalk_closest is not None):
                 tables = [eng[t].data_ptr() for t in ("aux", "cb_oct", "ord_oct", "vinst", "vglob", "inst_f")]
                 slack = (float(eng["lane_slack"]),) if other.vwalk_slack else ()
                 time_against(f"{label} {shape} vs {other.label}", other.vwalk_closest,
@@ -1435,8 +1572,9 @@ def phase_light_bvh(dev, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, nargs="+", default=[],
-                    help="csrc directories of a parent commit (or variants of it): time their walk "
-                         "and vwalk closest hits beside this tree's (phases 7 and 12)")
+                    help="csrc directories of a parent commit (or variants of it): time their dense "
+                         "kernels and walk and vwalk closest hits beside this tree's (phases 3, 7 "
+                         "and 12), each whose source differs from this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1466,7 +1604,7 @@ def main(argv=None) -> int:
     dev = torch.device(DEVICE)
 
     sh, cam = scenes.mesh_scene(aspect=WIDTH / HEIGHT)
-    errs, dense_t = phase_dense(dc, sh.device(DEVICE), cam, dev, card)
+    errs, dense_t = phase_dense(dc, walk, sh.device(DEVICE), cam, dev, card, others)
     dense_launches, _ = render_cli("mesh_scene", SPP, card, ("closest", "any"))
     print("cornell_specular:")
     cross_backend(scenes.cornell_specular, 32, 32, 4)  # 64x64 until the stream phases came
@@ -1546,7 +1684,7 @@ def main(argv=None) -> int:
     check(rel <= MEAN_TOL, rel)
 
     rows = {
-        "closest": dense_t["closest"], "any": dense_t["any"],
+        "closest": dense_t["camera"], "any": dense_t["shadow"],
         "walk_closest": walk_t["bounce"], "walk_any": walk_t["shadow"],
         "vwalk_closest": two_t["dragon"]["bounce"], "vwalk_any": two_t["dragon"]["shadow"],
         "iwalk_closest": two_t["many"]["bounce"], "iwalk_any": two_t["many"]["shadow"],
@@ -1571,7 +1709,7 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "rays": r["rays"],
             **({"tested_pairs": r["tested_pairs"], "needed_pairs": r["needed_pairs"]}
-               if key.startswith(("walk_", "vwalk_")) else {}),
+               if key.startswith(("walk_", "vwalk_")) or src == DENSE_SRC else {}),
             "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

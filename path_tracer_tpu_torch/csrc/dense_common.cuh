@@ -1,7 +1,8 @@
 // The pieces the dense kernels share (dense_hit.cu: one <=16K-triangle
 // table; dense_stream.cu: the streamed engine up to 2M triangles): the
-// constants, the staging of triangle-major plane rows into shared memory,
-// and the ray x triangle pair tests of dense_pallas._chunk_terms_vpu. See
+// constants, the staging of triangle-major plane rows into shared memory
+// (the stream's), and the ray x triangle pair tests of
+// dense_pallas._chunk_terms_vpu. See
 // the note at the top of dense_hit.cu for the floating-point rules
 // (-fmad=false; the plain torch versions in trace/dense_cuda.py repeat these
 // expressions in this order).

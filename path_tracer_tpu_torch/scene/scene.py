@@ -12,7 +12,8 @@ host scene and one from the JAX package's own device dict, so both packages
 can be fed identical tables:
 
 * ``tri``: ``normals_flat [T, 9]``, ``model_rows [T, 1]`` and one of
-  ``dense`` (the dense engine's ``aux`` table, `trace.dense_cuda`), ``walk``
+  ``dense`` (the dense engine's ``aux`` rows and ``cab`` chunk boxes,
+  `trace.dense_cuda`), ``walk``
   (the walk engine's tables, `trace.walk.pack_walk`) or ``stream`` (the
   streamed dense engine's ``aux``/``cab``/``pab``,
   `trace.dense_stream.pack_dense_stream`)
@@ -39,7 +40,8 @@ no engine key goes (``path_tracer_tpu/scene/scene.py:294-335``).
 ``engine="stream"`` sends a baked soup up to that size to the streamed
 engine, the counterpart of the JAX package's ``PT_WALK=0`` (`env_engine`
 reads that variable for the CLI). Chunk and part boxes come from the host
-scene's ``positions``. The lights take the dense kernels up to
+scene's ``positions`` (the lights' dense chunk boxes from their
+``positions_flat``). The lights take the dense kernels up to
 ``DENSE_MAX_TRIS`` triangles and the stack BVH above, over the lights' own
 SAH tree, as the JAX package's lights BVH (``scene.py:110-115``): the light
 table is in that tree's leaf order either way, so light order, pdf and cdf
@@ -68,7 +70,7 @@ from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_mater
 from path_tracer_tpu_torch.scene.model import Model
 from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry
 from path_tracer_tpu_torch.trace import bvh_stack, dense_stream, iwalk
-from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux
+from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux, pack_dense_cab
 from path_tracer_tpu_torch.trace.walk import WALK_PARTS_MAX_TRIS, pack_walk
 
 SceneData = dict  # nested dict of tensors handed to the integrator
@@ -239,9 +241,10 @@ class Scene:
         return out
 
 
-def _dense_table(tab: dict, with_shading: bool) -> dict:
+def _dense_table(tab: dict, positions, with_shading: bool) -> dict:
     """Dense engine tables for one triangle table (world or lights; a larger
-    one takes the stack BVH)."""
+    one takes the stack BVH): its rows and its chunk boxes, from
+    ``positions`` ``[T, 3, 3]`` in table order."""
     t = tab["n0"].shape[0]
     if t > DENSE_MAX_TRIS:
         raise NotImplementedError(
@@ -252,7 +255,7 @@ def _dense_table(tab: dict, with_shading: bool) -> dict:
         tab["normals_flat"] if with_shading else None,
         tab["model_rows"][:, 0] if with_shading else None,
     )
-    return {"aux": aux}
+    return {"aux": aux, "cab": pack_dense_cab(positions)}
 
 
 _PLANE_KEYS = ("n0", "d0", "n1", "d1", "n2", "d2")
@@ -278,10 +281,12 @@ def _upload(data: dict, device, engine: str | None = None) -> SceneData:
                 raise ValueError("a world soup above the streamed engine's limit needs its "
                                  "stack BVH tables (Scene.device builds them)")
         else:
-            tri["dense"] = _dense_table(tri, with_shading=True)
+            tri["dense"] = _dense_table(tri, tri["positions"], with_shading=True)
         tri.pop("positions")
     if "light" in data and "bvh" not in data["light"]:
-        data["light"]["dense"] = _dense_table(data["light"], with_shading=False)
+        light = data["light"]
+        light["dense"] = _dense_table(light, np.reshape(light["positions_flat"], (-1, 3, 3)),
+                                      with_shading=False)
     for tab in (tri, data.get("light")):
         for k in _PLANE_KEYS:
             if tab:

@@ -43,8 +43,7 @@ import torch
 
 from path_tracer_tpu_torch.trace import dense_cuda
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES, load
-from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue
-from path_tracer_tpu_torch.trace.walk import _valid
+from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue, _valid
 
 PART_TRIS = 16384  # triangles per part
 CH = 512  # triangles per chunk

@@ -60,7 +60,7 @@ from path_tracer_tpu_torch.core.constants import EPSILON
 from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.bvh import build_sah_tree, chunk_partition
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES, load
-from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue, _same
+from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue, _same, _valid
 
 CH_W = 128  # chunk capacity (tris per leaf test)
 SBLK = 128  # rays per block
@@ -218,15 +218,6 @@ def num_chunks(eng: dict) -> int:
 
 
 # --- around the kernels (torch ops) ---
-
-
-def _valid(origin, direction, t_limit):
-    """Live lanes: t_limit > 0 and a finite origin and direction."""
-    return (
-        (t_limit > 0.0)
-        & torch.isfinite(origin).all(dim=1)
-        & torch.isfinite(direction).all(dim=1)
-    )
 
 
 def _exit_clamp(eng, origin, direction, t_limit):

@@ -46,7 +46,8 @@ def _tables(pos, normals_flat, model):
         "aux": jnp.asarray(pack_dense_pl_aux(tri, normals_flat, model)),
         "cab": jnp.asarray(pack_dense_pl_cab(pos)),
     }
-    teng = {"aux": torch.from_numpy(dc.pack_dense_aux(tri, normals_flat, model))}
+    teng = {"aux": torch.from_numpy(dc.pack_dense_aux(tri, normals_flat, model)),
+            "cab": torch.from_numpy(dc.pack_dense_cab(pos))}
     return tri, jeng, teng
 
 
@@ -199,9 +200,9 @@ def test_cpu_tensors_never_launch(setup):
     dc.dense_any_hit(teng, to, td, tl)
     assert dc.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
-        dc.closest_cuda(teng["aux"], to, td, tl)
+        dc.closest_cuda(teng, to, td, tl)
     with pytest.raises(ValueError, match="CUDA"):
-        dc.any_cuda(teng["aux"], to, td, tl)
+        dc.any_cuda(teng, to, td, tl)
 
 
 def test_cli_cuda_without_card_raises(tmp_path):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from path_tracer_tpu_torch import scenes
 from path_tracer_tpu_torch.probes import gather
 from path_tracer_tpu_torch.scene import procedural
 from path_tracer_tpu_torch.scene import triangle as tri_mod
@@ -38,8 +39,9 @@ def cuda():
 
 @pytest.fixture
 def case(cuda):
-    """A 700-triangle table and 512 rays with inf / 0 / finite limits and
-    NaN origins and directions, on the card."""
+    """A 700-triangle table (6 chunks of 128) and 512 rays with inf / 0 /
+    finite limits and NaN origins and directions, on the card: ``(table,
+    origin, direction, t_limit)``."""
     rng = np.random.default_rng(7)
     t = 700
     v0 = rng.uniform(-1, 1, (t, 3)).astype(np.float32)
@@ -55,14 +57,16 @@ def case(cuda):
     tl[64:96] = 0.0
     o[96:104] = np.nan
     d[104:112] = np.nan
-    return [torch.from_numpy(x).to(cuda) for x in (aux, o, d, tl)]
+    eng = {"aux": torch.from_numpy(aux).to(cuda), "cab": torch.from_numpy(dc.pack_dense_cab(pos)).to(cuda)}
+    return [eng] + [torch.from_numpy(x).to(cuda) for x in (o, d, tl)]
 
 
 def test_closest_kernel_equals_plain(case):
+    eng, o, d, tl = case
     n0 = dc.LAUNCHES["closest"]
-    k = dc.closest_cuda(*case)
+    k = dc.closest_cuda(eng, o, d, tl)
     assert dc.LAUNCHES["closest"] == n0 + 1
-    p = dc.closest_plain(*case)
+    p = dc.closest_plain(eng["aux"], o, d, tl)
     assert (k[:, 1] >= 0).sum() > 50
     finite = torch.isfinite(p).all(dim=1)  # a NaN ray's epilogue is NaN in both
     assert torch.equal(k[finite], p[finite])
@@ -71,10 +75,11 @@ def test_closest_kernel_equals_plain(case):
 
 
 def test_any_kernel_equals_plain(case):
+    eng, o, d, tl = case
     n0 = dc.LAUNCHES["any"]
-    k = dc.any_cuda(*case)
+    k = dc.any_cuda(eng, o, d, tl)
     assert dc.LAUNCHES["any"] == n0 + 1
-    assert torch.equal(k, dc.any_plain(*case))
+    assert torch.equal(k, dc.any_plain(eng["aux"], o, d, tl))
     assert 10 < int(k.sum()) < k.shape[0]
     assert not k[64:112].any()
 
@@ -82,8 +87,8 @@ def test_any_kernel_equals_plain(case):
 def test_wrappers_on_card_equal_wrappers_on_cpu(case):
     """The public queries launch the kernels on CUDA tensors and give the
     same bits as the plain versions on CPU tensors."""
-    aux, o, d, tl = case
-    eng_gpu, eng_cpu = {"aux": aux}, {"aux": aux.cpu()}
+    eng_gpu, o, d, tl = case
+    eng_cpu = {k: v.cpu() for k, v in eng_gpu.items()}
     tl = torch.where(tl > 1e30, torch.inf, tl)
     n0 = dict(dc.LAUNCHES)
     gpu = dc.dense_closest_hit_shade(eng_gpu, o, d, tl)
@@ -96,13 +101,81 @@ def test_wrappers_on_card_equal_wrappers_on_cpu(case):
 
 
 def test_kernel_rejects_bad_inputs(case):
-    aux, o, d, tl = case
+    eng, o, d, tl = case
     with pytest.raises(ValueError):
-        dc.closest_cuda(aux, o.double(), d, tl)
+        dc.closest_cuda(eng, o.double(), d, tl)
     with pytest.raises(ValueError):
-        dc.any_cuda(aux, o, d.t().contiguous().t(), tl)
+        dc.any_cuda(eng, o, d.t().contiguous().t(), tl)
     with pytest.raises(ValueError):
-        dc.closest_cuda(aux[:, :12].contiguous(), o, d, tl)
+        dc.closest_cuda({**eng, "aux": eng["aux"][:, :12].contiguous()}, o, d, tl)
+    with pytest.raises(ValueError, match="cab"):
+        dc.closest_cuda({"aux": eng["aux"]}, o, d, tl)
+    with pytest.raises(ValueError):
+        dc.any_cuda({**eng, "cab": eng["cab"][:-1].contiguous()}, o, d, tl)
+    with pytest.raises(ValueError):
+        dc.closest_cuda(eng, o, d, tl, stats=torch.zeros(dc.NSTATS - 1, dtype=torch.int64, device=o.device))
+
+
+@pytest.fixture
+def mesh_case(cuda):
+    """``mesh_scene(subdivisions=3)``'s dense world table (1,292 rows in
+    SAH order, 11 chunks) and 4,096 rays from inside the Cornell box."""
+    sh, _ = scenes.mesh_scene(subdivisions=3)
+    eng = sh.device(cuda)["tri"]["dense"]
+    rng = np.random.default_rng(5)
+    n = 4096
+    o = rng.uniform((-278, 0, -278), (278, 555, 278), (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tl = np.full(n, 3.0e38, np.float32)
+    return eng, *(torch.from_numpy(x).to(cuda) for x in (o, d, tl))
+
+
+def test_dense_edge_cases_equal_plain(mesh_case):
+    """The dense kernels' segment cull on its edge cases: both queries equal
+    the ungated plain versions and the plain models of the cull."""
+    eng, o, d, tl = mesh_case
+    k = dc.closest_cuda(eng, o, d, tl)
+    lo, hi = eng["cab"][:, 0:3], eng["cab"][:, 3:6]
+    root = {"root_lo": lo.amin(0), "root_hi": hi.amax(0)}
+    eo, ed, et = _edge_rays(root, lo, hi, k[:, 0], k[:, 1].long(), o, d, tl, 23)
+    aux = eng["aux"]
+    ka, pa = dc.any_cuda(eng, eo, ed, et), dc.any_plain(aux, eo, ed, et)
+    assert 0.1 < pa.float().mean() < 0.95
+    assert torch.equal(ka, pa) and torch.equal(dc.culled_any_plain(eng, eo, ed, et), pa)
+    kc, pc = dc.closest_cuda(eng, eo, ed, et), dc.closest_plain(aux, eo, ed, et)
+    assert torch.equal(kc, pc) and torch.equal(dc.culled_closest_plain(eng, eo, ed, et), pc)
+
+
+def test_dense_closest_ties_equal_plain(cuda):
+    """``dense_cuda.tie_soup``: every ray's closest hit is one triangle held
+    in chunks 7 and 15 (twice in chunk 7); the kernel picks the lowest
+    index, as the plain version does, and its t."""
+    pos, o, d = dc.tie_soup()
+    eng = {"aux": torch.from_numpy(dc.pack_dense_aux(tri_mod.precompute(pos))).to(cuda),
+           "cab": torch.from_numpy(dc.pack_dense_cab(pos)).to(cuda)}
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    tl = torch.full((o.shape[0],), 3.0e38, device=cuda)
+    k, p = dc.closest_cuda(eng, o, d, tl), dc.closest_plain(eng["aux"], o, d, tl)
+    assert torch.equal(k, p) and bool((k[:, 1] == dc.TIE_ROWS[0]).all())
+
+
+def test_dense_stats_counts(mesh_case):
+    """The counters: blocks and lanes, entered boxes, staged chunks, listed
+    lanes and pairs, consistent with each other; the closest hit tests
+    fewer pairs than every row; counting does not change the results."""
+    eng, o, d, tl = mesh_case
+    nt, k = eng["aux"].shape[0], eng["cab"].shape[0]
+    for query in ("closest", "any"):
+        st = dc.dense_stats(eng, o, d, tl if query == "closest" else tl.clamp(max=300.0), query)
+        assert st["blocks"] == o.shape[0] // 128 and st["lanes"] == o.shape[0]
+        assert 0 < st["staged"] <= st["blocks"] * k
+        assert st["listed"] <= st["entered"] <= st["lanes"] * k
+        assert 0 < st["pairs"] <= st["listed"] * dc.CH and st["pairs"] <= st["lanes"] * nt
+        if query == "closest":
+            assert st["pairs"] < 0.5 * st["lanes"] * nt
+    stats = torch.zeros(dc.NSTATS, dtype=torch.int64, device=o.device)
+    assert torch.equal(dc.closest_cuda(eng, o, d, tl, stats=stats), dc.closest_cuda(eng, o, d, tl))
 
 
 @pytest.fixture
