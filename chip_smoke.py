@@ -81,16 +81,25 @@ Phases (any failure raises and the script exits non-zero without the final
 16. (with phase 2) ``dense_stream.cu`` and ``gather_probe.cu``, built in the
     same call, their ptxas lines; (after phase 9) the streamed dense
     kernels against their plain versions on the full dragon table packed
-    for the stream (55 parts, 1,760 chunks; 16,384 camera + 16,384 random
-    rays with inf / 0 / NaN lanes), the float64 plain closest hit on 4,096
-    of them, and the stream's public query against the walk's on the same
-    rays (hit flags equal; a different winner only at the same t);
+    for the stream (55 parts, 1,760 chunks, 7,040 groups; 16,384 camera +
+    16,384 random rays with inf / 0 / NaN lanes), the float64 plain closest
+    hit on 4,096 of them, the cull's edge cases for both queries
+    (axis-parallel rays, rays from and along part, chunk and group box
+    faces, limits one ulp either side of a closest t), the tie set
+    (``dense_stream.tie_soup``: one triangle in two parts and twice within
+    one group) for both queries, and the stream's public query against the
+    walk's on the same rays (hit flags equal; a different winner only at
+    the same t);
 17. the stream kernels timed at the render's shapes in the integrator's
     pixel order (589,824 camera, 589,824 bounce, 1,179,648 shadow rays),
-    each against its plain version on 16,384 rays of whole blocks, with
-    parts and chunks per block, beside the walk's public query on the same
-    rays (its sort included): the stream-vs-walk A/B, and on the shadow
-    rays the two any-hit kernels' own times;
+    each against its plain version on 16,384 rays of whole blocks, with the
+    cull's counters (parts, chunks and groups entered per lane, groups
+    staged per block, lanes listed per staged group) and the tested
+    against the needed pairs over 512-row chunks and over 128-row groups,
+    beside the walk's public query on the same rays (its sort included):
+    the stream-vs-walk A/B, and on the shadow rays the two any-hit kernels'
+    own times; with ``--parent``, each shape beside the stream kernels
+    built from each directory given (other, this, this, other);
 18. ``PT_WALK=0`` dragon_scene through the CLI at 1024x576, 1 spp, 64
     bounces (stream launches > 0, walk 0), then the same render through the
     walk in process (sample 0, the same seeds): image means within 1%;
@@ -129,9 +138,11 @@ the virtual chunks' world boxes, plus 30 operations per (ray, instance)
 whose chunks it enters (the object-space transform); its bytes count each
 needed OBJECT chunk's planes once, however many instances share it. No one
 PyTorch call computes these queries, so ``library_ms`` is null. A stream
-query's need is counted as a walk query's, over the stream's own chunks of
-512 triangles (``cab``). A probe's bound is its bytes: every row or entry
-read once and written once, with the indices; ``library_ms`` is
+query's need is counted as a walk query's, over the stream's groups of 128
+triangles (``qab``, the boxes its kernels cull and stage: the bound's
+need) and, printed beside it as ``needed_pairs_512``, over its chunks of
+512 (``cab``, the need of the bounds before the groups). A probe's bound is its bytes: every row or
+entry read once and written once, with the indices; ``library_ms`` is
 ``torch.index_select`` (row gather) or ``torch.gather`` (in-tile gather).
 
 The last lines are the card line, one JSON object describing each kernel,
@@ -779,16 +790,18 @@ def kernel_sources(csrc: Path, name: str) -> list:
 
 
 def start_other_builds(srcs):
-    """Start nvcc on ``dense_hit.cu``, ``walk_hit.cu`` and ``iwalk_hit.cu``
-    of each csrc directory in ``srcs`` (a parent commit's, or a variant of
-    it) with this tree's flags, beside phase 2's builds, skipping a source
-    whose text and headers equal this tree's (nothing to compare); returns
-    a function that waits for them, prints their ptxas lines and returns,
-    per directory, its label and its entry points (ctypes; None where
-    skipped): ``dense_closest``/``dense_any`` (``dense_cab``: whether they
-    take this tree's chunk boxes and counters, which the parent commit's
-    do not), ``walk_closest`` and ``vwalk_closest`` (``vwalk_slack``:
-    whether it takes this tree's ``slack`` argument)."""
+    """Start nvcc on ``dense_hit.cu``, ``walk_hit.cu``, ``iwalk_hit.cu`` and
+    ``dense_stream.cu`` of each csrc directory in ``srcs`` (a parent
+    commit's, or a variant of it) with this tree's flags, beside phase 2's
+    builds, skipping a source whose text and headers equal this tree's
+    (nothing to compare); returns a function that waits for them, prints
+    their ptxas lines and returns, per directory, its label and its entry
+    points (ctypes; None where skipped): ``dense_closest``/``dense_any``
+    (``dense_cab``: whether they take this tree's chunk boxes and counters,
+    which older trees' do not), ``walk_closest``, ``vwalk_closest``
+    (``vwalk_slack``: whether it takes this tree's ``slack`` argument) and
+    ``stream_closest``/``stream_any`` (``stream_qab``: whether they take
+    this tree's group boxes, which older trees' do not)."""
     import ctypes
     import shutil
 
@@ -799,7 +812,7 @@ def start_other_builds(srcs):
     for idx, src in enumerate(srcs):
         out = OUT_DIR / "parent" / str(idx)
         out.mkdir(parents=True, exist_ok=True)
-        for name in ("dense_hit", "walk_hit", "iwalk_hit"):
+        for name in ("dense_hit", "walk_hit", "iwalk_hit", "dense_stream"):
             if kernel_sources(src, name) == kernel_sources(cuda_lib.CSRC, name):
                 print(f"{src}: {name}.cu and its headers equal this tree's; not timed")
                 continue
@@ -821,7 +834,8 @@ def start_other_builds(srcs):
         others = []
         for idx, src in enumerate(srcs):
             fns, other = {}, SimpleNamespace(label=str(src), dense_closest=None, dense_any=None,
-                                             walk_closest=None, vwalk_closest=None)
+                                             walk_closest=None, vwalk_closest=None,
+                                             stream_closest=None, stream_any=None)
             if (idx, "dense_hit") in libs:
                 decl = (src / "dense_hit.cu").read_text().split('extern "C" int dense_closest(')[1]
                 other.dense_cab = "const float* cab" in decl.split(")")[0]
@@ -837,6 +851,12 @@ def start_other_builds(srcs):
                 fns["vwalk_closest"] = (libs[idx, "iwalk_hit"].vwalk_closest,
                                         [i, p, p, p, p, p, p, i, i, *[ctypes.c_float] * other.vwalk_slack,
                                          p, p, p, i, p, p, p, p, p])
+            if (idx, "dense_stream") in libs:
+                decl = (src / "dense_stream.cu").read_text().split('extern "C" int stream_closest(')[1]
+                other.stream_qab = "const float* qab" in decl.split(")")[0]
+                head = [i, p, p, p, *[p] * other.stream_qab, i, i, p, p, p, i]
+                fns["stream_closest"] = (libs[idx, "dense_stream"].stream_closest, head + [p, p, p, p])
+                fns["stream_any"] = (libs[idx, "dense_stream"].stream_any, head + [p, p, p])
             for key, (fn, types) in fns.items():
                 fn.argtypes, fn.restype = types, ctypes.c_int
                 setattr(other, key, fn)
@@ -1368,6 +1388,21 @@ def phase_stream(ds, dc, walk, eng, walk_eng, cam, dev, card):
     tl_anyc = torch.clamp(tl_any, max=3.0e38)
     ka = ds.any_cuda(eng, qo, qd, tl_anyc)
     errs["stream_any"] = check_any("stream mixed", ka, ds.any_plain(eng, qo, qd, tl_anyc), o, d, tl_any)
+    # the cull's edge cases (axis-parallel rays, rays from and along part,
+    # chunk and group box faces, limits one ulp either side of a closest t)
+    # and the tie set, both queries
+    boxes = torch.cat([b[(b[:, 0:3] <= b[:, 3:6]).all(1)] for b in (eng["pab"], eng["cab"], eng["qab"])])
+    eo, ed, et = edge_rays(rng, boxes[:, 0:3], boxes[:, 3:6], eng["pab"][:, 0:3].amin(0),
+                           eng["pab"][:, 3:6].amax(0), qo, qd, kt, ki.long(), dev)
+    errs["stream_any"] = max(errs["stream_any"], check_any(
+        "stream edge cases", ds.any_cuda(eng, eo, ed, et), ds.any_plain(eng, eo, ed, et), eo, ed, et))
+    no_nan = torch.zeros(eo.shape[0], dtype=torch.bool, device=dev)
+    errs["stream_closest"] = max(errs["stream_closest"], check_walk_closest(
+        "edge cases", *ds.closest_cuda(eng, eo, ed, et), *ds.closest_plain(eng, eo, ed, et), no_nan,
+        kind="stream"))
+    tie_errs = stream_ties(ds, dev)
+    for key in tie_errs:
+        errs[key] = max(errs[key], tie_errs[key])
     # the public query against the walk's on the same rays
     sq = ds.dense_stream_closest_hit_shade(eng, o, d, tl)
     wq = walk.walk_closest_hit_shade(walk_eng, o, d, tl)
@@ -1386,10 +1421,94 @@ def phase_stream(ds, dc, walk, eng, walk_eng, cam, dev, card):
     return errs
 
 
-def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card):
+def stream_ties(ds, dev) -> dict:
+    """The tie set (`dense_stream.tie_soup`: one triangle in parts 0 and 1,
+    twice within one group of part 0, every ray's closest hit): the closest
+    hit against plain on every ray, the lowest index winning; the any hit
+    with limits just past each t against plain."""
+    from path_tracer_tpu_torch.scene import triangle as tri_mod
+
+    pos, o, d = ds.tie_soup()
+    eng = ds.upload(ds.pack_dense_stream(tri_mod.precompute(pos), None, None, pos), dev)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    tl = torch.full((o.shape[0],), 3.0e38, device=dev)
+    kt, ki = ds.closest_cuda(eng, o, d, tl)
+    pt, pi = ds.closest_plain(eng, o, d, tl)
+    check(bool((pi == ds.TIE_ROWS[0]).all()), "stream tie set: the lowest index wins")
+    no_nan = torch.zeros_like(ki, dtype=torch.bool)
+    errs = {"stream_closest": check_walk_closest("tie set", kt, ki, pt, pi, no_nan, kind="stream")}
+    lim = (kt * 1.001).contiguous()
+    errs["stream_any"] = check_any("stream tie set", ds.any_cuda(eng, o, d, lim),
+                                   ds.any_plain(eng, o, d, lim), o, d, lim)
+    return errs
+
+
+def stream_need(ds, walk, eng, width, o, d, t_limit, t_stop, occ=None):
+    """(ray x row pairs, boxes used, their real rows) that a stream query
+    needs over the table's boxes of ``width`` rows (``ds.CH``: the chunk
+    boxes ``cab``; ``ds.QH``: the group boxes ``qab``): `needed_work`, the
+    real rows of each box a ray's own slab test enters before ``t_stop``;
+    with ``occ`` (a shadow query: each ray's closest occluder, a soup
+    index) the box of the occluder alone."""
+    boxes = eng["cab"] if width == ds.CH else eng["qab"]
+    spans = (eng["aux"][:, :12] != 0).any(1).view(-1, width).sum(1)
+    stop = None if occ is None else torch.where(occ >= 0, occ // width, -1)
+    pairs, used, _ = needed_work(walk, boxes[:, 0:3].contiguous(), boxes[:, 3:6].contiguous(), spans,
+                                 o, d, t_limit, t_stop, stop)
+    return pairs, int(used.sum()), int(spans[used].sum())
+
+
+def stream_block_groups(ds, eng, o, d, t_limit, tw):
+    """Per 128-ray block with a valid lane, the distinct groups some valid
+    lane's three box tests enter within its window ``tw`` (the cull's plain
+    model, `dense_stream.entered_groups`): a floor on the groups the block
+    stages, whose windows close in index order, not front to back. The ray
+    count is a multiple of 128."""
+    valid = ds._valid(o, d, t_limit)
+    counts = []
+    for s in range(0, o.shape[0], 32 * ds.SBLK):
+        sl = slice(s, s + 32 * ds.SBLK)
+        ent = ds.entered_groups(eng, o[sl], d[sl], tw[sl]) & valid[sl, None]
+        counts.append(ent.view(-1, ds.SBLK, ent.shape[1]).any(1).sum(1))
+    return torch.cat(counts)[valid.view(-1, ds.SBLK).any(1)]
+
+
+def time_stream_against(label, other, key, eng, this, rays, reps, card):
+    """Time another tree's stream kernel (``other``, `start_other_builds`)
+    against this tree's (``this()``) on the same rays, in turns (other,
+    this, this, other), through the other tree's own entry point; their
+    outputs (closest: t and index; any: flags) must be equal."""
+    qo, qd, qt = rays
+    n, dev = qo.shape[0], qo.device
+    if key == "stream_closest":
+        fn = other.stream_closest
+        outs = [torch.empty(n, dtype=torch.float32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev)]
+    else:
+        fn = other.stream_any
+        outs = [torch.empty(n, dtype=torch.bool, device=dev)]
+    tables = [eng["aux"], eng["cab"], eng["pab"]] + [eng["qab"]] * other.stream_qab
+    sizes = [eng["pab"].shape[0], eng["cab"].shape[0] // eng["pab"].shape[0]]
+
+    def run_other():
+        err = fn(dev.index, *[x.data_ptr() for x in tables], *sizes, qo.data_ptr(), qd.data_ptr(),
+                 qt.data_ptr(), n, *[x.data_ptr() for x in outs], None,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"{label}: cudaError {err}")
+        return outs if key == "stream_closest" else outs[0]
+
+    same = ((lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))) if key == "stream_closest"
+            else torch.equal)
+    turns(f"{label} {key}, {n} rays", run_other, this, reps, card, same)
+
+
+def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card, others=()):
     """Phase 17: the stream kernels at the render's shapes in pixel order,
-    against their plain versions, with their gate counters, need and bound,
-    beside the walk's public query on the same rays."""
+    against their plain versions, with their cull's counters, the tested
+    against the needed pairs (over 512-row chunks and 128-row groups), the
+    bound, beside the walk's public query on the same rays; each of
+    ``others`` (other trees' libraries) has its stream kernels timed beside
+    this one's at every shape."""
     rng = np.random.default_rng(1357)
     o_f, d_f = camera_rays(cam, WIDTH, HEIGHT, dev)
     nf = o_f.shape[0]
@@ -1406,8 +1525,6 @@ def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card):
     tl_sh = torch.where(torch.cat([hit, hit]), dist * (1 - 5e-4), 0.0)
     # each shadow ray's closest occluder (a soup index is a stream row)
     occ = walk.walk_closest_hit_shade(walk_eng, o_sh, d_sh, tl_sh)[0]
-    spans = (eng["aux"][:, :12] != 0).any(1).view(-1, ds.CH).sum(1)
-    lo, hi = eng["cab"][:, 0:3].contiguous(), eng["cab"][:, 3:6].contiguous()
     shapes = {
         "camera": ("stream_closest", (o_f, d_f, tl_f), 3),
         "bounce": ("stream_closest", (p_hit, d_b, tl_b), 1),
@@ -1426,8 +1543,10 @@ def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card):
                                      kind="stream")
             pub_ms, _ = time_ms(lambda: ds.dense_stream_closest_hit_shade(eng, *rays), reps)
             walk_ms, _ = time_ms(lambda: walk.walk_closest_hit_shade(walk_eng, *rays), reps)
-            pairs, used, _ = needed_work(walk, lo, hi, spans, qo, qd, qt, torch.where(ki >= 0, kt, qt))
+            need, need_q = (stream_need(ds, walk, eng, w, qo, qd, qt, torch.where(ki >= 0, kt, qt))
+                            for w in (ds.CH, ds.QH))
             out_bytes, query = 8, "closest"
+            this = lambda: ds.closest_cuda(eng, qo, qd, qt)  # noqa: E731
         else:
             km, ka = time_ms(lambda: ds.any_cuda(eng, qo, qd, qt), reps)
             pm, pa = time_ms(lambda: ds.any_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
@@ -1438,25 +1557,41 @@ def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card):
             wk_ms, _ = time_ms(lambda: walk.any_cuda(walk_eng, qo, qd, wtl), reps)
             print(f"shadow any-hit kernels on the same {nq} rays (pixel order): stream {km:.3f} ms, "
                   f"walk {wk_ms:.3f} ms ({card})")
-            stop = torch.where(occ >= 0, occ // ds.CH, -1)
-            pairs, used, _ = needed_work(walk, lo, hi, spans, qo, qd, qt, qt, stop)
+            need, need_q = (stream_need(ds, walk, eng, w, qo, qd, qt, qt, occ) for w in (ds.CH, ds.QH))
             out_bytes, query = 1, "any"
+            this = lambda: ds.any_cuda(eng, qo, qd, qt)  # noqa: E731
         stats = ds.stream_stats(eng, *rays, query=query)
-        bms, by = bound_ms(pairs * FLOPS[key],
-                           nq * (28 + out_bytes) + int(spans[used].sum()) * 48 + int(used.sum()) * 24)
-        blocks = max(stats["blocks"], 1)
+        # the bound counts the need over the 128-row groups the kernels stage
+        bms, by = bound_ms(need_q[0] * FLOPS[key],
+                           nq * (28 + out_bytes) + need_q[2] * 48 + need_q[1] * 24)
+        blocks, lanes = max(stats["blocks"], 1), max(stats["lanes"], 1)
         results[name] = {"key": key, "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                          "rays": nq, "plain_rays": rows.numel(), "err": err, "stats": stats,
-                         "needed_pairs": pairs, "public_ms": pub_ms, "walk_ms": walk_ms}
+                         "tested_pairs": stats["pairs"], "needed_pairs": need_q[0],
+                         "needed_pairs_512": need[0], "public_ms": pub_ms, "walk_ms": walk_ms}
+        print(f"stream {name}: pairs tested {stats['pairs']}, needed {need[0]} over 512-row chunks "
+              f"(tested / needed {stats['pairs'] / max(need[0], 1):.3f}), {need_q[0]} over 128-row "
+              f"groups ({stats['pairs'] / max(need_q[0], 1):.3f}); per valid lane: parts entered "
+              f"{stats['parts'] / lanes:.2f}, chunks {stats['chunks'] / lanes:.2f}, groups "
+              f"{stats['groups'] / lanes:.2f}; groups staged per block {stats['staged'] / blocks:.2f}, "
+              f"lanes listed per staged group {stats['listed'] / max(stats['staged'], 1):.2f}; "
+              f"{stats['blocks']} blocks, {stats['lanes']} valid lanes")
+        per_block = stream_block_groups(ds, eng, qo, qd, qt,
+                                        torch.where(ki >= 0, kt, qt) if query == "closest" else qt)
+        q = torch.quantile(per_block.double(), torch.tensor([0.5, 0.9, 0.99], device=dev,
+                                                            dtype=torch.float64)).tolist()
+        print(f"stream {name}: groups entered per block by some valid lane at its least window "
+              f"(the cull's model): mean {per_block.double().mean().item():.2f}, median {q[0]:.0f}, "
+              f"p90 {q[1]:.0f}, p99 {q[2]:.0f}, max {int(per_block.max())} over {per_block.numel()} "
+              f"blocks")
         print(f"time stream {name}: kernel {km:.3f} ms at {nq} rays, plain {pm:.3f} ms at "
-              f"{rows.numel()} rays, bound {bms:.4f} ms ({by}) from {pairs} needed pairs in "
-              f"{int(used.sum())} chunks; pairs the kernel tested {stats['lane_visits'] * ds.CH}; "
-              f"blocks with a live lane {stats['blocks']}, parts admitted per block "
-              f"{stats['parts'] / blocks:.1f}, chunks gated per block {stats['gated'] / blocks:.1f}, "
-              f"staged per block {stats['staged'] / blocks:.1f}, testing lanes per staged chunk "
-              f"{stats['lane_visits'] / max(stats['staged'], 1):.1f} ({card})")
+              f"{rows.numel()} rays, bound {bms:.4f} ms ({by}) from {need_q[0]} needed pairs in "
+              f"{need_q[1]} groups ({card})")
         print(f"A/B {name}: stream public query {pub_ms:.3f} ms, walk public query (sort "
               f"included) {walk_ms:.3f} ms: stream / walk {pub_ms / walk_ms:.2f}")
+        for other in (o for o in others if o.stream_closest is not None):
+            time_stream_against(f"stream {name} vs {other.label}", other, key, eng, this,
+                                (qo, qd, qt), reps, card)
     return results
 
 
@@ -1573,8 +1708,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, nargs="+", default=[],
                     help="csrc directories of a parent commit (or variants of it): time their dense "
-                         "kernels and walk and vwalk closest hits beside this tree's (phases 3, 7 "
-                         "and 12), each whose source differs from this tree's")
+                         "kernels, walk and vwalk closest hits and stream kernels beside this "
+                         "tree's (phases 3, 7, 12 and 17), each whose source differs from this "
+                         "tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1635,7 +1771,8 @@ def main(argv=None) -> int:
     print(f"dragon_scene upload with stream packing {time.perf_counter() - t0:.1f} s")
     seng = stream_scene["tri"]["stream"]
     errs.update(phase_stream(ds, dc, walk, seng, walk_eng, cam, dev, card))
-    stream_t = phase_stream_shapes(ds, dc, walk, seng, walk_eng, stream_scene, cam, dev, card)
+    stream_t = phase_stream_shapes(ds, dc, walk, seng, walk_eng, stream_scene, cam, dev, card,
+                                   others)
     for r in stream_t.values():
         errs[r["key"]] = max(errs[r["key"]], r["err"])
     del stream_scene, seng
@@ -1709,7 +1846,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "rays": r["rays"],
             **({"tested_pairs": r["tested_pairs"], "needed_pairs": r["needed_pairs"]}
-               if key.startswith(("walk_", "vwalk_")) or src == DENSE_SRC else {}),
+               if key.startswith(("walk_", "vwalk_", "stream_")) or src == DENSE_SRC else {}),
+            **({"needed_pairs_512": r["needed_pairs_512"]} if "needed_pairs_512" in r else {}),
             "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,6 @@
 // The pieces the dense kernels share (dense_hit.cu: one <=16K-triangle
 // table; dense_stream.cu: the streamed engine up to 2M triangles): the
-// constants, the staging of triangle-major plane rows into shared memory
-// (the stream's), and the ray x triangle pair tests of
+// constants and the ray x triangle pair tests of
 // dense_pallas._chunk_terms_vpu. See
 // the note at the top of dense_hit.cu for the floating-point rules
 // (-fmad=false; the plain torch versions in trace/dense_cuda.py repeat these
@@ -20,27 +19,6 @@ constexpr float BIG = 1e30f;  // "no winner" sentinel (dense_pallas._BIG)
 
 __device__ __forceinline__ bool same_sign(float a, float b) {
   return (a >= 0.0f) == (b >= 0.0f);
-}
-
-// Stage rows [base, base + N) of aux into shared memory as three float4
-// planes per triangle: sh[k] = n0|d0, sh[N+k] = n1|d1, sh[2*N+k] = n2|d2;
-// rows at or past n_rows are zero (no hit).
-template <int N>
-__device__ __forceinline__ void load_rows(const float* __restrict__ aux, int n_rows, int base,
-                                          float4* sh) {
-  for (int k = threadIdx.x; k < N; k += blockDim.x) {
-    const int i = base + k;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a, c = a;
-    if (i < n_rows) {
-      const float4* row = reinterpret_cast<const float4*>(aux + (size_t)i * AUX_COLS);
-      a = row[0];
-      b = row[1];
-      c = row[2];
-    }
-    sh[k] = a;
-    sh[N + k] = b;
-    sh[2 * N + k] = c;
-  }
 }
 
 // The four search terms of dense_pallas._chunk_terms_vpu.

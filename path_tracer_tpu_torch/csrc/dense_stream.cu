@@ -1,7 +1,7 @@
 // Streamed dense closest-hit and any-hit over one table of up to 2M
 // triangles, for Hopper: the world queries of a baked soup above 16,384
 // triangles when the walk is switched off (PT_WALK=0, Scene.device(...,
-// engine="stream")).
+// engine="stream")), and of every soup of 1,572,865-2,000,000 triangles.
 //
 // Replaces path_tracer_tpu/trace/dense_stream.py::_stream_closest_kernel and
 // ::_stream_any_kernel (contract: dense_stream_closest_hit_shade /
@@ -11,46 +11,71 @@
 //
 // Tables (trace/dense_stream.py pack_dense_stream):
 //   aux [nparts*cpp*512, 24] f32, one row per triangle in the soup's order,
-//       fixed-stride padded (row index == soup index; pad rows are zero and
-//       never hit): cols 0-3 n0.xyz d0 | 4-7 n1.xyz d1 | 8-11 n2.xyz d2 | ...
-//   cab [nparts*cpp, 6] f32, chunk boxes (lo xyz | hi xyz) of 512 rows each;
-//       pad chunks carry inverted boxes
-//   pab [nparts, 6] f32, part boxes (cpp <= 32 chunks per part)
-// Rays arrive in the caller's order, t_limit clamped finite; the wrapper
-// checks shapes and types.
+//       fixed-stride padded (row index == soup index; pad rows are zero:
+//       det == 0, they never hit): cols 0-3 n0.xyz d0 | 4-7 n1.xyz d1 |
+//       8-11 n2.xyz d2 | ...
+//   pab [nparts, 6] f32, part boxes (lo xyz | hi xyz) of cpp <= 32 chunks
+//   cab [nparts*cpp, 6] f32, chunk boxes of 512 rows each
+//   qab [nparts*cpp*4, 6] f32, group boxes of 128 rows each
+// all padded alike (1e-4 of the scene's scale), pad chunks and groups
+// inverted, so a group's box lies inside its chunk's and a chunk's inside
+// its part's. Rays arrive in the caller's order; the wrapper checks shapes
+// and types.
 //
-// Design. One block of 128 threads per block of 128 rays, one ray per
-// thread. Invalid lanes (t_limit <= 0 or a non-finite origin/direction) are
-// zeroed with t_limit 0, as dense_stream._pack_rays_t does, and left out of
-// the block's conservative ray bounds (_bounds_rows: one NaN lane must not
-// cull a live block). The block walks the parts in order: a part whose box
-// fails the block gate (_gate's slab arithmetic and slack against the
-// block's window) is skipped; otherwise one thread per chunk gates the
-// part's chunk boxes and a warp ballot gives the survivors in ascending
-// order. Before a surviving chunk is staged, every lane runs its own slab
-// test (segment.cuh enters, shared with the walk any-hits) against the
-// chunk box within its own window (closest: min(best,
-// t_limit); any hit: t_limit while unoccluded); a chunk no lane enters is
-// skipped (an exact skip: the box holds every triangle of the chunk, padded).
-// Otherwise the block stages the chunk's 512 plane rows (three float4 each)
-// into shared memory and the lanes that entered it test all of them with
-// dense_hit.cu's pair test (dense_common.cuh). The window, the max over
-// live lanes of min(best, t_limit) (any hit: of the unoccluded lanes'
-// t_limit), shrinks after every staged chunk, not only after every part as
-// on the TPU; chunks are visited in ascending index and a nearer hit must be
-// strictly nearer, so the lowest soup index still wins ties. The any-hit
-// block leaves once every live lane is occluded.
+// Design. One block of 128 threads per block of 128 rays. Invalid lanes
+// (t_limit <= 0 or a non-finite origin/direction) take no part and never
+// hit; t_limit is clamped finite. A per-lane cull in three levels, each
+// lane's own slab test (segment.cuh enters) within its own window (closest:
+// min(best, t_limit); any hit: t_limit while unoccluded), visited in
+// ascending index:
+//   1. the part boxes, a warp word of 32 at a time (held in shared memory);
+//      the lanes' masks are ORed block-wide behind one barrier;
+//   2. for each part some lane entered, the lanes that entered it test its
+//      chunk boxes, and for each chunk they enter its four group boxes: a
+//      mask of the part's (at most 128) groups per lane, ORed block-wide
+//      behind one barrier;
+//   3. each group some lane entered is staged: the lanes that want it
+//      (closest: those that still enter it within their window, which may
+//      have fallen since) list their rays in shared memory, and each of the
+//      128 threads takes one row of the group into registers and tests it
+//      against every listed ray (the soup's last group too: its pad rows
+//      are zero and never hit). One barrier per group: the lists and keys
+//      are double-buffered. A group no lane lists is not tested.
+// Every level is exact: a triangle lies in its group's padded box, inside
+// its chunk's, inside its part's, and the slab test is monotone in the box,
+// so a lane that holds a hit in a group enters all three. No block gate: a
+// bounce block crosses 0 on every direction axis, where it admits all.
 //
-// What bounds it: FP32 ALU per tested ray x triangle pair (closest 47 ops,
-// any 46, as in dense_hit.cu). Diffuse bounce blocks cross 0 on every
-// direction axis, where the block gate admits every chunk; the per-lane
-// chunk test is what keeps such a block from testing the whole table.
+// The tie rule. A closest hit is merged through a 64-bit key per listed
+// lane, atomicMin(float_as_uint(t) << 32 | row), row the soup index: t > 0,
+// so the key ends at the group's least t, then lowest row, whatever the
+// atomics' order. The lane merges its key after the next barrier with a
+// strict < on t; groups come in ascending soup index, so of two groups at
+// one t the lower keeps the win: the lowest soup index wins a tie, as in
+// the plain version. Until a key is merged the lane's window is its older,
+// larger best: conservative, so the cull stays exact.
 //
-// Counters. With a non-null ``stats`` ([5] u64, zeroed by the caller) each
-// block with a live lane adds 1 to stats[0], the parts it admits to
-// stats[1], the chunks that pass its gate and window to stats[2], the chunks
-// it stages to stats[3], and the lanes testing a staged chunk to stats[4].
-// Off (null) on the main path.
+// The any hit flags an occluded lane in shared memory; the lane then stops
+// testing, and the block leaves at the next group's barrier once every
+// valid lane is occluded.
+//
+// What bounds it: the least time is FP32 ALU per needed ray x row pair
+// (closest 47 ops, any 46, as in dense_hit.cu), plus ~30 per (lane, box)
+// slab test. On the card the kernels run well above it, and not for the
+// staged bytes (48 B of planes per row of each staged group): a block
+// stages the groups its lanes enter one after another, a barrier each for
+// a few listed lanes, and the blocks whose lanes scatter (bounce and shadow
+// rays in pixel order) stage several times the mean and set the launch's
+// time.
+//
+// Counters. With a non-null ``stats`` ([8] u64, zeroed by the caller) each
+// block with a valid lane adds 1 to stats[0], its valid lanes to stats[1],
+// the (lane, group) box tests that entered to stats[2], the groups it
+// stages (those some lane lists) to stats[3], the lanes listed on them to
+// stats[4], the (lane, row) pairs tested (pad rows of the soup's last group
+// included) to stats[5], and the (lane, part) and
+// (lane, chunk) box tests that entered to stats[6] and stats[7]. Off (null)
+// on the main path.
 //
 // Floating point. Built with -fmad=false (trace/cuda_lib.py): the candidate
 // t is dense_hit.cu's (1/det plus one Newton step), so best t and the winner
@@ -61,11 +86,16 @@
 
 namespace {
 
-constexpr int SBLK = 128;  // rays per block (dense_stream.py SBLK)
-constexpr int CH = 512;    // triangles per chunk (dense_stream.py CH)
-constexpr int MAX_CPP = 32;  // chunks per part: PART_TRIS / CH
+constexpr int SBLK = 128;        // rays per block (dense_stream.py SBLK)
+constexpr int CH = 512;          // rows per chunk (dense_stream.py CH)
+constexpr int QH = 128;          // rows per group (dense_stream.py QH)
+constexpr int QPC = CH / QH;     // groups per chunk
+constexpr int MAX_CPP = 32;      // chunks per part: PART_TRIS / CH
+constexpr int MAX_PARTS = 128;   // a 2M-triangle soup has 123
 constexpr int WARPS = SBLK / 32;
+constexpr int GWORDS = MAX_CPP * QPC / 32;  // group-mask words per part
 constexpr float T_CLAMP = 3.0e38f;  // finite stand-in for an infinite t_limit
+constexpr unsigned long long NO_KEY = ~0ull;  // a listed lane without a hit
 
 struct Ray {
   float o[3], d[3], inv[3];
@@ -73,25 +103,27 @@ struct Ray {
   bool valid;
 };
 
-// Conservative bounds of the block's valid lanes (_bounds_rows).
-struct Bounds {
-  float olo[3], ohi[3], dlo[3], dhi[3];
-  float tmax;
-  int anyv;
+// One listed lane of a staged group: its ray, its window in o.w and the
+// lane in d.w (int bits).
+struct Entry {
+  float4 o, d;
 };
 
 struct Shared {
-  float4 planes[3 * CH];  // n0|d0, n1|d1, n2|d2 of the staged chunk
-  float box[MAX_CPP][6];  // the part's chunk boxes
-  float te[MAX_CPP];      // their gate entry t
-  float th[MAX_CPP];      // and exit t, before the window
-  float red[WARPS][13];
-  float win[WARPS];
-  unsigned bits;
-  Bounds bb;
+  Entry list[2][WARPS][32];  // each warp's listed lanes, double-buffered
+  int cnt[2][WARPS];
+  // closest: each listed lane's least (t bits << 32 | row) in the group,
+  // same buffers; any hit: occluded lanes
+  union {
+    unsigned long long key[2][SBLK];
+    int occ[SBLK];
+  };
+  float pbox[MAX_PARTS][6];
+  unsigned pmask[MAX_PARTS / 32];      // block OR of the lanes' entered parts
+  unsigned gmask[MAX_PARTS][GWORDS];   // and of each part's entered groups
 };
 
-// Load this thread's ray; invalid lanes are zeroed with t_limit 0.
+// This thread's ray; an invalid lane is zeroed with t_limit 0.
 __device__ Ray load_ray(const float* __restrict__ orig, const float* __restrict__ dir,
                         const float* __restrict__ tlim, int n) {
   const int ray = blockIdx.x * SBLK + threadIdx.x;
@@ -116,277 +148,278 @@ __device__ Ray load_ray(const float* __restrict__ orig, const float* __restrict_
   return r;
 }
 
-// Block-wide bounds into sh.bb; every thread returns after the barrier that
-// publishes them.
-__device__ void block_bounds(const Ray& r, Shared& sh) {
-  // olo xyz (min) | ohi xyz (max) | dlo xyz (min) | dhi xyz (max) | tmax (max)
-  float v[13];
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    v[a] = r.valid ? r.o[a] : BIG;
-    v[3 + a] = r.valid ? r.o[a] : -BIG;
-    v[6 + a] = r.valid ? r.d[a] : BIG;
-    v[9 + a] = r.valid ? r.d[a] : -BIG;
-  }
-  v[12] = r.valid ? r.tl : 0.0f;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < 13; ++i) {
-      const float o = __shfl_xor_sync(0xffffffffu, v[i], off);
-      const bool is_min = (i < 3) || (i >= 6 && i < 9);
-      v[i] = is_min ? fminf(v[i], o) : fmaxf(v[i], o);
-    }
-  }
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int i = 0; i < 13; ++i) sh.red[threadIdx.x / 32][i] = v[i];
-  }
-  const int anyv = __syncthreads_or(r.valid);
-  if (threadIdx.x == 0) {
-    Bounds& b = sh.bb;
-    b.anyv = anyv;
-    float t[13];
-#pragma unroll
-    for (int i = 0; i < 13; ++i) {
-      t[i] = sh.red[0][i];
-      const bool is_min = (i < 3) || (i >= 6 && i < 9);
-      for (int w = 1; w < WARPS; ++w) {
-        t[i] = is_min ? fminf(t[i], sh.red[w][i]) : fmaxf(t[i], sh.red[w][i]);
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// The walk over the soup's parts, chunks and groups, as a closest hit
+// (CLOSEST true: best search t and soup index into out_t / out_idx) or a
+// shadow test (one flag per ray into out_any). The design is in the note at
+// the top.
+template <bool CLOSEST>
+__device__ __forceinline__ void stream_walk(
+    const float* __restrict__ aux, const float* __restrict__ cab, const float* __restrict__ pab,
+    const float* __restrict__ qab, int nparts, int cpp, const float* __restrict__ orig,
+    const float* __restrict__ dir, const float* __restrict__ tlim, int n, float* __restrict__ out_t,
+    int* __restrict__ out_idx, uint8_t* __restrict__ out_any,
+    unsigned long long* __restrict__ stats) {
+  __shared__ Shared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gpp = cpp * QPC;  // groups per part
+  volatile int* occs = sh.occ;
+
+  const Ray r = load_ray(orig, dir, tlim, n);
+  if constexpr (!CLOSEST) occs[tid] = 0;
+  if (tid < MAX_PARTS / 32) sh.pmask[tid] = 0u;
+  for (int i = tid; i < MAX_PARTS * GWORDS; i += SBLK) (&sh.gmask[0][0])[i] = 0u;
+  for (int i = tid; i < nparts * 6; i += SBLK) (&sh.pbox[0][0])[i] = pab[i];
+  const int live = __syncthreads_count(r.valid);
+
+  bool occ = false;   // any hit
+  float best = BIG;   // closest: the merged winner,
+  int best_row = -1;
+  int pend = -1;      // and the buffer whose key is not yet merged
+  // closest: merge the key of the group this lane last listed on, once a
+  // barrier has passed since its tests; strict <, so of two groups at one
+  // t the lower (visited first) keeps the win
+  auto settle = [&]() {
+    if constexpr (CLOSEST) {
+      if (pend >= 0) {
+        const unsigned long long key = sh.key[pend][tid];
+        const float t = __uint_as_float((unsigned)(key >> 32));
+        if (key != NO_KEY && t < best) {
+          best = t;
+          best_row = (int)(key & 0xffffffffu);
+        }
+        pend = -1;
       }
     }
+  };
+  unsigned long long parts_n = 0, chunks_n = 0, groups_n = 0, staged = 0, listed_n = 0,
+                     pairs = 0;
+  if (live > 0) {
+    int buf = 0;
+    bool done = false;  // any hit: every valid lane is occluded
+    for (int w = 0; w * 32 < nparts && !done; ++w) {
+      // level 1: each open lane's test of the word's part boxes
+      const bool open = CLOSEST ? r.valid : r.valid && !occ;
+      const float tw = CLOSEST ? fminf(best, r.tl) : r.tl;
+      const int nw = min(32, nparts - 32 * w);
+      unsigned mine = 0u;
+      if (open) {
+        for (int j = 0; j < nw; ++j) {
+          if (enters(r.o, r.d, r.inv, sh.pbox[32 * w + j], tw)) mine |= 1u << j;
+        }
+      }
+      parts_n += __popc(mine);
+      const unsigned wm = __reduce_or_sync(0xffffffffu, mine);
+      if (lane == 0 && wm != 0u) atomicOr(&sh.pmask[w], wm);
+      if (!__syncthreads_or(open)) break;
+      settle();
+      for (unsigned pm = sh.pmask[w]; pm && !done; pm &= pm - 1) {
+        const int p = 32 * w + __ffs(pm) - 1;
+        // levels 2 and 3: the part's chunk boxes, then the group boxes of
+        // each chunk entered, by the lanes that entered the part
+        unsigned gm[GWORDS] = {0u, 0u, 0u, 0u};
+        if (((mine >> (p - 32 * w)) & 1u) && (CLOSEST || !occ)) {
+          const float tp = CLOSEST ? fminf(best, r.tl) : r.tl;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      b.olo[a] = t[a];
-      b.ohi[a] = t[3 + a];
-      b.dlo[a] = t[6 + a];
-      b.dhi[a] = t[9 + a];
+          for (int k = 0; k < GWORDS; ++k) {
+            for (int c8 = 0; c8 < 32 / QPC; ++c8) {
+              const int c = (32 / QPC) * k + c8;
+              if (c >= cpp) break;
+              const int chunk = p * cpp + c;
+              if (!enters(r.o, r.d, r.inv, cab + (size_t)chunk * 6, tp)) continue;
+              ++chunks_n;
+#pragma unroll
+              for (int q = 0; q < QPC; ++q) {
+                if (enters(r.o, r.d, r.inv, qab + ((size_t)chunk * QPC + q) * 6, tp)) {
+                  gm[k] |= 1u << (QPC * c8 + q);
+                  ++groups_n;
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < GWORDS; ++k) {
+          const unsigned v = __reduce_or_sync(0xffffffffu, gm[k]);
+          if (lane == 0 && v != 0u) atomicOr(&sh.gmask[p][k], v);
+        }
+        if (!__syncthreads_or(CLOSEST ? r.valid : r.valid && !occ)) {
+          done = true;
+          break;
+        }
+        settle();
+        // stage each entered group in ascending index; only the lanes that
+        // want it list their rays
+        for (int k = 0; k < GWORDS && !done; ++k) {
+          const unsigned mk = k == 0 ? gm[0] : k == 1 ? gm[1] : k == 2 ? gm[2] : gm[3];
+          for (unsigned m = sh.gmask[p][k]; m; m &= m - 1) {
+            const int b = __ffs(m) - 1;
+            const int g = p * gpp + 32 * k + b;
+            bool want = (mk >> b) & 1u;
+            if constexpr (CLOSEST) {
+              want = want && enters(r.o, r.d, r.inv, qab + (size_t)g * 6, fminf(best, r.tl));
+            } else {
+              want = want && !occ;
+            }
+            const unsigned bal = __ballot_sync(0xffffffffu, want);
+            if (want) {
+              Entry& en = sh.list[buf][warp][__popc(bal & ((1u << lane) - 1u))];
+              en.o = make_float4(r.o[0], r.o[1], r.o[2], CLOSEST ? fminf(best, r.tl) : r.tl);
+              en.d = make_float4(r.d[0], r.d[1], r.d[2], __int_as_float(tid));
+              if constexpr (CLOSEST) sh.key[buf][tid] = NO_KEY;
+            }
+            if (lane == 0) sh.cnt[buf][warp] = __popc(bal);
+            // this thread's row of the group, into registers
+            const int row = g * QH + tid;
+            const float4* src = reinterpret_cast<const float4*>(aux + (size_t)row * AUX_COLS);
+            const float4 pa = src[0], pb = src[1], pc = src[2];
+            // any hit: the valid lanes not known occluded (a lane hit by
+            // another thread since its last read still counts: high, never
+            // low)
+            const int open_n = __syncthreads_count(CLOSEST ? want : r.valid && !occ);
+            if constexpr (CLOSEST) {
+              settle();  // the previous staged group's tests are done
+              if (want) pend = buf;
+            } else if (open_n == 0) {
+              done = true;
+              break;
+            }
+            int listed = 0;
+#pragma unroll
+            for (int lw = 0; lw < WARPS; ++lw) listed += sh.cnt[buf][lw];
+            if (listed > 0) {
+              ++staged;
+              listed_n += listed;
+              // thread tid tests row tid against every listed lane: the
+              // least t, then the lowest row, of this group into the lane's
+              // key (t > 0, so its bits order as the floats), or the lane's
+              // occluded flag
+              for (int lw = 0; lw < WARPS; ++lw) {
+                const int cnt = sh.cnt[buf][lw];
+                for (int i = 0; i < cnt; ++i) {
+                  const Entry& en = sh.list[buf][lw][i];
+                  const int who = __float_as_int(en.d.w);
+                  if constexpr (!CLOSEST) {
+                    if (occs[who]) continue;
+                  }
+                  ++pairs;
+                  const Terms q =
+                      terms(en.o.x, en.o.y, en.o.z, en.d.x, en.d.y, en.d.z, pa, pb, pc);
+                  if constexpr (CLOSEST) {
+                    float t;
+                    if (closest_pair(q, en.o.w, t)) {
+                      atomicMin(&sh.key[buf][who],
+                                ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)row);
+                    }
+                  } else {
+                    if (shadow_pair(q, en.o.w)) occs[who] = 1;
+                  }
+                }
+              }
+            }
+            // any hit: later hits by other threads show at the next read
+            if constexpr (!CLOSEST) occ = occs[tid] != 0;
+            buf ^= 1;
+          }
+        }
+      }
     }
-    b.tmax = t[12];
   }
   __syncthreads();
-}
+  settle();
 
-// _gate's conservative slab test of ``box`` (lo xyz | hi xyz) against the
-// block's bounds: entry t_lo and exit t_hi before the window.
-__device__ __forceinline__ void slab(const Bounds& b, const float* box, float& t_lo,
-                                     float& t_hi) {
-  t_lo = 0.0f;
-  t_hi = BIG;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float nlo = box[k] - b.ohi[k];
-    const float nhi = box[3 + k] - b.olo[k];
-    const float dl = b.dlo[k], dh = b.dhi[k];
-    const bool crosses = dl <= 0.0f && dh >= 0.0f;
-    const float sl = dl == 0.0f ? 1.0f : dl;
-    const float sh = dh == 0.0f ? 1.0f : dh;
-    const float c0 = nlo / sl, c1 = nlo / sh, c2 = nhi / sl, c3 = nhi / sh;
-    const float lo = fminf(fminf(c0, c1), fminf(c2, c3));
-    const float hi = fmaxf(fmaxf(c0, c1), fmaxf(c2, c3));
-    t_lo = fmaxf(t_lo, crosses ? -BIG : lo);
-    t_hi = fminf(t_hi, crosses ? BIG : hi);
-  }
-}
-
-// The gate against the window: t_hi is capped at win*1.00002 + 1e-5.
-__device__ __forceinline__ bool admits(float t_lo, float t_hi, float win) {
-  return t_lo <= fminf(t_hi, win * WIN_MUL + WIN_ADD);
-}
-
-// Gate part p's chunk boxes (one thread each, warp 0) against the window:
-// boxes, entry and exit t into shared memory, survivors into sh.bits (bit =
-// chunk within the part). Starts and ends with a barrier.
-__device__ void gate_part(const float* __restrict__ cab, int p, int cpp, float win, Shared& sh) {
-  __syncthreads();  // the previous part's entries are consumed
-  if (threadIdx.x < 32) {
-    const int c = threadIdx.x;
-    bool ok = false;
-    if (c < cpp) {
-      const float* src = cab + (size_t)(p * cpp + c) * 6;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) sh.box[c][k] = src[k];
-      float t_lo, t_hi;
-      slab(sh.bb, sh.box[c], t_lo, t_hi);
-      sh.te[c] = t_lo;
-      sh.th[c] = t_hi;
-      ok = admits(t_lo, t_hi, win);
+  if (stats != nullptr && live > 0) {
+    parts_n = warp_sum(parts_n);
+    chunks_n = warp_sum(chunks_n);
+    groups_n = warp_sum(groups_n);
+    pairs = warp_sum(pairs);
+    if (lane == 0) {
+      atomicAdd(stats + 2, groups_n);
+      atomicAdd(stats + 5, pairs);
+      atomicAdd(stats + 6, parts_n);
+      atomicAdd(stats + 7, chunks_n);
     }
-    const unsigned bits = __ballot_sync(0xffffffffu, ok);
-    if (c == 0) sh.bits = bits;
+    if (tid == 0) {
+      atomicAdd(stats, 1ull);
+      atomicAdd(stats + 1, (unsigned long long)live);
+      atomicAdd(stats + 3, staged);
+      atomicAdd(stats + 4, listed_n);
+    }
   }
-  __syncthreads();
-}
-
-// Block-wide max of x (then a barrier); every thread gets the result.
-__device__ __forceinline__ float block_max(float x, Shared& sh) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  if ((threadIdx.x & 31) == 0) sh.win[threadIdx.x / 32] = x;
-  __syncthreads();
-  float m = sh.win[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) m = fmaxf(m, sh.win[w]);
-  return m;
-}
-
-struct Counters {
-  unsigned long long parts, gated, staged, lanes;
-};
-
-__device__ __forceinline__ void count(unsigned long long* stats, int anyv, const Counters& c) {
-  if (stats != nullptr && threadIdx.x == 0 && anyv) {
-    atomicAdd(stats, 1ull);
-    atomicAdd(stats + 1, c.parts);
-    atomicAdd(stats + 2, c.gated);
-    atomicAdd(stats + 3, c.staged);
-    atomicAdd(stats + 4, c.lanes);
+  const int ray = blockIdx.x * SBLK + tid;
+  if (ray >= n) return;
+  if constexpr (CLOSEST) {
+    out_t[ray] = best;
+    out_idx[ray] = best_row;
+  } else {
+    out_any[ray] = occs[tid] != 0 ? 1 : 0;
   }
 }
 
 __global__ void __launch_bounds__(SBLK)
 stream_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cab,
-                      const float* __restrict__ pab, int nparts, int cpp,
-                      const float* __restrict__ orig, const float* __restrict__ dir,
-                      const float* __restrict__ tlim, int n, float* __restrict__ out_t,
-                      int* __restrict__ out_idx, unsigned long long* __restrict__ stats) {
-  __shared__ Shared sh;
-  const Ray r = load_ray(orig, dir, tlim, n);
-  block_bounds(r, sh);
-  const int n_rows = nparts * cpp * CH;
-
-  float best = BIG;
-  int idx = -1;
-  Counters cn = {};
-  if (sh.bb.anyv) {
-    float win = sh.bb.tmax;  // uniform across the block
-    for (int p = 0; p < nparts; ++p) {
-      float t_lo, t_hi;
-      slab(sh.bb, pab + (size_t)p * 6, t_lo, t_hi);
-      if (!admits(t_lo, t_hi, win)) continue;
-      ++cn.parts;
-      gate_part(cab, p, cpp, win, sh);
-      for (unsigned m = sh.bits; m; m &= m - 1) {
-        const int c = __ffs(m) - 1;
-        if (!admits(sh.te[c], sh.th[c], win)) continue;
-        ++cn.gated;
-        const bool want = r.valid && enters(r.o, r.d, r.inv, sh.box[c], fminf(best, r.tl));
-        const int lanes = __syncthreads_count(want);
-        if (lanes == 0) continue;
-        ++cn.staged;
-        cn.lanes += lanes;
-        const int base = (p * cpp + c) * CH;
-        load_rows<CH>(aux, n_rows, base, sh.planes);
-        __syncthreads();
-        if (want) {
-          for (int j = 0; j < CH; ++j) {
-            const Terms q = terms(r.o[0], r.o[1], r.o[2], r.d[0], r.d[1], r.d[2], sh.planes[j],
-                                  sh.planes[CH + j], sh.planes[2 * CH + j]);
-            float t;
-            // strict <: the lowest soup index wins ties
-            if (closest_pair(q, r.tl, t) && t < best) {
-              best = t;
-              idx = base + j;
-            }
-          }
-        }
-        win = fminf(win, block_max(fminf(best, r.tl), sh));
-      }
-    }
-  }
-  const int ray = blockIdx.x * SBLK + threadIdx.x;
-  if (ray < n) {
-    out_t[ray] = best;
-    out_idx[ray] = idx;
-  }
-  count(stats, sh.bb.anyv, cn);
+                      const float* __restrict__ pab, const float* __restrict__ qab, int nparts,
+                      int cpp, const float* __restrict__ orig,
+                      const float* __restrict__ dir, const float* __restrict__ tlim, int n,
+                      float* __restrict__ out_t, int* __restrict__ out_idx,
+                      unsigned long long* __restrict__ stats) {
+  stream_walk<true>(aux, cab, pab, qab, nparts, cpp, orig, dir, tlim, n, out_t, out_idx,
+                    nullptr, stats);
 }
 
-// Shadow test (_stream_any_kernel): shadow_pair over the staged chunks,
-// each lane until it is occluded, the block until every live lane is.
+// Shadow test (_stream_any_kernel): shadow_pair over the staged groups,
+// each lane until it is occluded, the block until every valid lane is.
 __global__ void __launch_bounds__(SBLK)
 stream_any_kernel(const float* __restrict__ aux, const float* __restrict__ cab,
-                  const float* __restrict__ pab, int nparts, int cpp,
-                  const float* __restrict__ orig, const float* __restrict__ dir,
-                  const float* __restrict__ tlim, int n, uint8_t* __restrict__ out,
-                  unsigned long long* __restrict__ stats) {
-  __shared__ Shared sh;
-  const Ray r = load_ray(orig, dir, tlim, n);
-  block_bounds(r, sh);
-  const int n_rows = nparts * cpp * CH;
+                  const float* __restrict__ pab, const float* __restrict__ qab, int nparts,
+                  int cpp, const float* __restrict__ orig,
+                  const float* __restrict__ dir, const float* __restrict__ tlim, int n,
+                  uint8_t* __restrict__ out, unsigned long long* __restrict__ stats) {
+  stream_walk<false>(aux, cab, pab, qab, nparts, cpp, orig, dir, tlim, n, nullptr,
+                     nullptr, out, stats);
+}
 
-  bool occ = false;
-  Counters cn = {};
-  if (sh.bb.anyv) {
-    float win = sh.bb.tmax;  // uniform; 0 once every live lane is occluded
-    for (int p = 0; p < nparts && win > 0.0f; ++p) {
-      float t_lo, t_hi;
-      slab(sh.bb, pab + (size_t)p * 6, t_lo, t_hi);
-      if (!admits(t_lo, t_hi, win)) continue;
-      ++cn.parts;
-      gate_part(cab, p, cpp, win, sh);
-      for (unsigned m = sh.bits; m && win > 0.0f; m &= m - 1) {
-        const int c = __ffs(m) - 1;
-        if (!admits(sh.te[c], sh.th[c], win)) continue;
-        ++cn.gated;
-        const bool want = r.valid && !occ && enters(r.o, r.d, r.inv, sh.box[c], r.tl);
-        const int lanes = __syncthreads_count(want);
-        if (lanes == 0) continue;
-        ++cn.staged;
-        cn.lanes += lanes;
-        const int base = (p * cpp + c) * CH;
-        load_rows<CH>(aux, n_rows, base, sh.planes);
-        __syncthreads();
-        if (want) {
-          for (int j = 0; j < CH; ++j) {
-            if (shadow_pair(terms(r.o[0], r.o[1], r.o[2], r.d[0], r.d[1], r.d[2], sh.planes[j],
-                                  sh.planes[CH + j], sh.planes[2 * CH + j]),
-                            r.tl)) {
-              occ = true;
-              break;
-            }
-          }
-        }
-        win = fminf(win, block_max(occ ? 0.0f : r.tl, sh));
-      }
-    }
-  }
-  const int ray = blockIdx.x * SBLK + threadIdx.x;
-  if (ray < n) out[ray] = occ ? 1 : 0;
-  count(stats, sh.bb.anyv, cn);
+bool bad_table(int nparts, int cpp) {
+  return nparts < 1 || nparts > MAX_PARTS || cpp < 1 || cpp > MAX_CPP;
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers; the stream
 // is the caller's cudaStream_t. Each returns cudaGetLastError() after the
-// launch (0 = success); nothing synchronises. ``stats`` may be null.
+// launch (0 = success; a table outside the kernels' sizes is
+// cudaErrorInvalidValue); nothing synchronises. ``stats`` may be null.
 extern "C" int stream_closest(int device, const float* aux, const float* cab, const float* pab,
-                              int nparts, int cpp, const float* orig, const float* dir,
-                              const float* tlim, int n, float* out_t, int* out_idx,
-                              unsigned long long* stats, void* stream) {
+                              const float* qab, int nparts, int cpp, const float* orig,
+                              const float* dir, const float* tlim, int n, float* out_t,
+                              int* out_idx, unsigned long long* stats, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (cpp < 1 || cpp > MAX_CPP) return (int)cudaErrorInvalidValue;
+  if (bad_table(nparts, cpp)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + SBLK - 1) / SBLK;
     stream_closest_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
-        aux, cab, pab, nparts, cpp, orig, dir, tlim, n, out_t, out_idx, stats);
+        aux, cab, pab, qab, nparts, cpp, orig, dir, tlim, n, out_t, out_idx, stats);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int stream_any(int device, const float* aux, const float* cab, const float* pab,
-                          int nparts, int cpp, const float* orig, const float* dir,
-                          const float* tlim, int n, uint8_t* out, unsigned long long* stats,
-                          void* stream) {
+                          const float* qab, int nparts, int cpp, const float* orig,
+                          const float* dir, const float* tlim, int n, uint8_t* out,
+                          unsigned long long* stats, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (cpp < 1 || cpp > MAX_CPP) return (int)cudaErrorInvalidValue;
+  if (bad_table(nparts, cpp)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int blocks = (n + SBLK - 1) / SBLK;
     stream_any_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
-        aux, cab, pab, nparts, cpp, orig, dir, tlim, n, out, stats);
+        aux, cab, pab, qab, nparts, cpp, orig, dir, tlim, n, out, stats);
   }
   return (int)cudaGetLastError();
 }

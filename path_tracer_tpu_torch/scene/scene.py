@@ -15,7 +15,7 @@ can be fed identical tables:
   ``dense`` (the dense engine's ``aux`` rows and ``cab`` chunk boxes,
   `trace.dense_cuda`), ``walk``
   (the walk engine's tables, `trace.walk.pack_walk`) or ``stream`` (the
-  streamed dense engine's ``aux``/``cab``/``pab``,
+  streamed dense engine's ``aux``/``cab``/``pab``/``qab``,
   `trace.dense_stream.pack_dense_stream`)
   or ``bvh`` (the stack BVH's ``nodes``/``tris``, `trace.bvh_stack.pack`);
 * ``light`` (scenes with emitters): ``cdf``, ``rows`` (pdf, area, emitted rgb,
@@ -307,7 +307,8 @@ def from_jax_scene(data: dict, device) -> SceneData:
     ``dense``, ``dense_pl``, ``walk``) are ignored and the port's dense or
     walk tables rebuilt (the walk's from ``tri["positions"]``), except a
     ``dense_stream`` engine, whose ``aux``/``cab``/``pab`` are carried over
-    as they are and traced by the port's streamed engine, and the stack BVH
+    as they are (its group boxes ``qab`` rebuilt from ``tri["positions"]``)
+    and traced by the port's streamed engine, and the stack BVH
     row tables (``bvh``/``lights_bvh`` ``packed`` and the triangle tables'
     ``packed``) of a table the port traces through its stack BVH. A two-level
     dict (empty ``tri``) must hold a single-part vwalk or iwalk engine in
@@ -321,7 +322,9 @@ def from_jax_scene(data: dict, device) -> SceneData:
         for k in ("normals_flat", "model_rows", "positions"):
             tri[k] = a(jt[k])
         if "dense_stream" in jt:
-            tri["stream"] = {k: a(jt["dense_stream"][k]) for k in dense_stream.TABLES}
+            stream = {k: a(jt["dense_stream"][k]) for k in dense_stream.JAX_TABLES}
+            stream["qab"] = dense_stream.pack_qab(tri["positions"], stream["aux"].shape[0])
+            tri["stream"] = stream
         if world_engine(tri["n0"].shape[0]) == "bvh":
             tri["bvh"] = {"nodes": a(data["bvh"]["packed"]), "tris": a(jt["packed"])}
     out = {"tri": tri, "mat": {"rows": a(data["mat"]["rows"])}, "env": a(data["env"])}

@@ -123,8 +123,9 @@ def _assert_closest_agrees(j, t, edge_ok=False):
 
 @pytest.mark.parametrize("shape", ["bumpy_3_parts", "icosphere_1_part"])
 def test_pack_dense_stream_bit_equal(shape):
-    """Every table the port keeps equals the JAX one bit for bit (the MXU
-    weight table ``w`` is dropped), ``meta`` included."""
+    """Every table the port shares with the JAX package equals the JAX one
+    bit for bit (the MXU weight table ``w`` is dropped), ``meta`` included;
+    the port adds its group boxes ``qab`` (`pack_qab`)."""
     if shape == "bumpy_3_parts":
         args = (*jproc.bumpy_sphere(nu=136, nv=136), *tproc.bumpy_sphere(nu=136, nv=136))
         model = (np.arange(36992) % 7).astype(np.int64)
@@ -132,9 +133,10 @@ def test_pack_dense_stream_bit_equal(shape):
         args = (*jproc.icosphere(subdivisions=3), *tproc.icosphere(subdivisions=3))
         model = None
     j, t = _pack_both(*args, model)
-    assert set(t) == set(j) - {"w"}
+    assert set(t) == set(j) - {"w"} | {"qab"}
     assert t["meta"] == j["meta"] and t["meta"]["nparts"] == (3 if model is not None else 1)
-    for k in tds.TABLES:
+    np.testing.assert_array_equal(t["qab"], tds.pack_qab(args[2], t["aux"].shape[0]))
+    for k in tds.JAX_TABLES:
         assert t[k].dtype == j[k].dtype and t[k].shape == j[k].shape, k
         np.testing.assert_array_equal(t[k], j[k], err_msg=k)
     assert (t["aux"][t["meta"]["n_tris"]:] == 0).all()  # pad rows never hit
@@ -209,8 +211,11 @@ def test_render_sample_stream_matches_jax():
     j = [np.asarray(x) for x in jrender(jd, jnp.asarray(ndc), jnp.asarray(org), 0, 16, 16, **args)]
     td = tscene.from_jax_scene(jax.tree_util.tree_map(np.asarray, jd), "cpu")
     assert "stream" in td["tri"] and "walk" not in td["tri"] and "dense" not in td["tri"]
-    for k in tds.TABLES:
+    for k in tds.JAX_TABLES:
         np.testing.assert_array_equal(td["tri"]["stream"][k].numpy(), tables[k], err_msg=k)
+    # the port's group boxes, rebuilt from the soup's positions
+    np.testing.assert_array_equal(td["tri"]["stream"]["qab"].numpy(),
+                                  tds.pack_qab(sh.tri["positions"], tables["aux"].shape[0]))
     n0 = dict(LAUNCHES)
     t = [x.numpy() for x in tw.render_sample(td, torch.from_numpy(ndc), torch.from_numpy(org), 0, 16, 16,
                                              **args)]

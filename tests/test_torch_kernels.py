@@ -536,7 +536,7 @@ def stream_case(cuda):
     model = rng.integers(0, 5, pos.shape[0])
     tables = ds.pack_dense_stream(tri_mod.precompute(pos), nrm.reshape(-1, 9), model, pos)
     assert tables["meta"]["nparts"] == 3
-    eng = {k: torch.from_numpy(tables[k]).to(cuda) for k in ds.TABLES}
+    eng = ds.upload(tables, cuda)
     n = 1024
     o1 = rng.normal(size=(n // 2, 3))
     o1 = 3.0 * o1 / np.linalg.norm(o1, axis=1, keepdims=True)
@@ -606,25 +606,73 @@ def test_stream_kernel_rejects_bad_inputs(stream_case):
     with pytest.raises(ValueError):
         ds.any_cuda({**eng, "pab": eng["pab"][:2].contiguous()}, o, d, tl)
     with pytest.raises(ValueError):
+        ds.any_cuda({**eng, "qab": eng["qab"][:-1].contiguous()}, o, d, tl)
+    with pytest.raises(ValueError, match="qab"):
+        ds.closest_cuda({k: v for k, v in eng.items() if k != "qab"}, o, d, tl)
+    with pytest.raises(ValueError):
         ds.any_cuda({k: v.cpu() for k, v in eng.items()}, o, d, tl)
 
 
 def test_stream_stats_counts(stream_case):
-    """The counters of both stream kernels: live blocks, admitted parts,
-    gated and staged chunks, lanes per staged chunk; a counted launch's
-    results equal an uncounted one's."""
+    """The counters of both stream kernels: blocks and lanes, the boxes
+    entered at each level (a lane enters a chunk's group only after its
+    chunk, a chunk only after its part), staged groups (each with a listed
+    lane), listed lanes and pairs, consistent with each other; the closest
+    hit tests fewer pairs than every row; counting does not change the
+    results."""
     eng, (o, d, tl), rays = stream_case
-    chunks = eng["cab"].shape[0]
+    valid = int(ds._valid(*rays).sum())
+    groups = eng["qab"].shape[0]
+    nt = ds.QH * int((eng["qab"][:, 0:3] <= eng["qab"][:, 3:6]).all(1).sum())  # rows of real groups
     for query in ("closest", "any"):
         s = ds.stream_stats(eng, o, d, tl, query=query)
-        assert 0 < s["blocks"] <= 8 and 0 < s["parts"] <= 3 * s["blocks"]
-        assert 0 < s["staged"] <= s["gated"] <= chunks * s["blocks"]
-        assert 0 < s["lane_visits"] <= 128 * s["staged"]
-    stats = torch.zeros(5, dtype=torch.int64, device=o.device)
+        assert s["blocks"] == 8 and s["lanes"] == valid
+        assert 0 < s["parts"] <= 3 * s["lanes"]
+        assert s["chunks"] <= 32 * s["parts"] and s["groups"] <= 4 * s["chunks"]
+        assert 0 < s["staged"] <= groups * s["blocks"] and s["staged"] <= s["listed"]
+        assert s["listed"] <= s["groups"] and 0 < s["pairs"] <= s["listed"] * ds.QH
+        assert s["pairs"] <= s["lanes"] * nt
+        if query == "closest":
+            assert s["pairs"] < 0.5 * s["lanes"] * nt
+    stats = torch.zeros(ds.NSTATS, dtype=torch.int64, device=o.device)
     assert all(torch.equal(a, b) for a, b in zip(ds.closest_cuda(eng, *rays, stats=stats),
                                                  ds.closest_cuda(eng, *rays)))
     with pytest.raises(ValueError):
         ds.closest_cuda(eng, *rays, stats=stats[:-1])
+
+
+def test_stream_edge_cases_equal_plain(stream_case):
+    """The stream kernels' three-level cull on its edge cases (axis-parallel
+    rays, rays from and along part, chunk and group box faces, limits one
+    ulp either side of a closest t): both queries equal the ungated plain
+    versions and the plain models of the cull."""
+    eng, _, (o, d, tl) = stream_case
+    kt, ki = ds.closest_cuda(eng, o, d, tl)
+    boxes = torch.cat([b[(b[:, 0:3] <= b[:, 3:6]).all(dim=1)]
+                       for b in (eng["pab"], eng["cab"], eng["qab"])])
+    lo, hi = boxes[:, 0:3], boxes[:, 3:6]
+    root = {"root_lo": eng["pab"][:, 0:3].amin(0), "root_hi": eng["pab"][:, 3:6].amax(0)}
+    eo, ed, et = _edge_rays(root, lo, hi, kt, ki.long(), o, d, tl, 29)
+    ka, pa = ds.any_cuda(eng, eo, ed, et), ds.any_plain(eng, eo, ed, et)
+    assert 0.1 < pa.float().mean() < 0.95
+    assert torch.equal(ka, pa) and torch.equal(ds.culled_any_plain(eng, eo, ed, et), pa)
+    kc, pc = ds.closest_cuda(eng, eo, ed, et), ds.closest_plain(eng, eo, ed, et)
+    assert all(torch.equal(a, b) for a, b in zip(kc, pc))
+    assert all(torch.equal(a, b) for a, b in zip(ds.culled_closest_plain(eng, eo, ed, et), pc))
+
+
+def test_stream_closest_ties_equal_plain(cuda):
+    """``dense_stream.tie_soup``: every ray's closest hit is one triangle
+    held in parts 0 and 1 (twice within one group of part 0); the kernel
+    picks the lowest soup index, as the plain version does, and its t."""
+    pos, o, d = ds.tie_soup()
+    eng = ds.upload(ds.pack_dense_stream(tri_mod.precompute(pos), None, None, pos), cuda)
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    tl = torch.full((o.shape[0],), 3.0e38, device=cuda)
+    (kt, ki), (pt, pi) = ds.closest_cuda(eng, o, d, tl), ds.closest_plain(eng, o, d, tl)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt) and bool((ki == ds.TIE_ROWS[0]).all())
+    lim = (kt * 1.001).contiguous()
+    assert torch.equal(ds.any_cuda(eng, o, d, lim), ds.any_plain(eng, o, d, lim))
 
 
 def test_row_gather_kernel_equals_plain(cuda):
