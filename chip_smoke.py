@@ -41,10 +41,9 @@ Phases (any failure raises and the script exits non-zero without the final
    from the camera hits, 1,179,648 shadow rays toward the light), compared
    with the plain versions on 16,384 rays of each, with gate survivors
    admitted and skipped, chunks staged per block, entering lanes per staged
-   chunk and the tested against the needed pairs; with ``--parent``, the
-   closest hit at the camera and bounce shapes beside the kernel built from
-   each directory given, a parent commit's csrc or a variant of it (other,
-   this, this, other);
+   chunk and the tested against the needed pairs; with ``--parent``, each
+   shape beside the kernel built from each directory given, a parent
+   commit's csrc or a variant of it (other, this, this, other);
 8. the offline render of ``dragon_scene`` at 1024x576, 2 spp, 64 bounces
    through the CLI, with bounce steps and launch counts (the CLI gets phase
    6's host scene, built once: phases 8 and 18 print no build time of
@@ -54,27 +53,37 @@ Phases (any failure raises and the script exits non-zero without the final
 10. (with phase 2) ``iwalk_hit.cu``, built in the same call, its ptxas lines;
 11. the two-level kernels against their plain versions on the full
     two-level dragon tables (made from phase 6's models; 10,070 virtual
-    chunks): vwalk on 32,768 camera + 32,768 random rays with inf / 0 / NaN
-    lanes, the float64 plain version on 4,096 of them, iwalk on 4,096, both
-    any-hits; and the vwalk public query against the baked walk's on the
-    same rays (hit flags, t);
-12. the two-level kernels timed at the render's shapes: vwalk on the
-    two-level dragon (589,824 camera, 589,824 bounce, 1,179,648 shadow
-    rays; with ``--parent``, the closest hit beside the parent's as in
-    phase 7), iwalk on 4,096 of the dragon's bounce and shadow rays, and
-    iwalk on ``many_instance_scene`` at 1920x1080 (2,073,600 camera and
-    bounce rays, 4,147,200 shadow rays), each compared with its plain
-    version on 16,384 rays (4,096 for the dragon's iwalk), with gate
-    entries visited and chunks staged per block (and for vwalk the tested
-    against the needed pairs), then vwalk's edge cases for both queries as
-    in phase 7 and its tie set (two coincident instances of the tie soup
-    with its triangle held twice);
+    chunks, 5,037 object chunks in 162 parts): vwalk on 32,768 camera +
+    32,768 random rays with inf / 0 / NaN lanes, the float64 plain version
+    on 4,096 of them, iwalk on 4,096, both any-hits; iwalk's kernels against
+    vwalk's on every ray (t and flags equal); and the vwalk public query
+    against the baked walk's on the same rays (hit flags, t);
+12. the two-level kernels timed at the render's shapes: vwalk and iwalk on
+    the same rays of the two-level dragon (589,824 camera, 589,824 bounce,
+    1,179,648 shadow rays; with ``--parent``, vwalk's queries beside the
+    parent's as in phase 7, and iwalk's closest and any hit beside the
+    parent's on 32,768 bounce and shadow rays of whole blocks, or at every
+    shape for a variant that takes this tree's tables), and iwalk
+    on ``many_instance_scene`` at 1920x1080 (2,073,600 camera and bounce
+    rays, 4,147,200 shadow rays; with ``--parent``, both queries beside the
+    parent's at every shape), each compared with its plain version on
+    16,384 rays, with gate entries admitted, chunks staged per block, lanes
+    listed per staged chunk, the tested against the needed pairs, and for
+    iwalk the instances, parts and chunks entered per valid lane; then
+    both culls' edge cases for both queries as in phase 7 (iwalk's face
+    rays from its object chunk boxes, through an instance), and the tie
+    sets: vwalk's closest hit on two coincident instances of the tie soup
+    with its triangle held twice, iwalk's closest and any hit on two
+    coincident instances with the triangle in two object chunks, twice in
+    one (`iwalk.tie_tables`);
 13. ``dragon_scene --two-level`` through the CLI at 1024x576, 2 spp: host
     build, engine table bytes against the baked walk's, trace, bounce
     steps, launch counts (vwalk > 0, walk 0);
 14. ``many_instance_scene --two-level`` through the CLI at 1920x1080, 4 spp
     (vwalk), then ``PT_VWALK=0`` the same through the CLI at 1 spp (iwalk
-    launches > 0, vwalk 0);
+    launches > 0, vwalk 0), then ``PT_VWALK=0 dragon_scene --two-level``
+    through the CLI at 1024x576, 1 spp (iwalk launches > 0, vwalk 0) and
+    the same sample through vwalk in process: image means within 1%;
 15. ``many_instance_scene(grid=3, subdivisions=1)`` two-level at 32x32,
     4 spp: CPU against the card for both engines, and two-level against
     baked on the card: image means within 1%;
@@ -104,10 +113,12 @@ Phases (any failure raises and the script exits non-zero without the final
     bounces (stream launches > 0, walk 0), then the same render through the
     walk in process (sample 0, the same seeds): image means within 1%;
 19. ``dragon_scene(nu=96, nv=64, env_h=64)`` with ``engine="stream"`` at
-    32x32, 4 spp on the CPU and on the card: image means within 1%;
+    32x32, 4 spp, 16 bounces on the CPU and on the card: image means within
+    1%;
 20. the gather probes (``python -m path_tracer_tpu_torch.probes.gather``):
     row gather and in-tile gather kernels equal to their plain and library
-    versions, timed;
+    versions, timed, each kernel and its library call as the median of 200
+    single launches each, alternating;
 21. the Cornell shell with an emissive ``icosphere(subdivisions=5)``: 20,482
     light triangles, above the dense engine's 16,384, so the lights take the
     stack BVH (torch ops): 32x32, 2 spp on the CPU and on the card, image
@@ -117,10 +128,10 @@ Phases (any failure raises and the script exits non-zero without the final
 Phases run in the order 1-9, 16-21, 10-15. Each render's launch counts
 (and the probes') are set to 0 just before it and read just after. The
 dense closest hit is held to winners and every output column equal to the
-plain version on every ray of every set and shape, and the walk and vwalk
-closest hits to winners and t (their cull is exact and their arithmetic
-the plain versions'); every any-hit to every flag; the other kernels'
-winners on 99.99%.
+plain version on every ray of every set and shape, the walk, vwalk, iwalk
+and stream closest hits to winners (and instances) and t (their culls are
+exact and their arithmetic the plain versions'); every any-hit to every
+flag.
 ``bound_ms`` is the least time the card could take for the same work: the
 larger of the bytes the query must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (H100 SXM data sheet), counting the ray x
@@ -133,8 +144,11 @@ limit on a miss); a live shadow ray with an occluder tests the real
 triangles of the one chunk that holds its closest occluder, one without
 tests those of every chunk its segment enters. The box tests are not
 charged (a tree over the boxes needs a few per ray). A two-level query
-(vwalk or iwalk: the same function) needs the same pairs counted against
-the virtual chunks' world boxes, plus 30 operations per (ray, instance)
+needs the same pairs counted against the boxes its engine culls: vwalk's
+virtual chunks' world boxes; iwalk's (instance, object chunk) entries,
+each entered when the ray passes the kernel's own test of the widened
+instance box and then, on its object-space ray, of the part and chunk
+boxes (`iwalk.entry_enters`); plus 30 operations per (ray, instance)
 whose chunks it enters (the object-space transform); its bytes count each
 needed OBJECT chunk's planes once, however many instances share it. No one
 PyTorch call computes these queries, so ``library_ms`` is null. A stream
@@ -172,7 +186,7 @@ WIDTH, HEIGHT, SPP, MAX_BOUNCES = 1024, 576, 8, 64
 DRAGON_SPP = 2  # the baked and two-level dragon renders (4 until the stream phases came)
 CAMERA_GRID = 256  # 256 x 256 = 65,536 camera rays
 N_RANDOM = 65536
-WINNER_AGREE = 0.9999  # kernel vs plain, same f32 expressions
+WINNER_AGREE = 0.9999  # iwalk vs vwalk winners: one function, ties in other orders
 ORACLE_AGREE = 0.999  # kernel vs the float64 plain version
 MEAN_TOL = 0.01  # cross-backend image means
 PLAIN_RAYS = 16384  # walk plain versions at the render's shapes
@@ -386,10 +400,9 @@ def time_dense_against(label, other, key, eng, this, rays, reps, card):
     aux, cab = eng["aux"], eng["cab"]
 
     def run_other():
-        tables = (aux.data_ptr(), cab.data_ptr()) if other.dense_cab else (aux.data_ptr(),)
-        stats = (None,) if other.dense_cab else ()
-        err = fn(dev.index, *tables, aux.shape[0], qo.data_ptr(), qd.data_ptr(), qt.data_ptr(), n,
-                 out.data_ptr(), *stats, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(dev.index, aux.data_ptr(), cab.data_ptr(), aux.shape[0], qo.data_ptr(),
+                 qd.data_ptr(), qt.data_ptr(), n, out.data_ptr(), None,
+                 torch.cuda.current_stream(dev).cuda_stream)
         check(err == 0, f"{label}: cudaError {err}")
         return out
 
@@ -586,7 +599,7 @@ def render_cli(scene_name, spp, card, keys, width=WIDTH, height=HEIGHT, two_leve
     return launches, res
 
 
-def cross_backend(make, width, height, spp, engine=None):
+def cross_backend(make, width, height, spp, engine=None, max_bounces=MAX_BOUNCES):
     """The same render on the CPU (plain versions) and on the card; returns
     the card's image mean."""
     from path_tracer_tpu_torch.integrator.wavefront import render
@@ -595,9 +608,10 @@ def cross_backend(make, width, height, spp, engine=None):
     for dev in ("cpu", DEVICE):
         sh, cam = make()
         t0 = time.perf_counter()
-        film = render(sh, cam, width, height, spp, dev, max_bounces=MAX_BOUNCES, engine=engine)
+        film = render(sh, cam, width, height, spp, dev, max_bounces=max_bounces, engine=engine)
         means[dev] = film[..., :3].mean().item()
-        print(f"  {width}x{height} {spp} spp on {dev}{f' ({engine})' if engine else ''}: "
+        print(f"  {width}x{height} {spp} spp, {max_bounces} bounces on {dev}"
+              f"{f' ({engine})' if engine else ''}: "
               f"mean {means[dev]:.6f} ({time.perf_counter() - t0:.1f} s)")
     rel = abs(means[DEVICE] - means["cpu"]) / means["cpu"]
     print(f"  cross-backend mean rel diff {rel:.5f} (limit {MEAN_TOL})")
@@ -712,13 +726,15 @@ EDGE_RAYS = 512  # axis-parallel rays, and as many from chunk box faces
 EDGE_ULP = 2048  # hit rays whose limit is set one ulp either side of their t
 
 
-def edge_rays(rng, lo, hi, root_lo, root_hi, o, d, kt, ks, dev):
+def edge_rays(rng, lo, hi, root_lo, root_hi, o, d, kt, ks, dev, to_world=None):
     """The segment cull's edge cases, for the any-hit kernels: axis-parallel
     rays from random points of the scene box; rays from random points of
     random gate boxes' faces (``lo``/``hi`` [E, 3]), half of them moving
-    within the face's plane; and ``EDGE_ULP`` of the rays ``o, d`` that hit
-    (closest t ``kt``, ``ks`` >= 0), each twice, with its limit one ulp
-    above and one ulp below its t. Returns (origin, direction, t_limit)."""
+    within the face's plane (with ``to_world``, object-space boxes: those
+    rays then go through ``to_world(box index, origin, direction)``); and
+    ``EDGE_ULP`` of the rays ``o, d`` that hit (closest t ``kt``, ``ks`` >=
+    0), each twice, with its limit one ulp above and one ulp below its t.
+    Returns (origin, direction, t_limit)."""
     n = EDGE_RAYS
     ar = torch.arange(n, device=dev)
     u = lambda *shape: torch.as_tensor(rng.uniform(size=shape).astype(np.float32), device=dev)  # noqa: E731
@@ -732,6 +748,8 @@ def edge_rays(rng, lo, hi, root_lo, root_hi, o, d, kt, ks, dev):
     d_f = unit_rows(rng, n, dev)
     d_f[ar % 4 < 2, a[ar % 4 < 2]] = 0.0
     d_f = d_f / d_f.norm(dim=1, keepdim=True)
+    if to_world is not None:
+        o_f, d_f = to_world(c, o_f, d_f)
     hit = (ks >= 0).nonzero()[:, 0].cpu().numpy()
     hit = torch.as_tensor(np.sort(rng.choice(hit, min(EDGE_ULP, hit.size), replace=False)), device=dev)
     t = kt[hit]
@@ -758,23 +776,55 @@ def walk_ties(walk, dev) -> float:
     return check_walk_closest("tie set", kt, ks, pt, ps, torch.zeros_like(ks, dtype=torch.bool))
 
 
-def vwalk_ties(iwalk, walk, dev) -> float:
-    """The tie set of vwalk: two coincident instances of `walk.tie_soup`
-    with its triangle T held twice, every ray's closest hit T; kernel
-    against plain, winners, instances and t equal on every ray."""
+def two_level_ties(iwalk, walk, dev) -> tuple:
+    """The tie sets of the two-level kernels, every ray's closest hit one
+    triangle T of `walk.tie_soup`: vwalk on two coincident instances of the
+    soup with T held twice; iwalk on two coincident instances with T also
+    held twice in a second object chunk (`iwalk.tie_tables`). Kernel
+    against plain, winners, instances and t equal on every ray; iwalk's any
+    hit against plain with limits just past and just short of T. Returns
+    (vwalk closest, iwalk closest, iwalk any) max errors."""
     from path_tracer_tpu_torch.scene.model import Model, rigid_transform, rotation_y
 
     pos, o, d = walk.tie_soup()
     m = rigid_transform(rotation_y(0.7), (0.5, 0.2, -0.1))
     veng = iwalk.upload(iwalk.pack_vwalk(
         [Model(None, matrices=[m, m], positions=np.concatenate([pos, pos[-1:]]))]), dev)
+    tables, slots = iwalk.tie_tables(pos, pos.shape[0] - 1, m)
+    ieng = iwalk.upload(tables, dev)
     rot, tr = torch.from_numpy(m[:, :3]).to(dev), torch.from_numpy(m[:, 3]).to(dev)
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     ow, dw = (o @ rot.T + tr).contiguous(), (d @ rot.T).contiguous()
     tl = torch.full((o.shape[0],), math.inf, device=dev)
+    none = torch.zeros(o.shape[0], dtype=torch.bool, device=dev)
     k, p = iwalk.closest_cuda(veng, ow, dw, tl), iwalk.closest_plain(veng, ow, dw, tl)
     check(bool((p[1] >= 0).all()), "vwalk tie set: every ray hits")
-    return check_two_level_closest("vwalk closest tie set", k, p, torch.zeros_like(k[1], dtype=torch.bool))
+    errs = [check_two_level_closest("vwalk closest tie set", k, p, none)]
+    k, p = iwalk.closest_cuda(ieng, ow, dw, tl), iwalk.closest_plain(ieng, ow, dw, tl)
+    first = ieng["ord_oct"][walk._block_octant(dw), 0]
+    check(bool((p[1] == min(slots)).all()) and torch.equal(p[2], first),
+          ("iwalk tie set: the first instance, lowest chunk and lane win", slots))
+    errs.append(check_two_level_closest("iwalk closest tie set", k, p, none))
+    any_err = 0.0
+    for scale, want in ((1.001, True), (0.999, False)):
+        lim = (p[0] * scale).contiguous()
+        ka, pa = iwalk.any_cuda(ieng, ow, dw, lim), iwalk.any_plain(ieng, ow, dw, lim)
+        check(bool((pa == want).all()), f"iwalk tie set: limits x{scale}")
+        any_err = max(any_err, check_any(f"iwalk tie set, limits x{scale}", ka, pa, ow, dw, lim))
+    return (*errs, any_err)
+
+
+def iwalk_to_world(iwalk, eng, rng):
+    """``to_world`` of `edge_rays` for iwalk's object chunk boxes: each ray
+    through the forward rigid transform (`iwalk.to_world`) of a random
+    instance whose chunk range holds its box."""
+
+    def to_world(c, o, d):
+        holds = (c[:, None] >= eng["inst_c"][None, :, 0]) & (c[:, None] < eng["inst_c"][None, :, 1])
+        pick = torch.as_tensor(rng.uniform(size=tuple(holds.shape)), device=c.device) * holds
+        return iwalk.to_world(eng, pick.argmax(dim=1), o, d)
+
+    return to_world
 
 
 def kernel_sources(csrc: Path, name: str) -> list:
@@ -796,12 +846,12 @@ def start_other_builds(srcs):
     builds, skipping a source whose text and headers equal this tree's
     (nothing to compare); returns a function that waits for them, prints
     their ptxas lines and returns, per directory, its label and its entry
-    points (ctypes; None where skipped): ``dense_closest``/``dense_any``
-    (``dense_cab``: whether they take this tree's chunk boxes and counters,
-    which older trees' do not), ``walk_closest``, ``vwalk_closest``
-    (``vwalk_slack``: whether it takes this tree's ``slack`` argument) and
-    ``stream_closest``/``stream_any`` (``stream_qab``: whether they take
-    this tree's group boxes, which older trees' do not)."""
+    points (ctypes; None where skipped): ``dense_closest``/``dense_any``,
+    ``walk_closest``/``walk_any``, ``vwalk_closest``/``vwalk_any``,
+    ``iwalk_closest``/``iwalk_any`` (``iwalk_parts``: whether they take
+    this tree's object boxes and slack, or the chunk ranges of trees before
+    the object boxes came) and ``stream_closest``/``stream_any``, each
+    with this tree's signature but for ``iwalk_parts``."""
     import ctypes
     import shutil
 
@@ -834,27 +884,30 @@ def start_other_builds(srcs):
         others = []
         for idx, src in enumerate(srcs):
             fns, other = {}, SimpleNamespace(label=str(src), dense_closest=None, dense_any=None,
-                                             walk_closest=None, vwalk_closest=None,
+                                             walk_closest=None, walk_any=None,
+                                             vwalk_closest=None, vwalk_any=None,
+                                             iwalk_closest=None, iwalk_any=None,
                                              stream_closest=None, stream_any=None)
             if (idx, "dense_hit") in libs:
-                decl = (src / "dense_hit.cu").read_text().split('extern "C" int dense_closest(')[1]
-                other.dense_cab = "const float* cab" in decl.split(")")[0]
-                sig = [i, p, *[p] * other.dense_cab, i, p, p, p, i, p, *[p] * other.dense_cab, p]
+                sig = [i, p, p, i, p, p, p, i, p, p, p]
                 fns["dense_closest"] = (libs[idx, "dense_hit"].dense_closest, sig)
                 fns["dense_any"] = (libs[idx, "dense_hit"].dense_any, sig)
             if (idx, "walk_hit") in libs:
-                fns["walk_closest"] = (libs[idx, "walk_hit"].walk_closest,
-                                       [i, p, p, p, i, i, p, p, p, i, p, p, p, p])
+                head = [i, p, p, p, i, i, p, p, p, i]
+                fns["walk_closest"] = (libs[idx, "walk_hit"].walk_closest, head + [p, p, p, p])
+                fns["walk_any"] = (libs[idx, "walk_hit"].walk_any, head + [p, p, p])
             if (idx, "iwalk_hit") in libs:
-                decl = (src / "iwalk_hit.cu").read_text().split('extern "C" int vwalk_closest(')[1]
-                other.vwalk_slack = "float slack" in decl.split(")")[0]
-                fns["vwalk_closest"] = (libs[idx, "iwalk_hit"].vwalk_closest,
-                                        [i, p, p, p, p, p, p, i, i, *[ctypes.c_float] * other.vwalk_slack,
-                                         p, p, p, i, p, p, p, p, p])
+                head = [i, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i]
+                fns["vwalk_closest"] = (libs[idx, "iwalk_hit"].vwalk_closest, head + [p, p, p, p, p])
+                fns["vwalk_any"] = (libs[idx, "iwalk_hit"].vwalk_any, head + [p, p, p])
+                decl = (src / "iwalk_hit.cu").read_text().split('extern "C" int iwalk_closest(')[1]
+                other.iwalk_parts = "const int* inst_p" in decl.split(")")[0]
+                head = ([i, p, p, p, p, p, p, p, p, i, i, ctypes.c_float] if other.iwalk_parts
+                        else [i, p, p, p, p, p, i, i]) + [p, p, p, i]
+                fns["iwalk_closest"] = (libs[idx, "iwalk_hit"].iwalk_closest, head + [p, p, p, p, p])
+                fns["iwalk_any"] = (libs[idx, "iwalk_hit"].iwalk_any, head + [p, p, p])
             if (idx, "dense_stream") in libs:
-                decl = (src / "dense_stream.cu").read_text().split('extern "C" int stream_closest(')[1]
-                other.stream_qab = "const float* qab" in decl.split(")")[0]
-                head = [i, p, p, p, *[p] * other.stream_qab, i, i, p, p, p, i]
+                head = [i, p, p, p, p, i, i, p, p, p, i]
                 fns["stream_closest"] = (libs[idx, "dense_stream"].stream_closest, head + [p, p, p, p])
                 fns["stream_any"] = (libs[idx, "dense_stream"].stream_any, head + [p, p, p])
             for key, (fn, types) in fns.items():
@@ -873,25 +926,27 @@ def ptxas_line(line: str) -> bool:
 
 
 def time_against(label, fn, tables, this, rays, n_out, reps, card):
-    """Time another tree's closest hit ``fn`` (its C entry point; ``tables``
-    its arguments before the rays) against this tree's (``this()``) on the
-    same rays, in turns: other, this, this, other, ``reps`` launches each.
-    Their outputs (t, slot, and for vwalk the instance; ``n_out``) must be
-    equal."""
+    """Time another tree's kernel ``fn`` (its C entry point; ``tables`` its
+    arguments before the rays) against this tree's (``this()``) on the same
+    rays, in turns: other, this, this, other, ``reps`` launches each. Their
+    outputs must be equal: a closest hit's ``n_out`` (t, slot, and for the
+    two-level ones the instance), or with ``n_out`` 0 an any hit's flags."""
     qo, qd, qt = rays
     n, dev = qo.shape[0], qo.device
-    label = f"{label}, {n} rays"
-    outs = [torch.empty(n, dtype=torch.float32, device=dev)]
-    outs += [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(n_out - 1)]
+    if n_out:
+        outs = [torch.empty(n, dtype=torch.float32, device=dev)]
+        outs += [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(n_out - 1)]
+    else:
+        outs = [torch.empty(n, dtype=torch.bool, device=dev)]
 
     def run_other():
         err = fn(dev.index, *tables, qo.data_ptr(), qd.data_ptr(), qt.data_ptr(), n,
                  *[x.data_ptr() for x in outs], None, torch.cuda.current_stream(dev).cuda_stream)
         check(err == 0, f"{label}: cudaError {err}")
-        return outs
+        return outs if n_out else outs[0]
 
-    turns(f"{label} closest", run_other, this, reps, card,
-          lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b)))
+    same = (lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))) if n_out else torch.equal
+    turns(f"{label}, {n} rays {'closest' if n_out else 'any'}", run_other, this, reps, card, same)
 
 
 def turns(label, run_other, this, reps, card, same) -> None:
@@ -1016,6 +1071,9 @@ def phase_walk(walk, scene, cam, dev, card, others=()):
             stats = walk.walk_stats(eng, *public, query="any")
             need = needed_walk_work(walk, eng, o_ss, d_ss, tl_ss, tl_ss, occ_chunk)
             out_bytes = 1
+            for other in (o for o in others if o.walk_any is not None):
+                time_against(f"walk {name} vs {other.label}", other.walk_any, walk._tables(eng),
+                             lambda: walk.any_cuda(eng, qo, qd, qt), (qo, qd, qt), 0, reps, card)
         print(f"walk {name}: pairs tested {stats['pairs']}, needed {need[0]}: tested / "
               f"needed {stats['pairs'] / max(need[0], 1):.3f}; per block: gate survivors "
               f"admitted {stats['visits'] / max(stats['blocks'], 1):.1f}, chunks staged "
@@ -1044,29 +1102,28 @@ def phase_walk(walk, scene, cam, dev, card, others=()):
 # --- the two-level kernels (two-level dragon_scene, many_instance_scene) ---
 
 
-def check_two_level_closest(label, k, p, nan_lane, exact=True) -> float:
+def check_two_level_closest(label, k, p, nan_lane) -> float:
     """Kernel (best_t, slot, inst) against plain on the same sorted rays:
-    winners and t equal on every ray (``exact``: vwalk) or winners on
-    ``WINNER_AGREE`` of them (iwalk); returns max |t kernel - t plain| over
-    the lanes whose winners agree."""
+    winners, instances and t equal on every ray (both two-level culls are
+    exact and their arithmetic the plain versions'); returns max |t kernel
+    - t plain| over the lanes whose winners agree."""
     same = (k[1] == p[1]) & (k[2] == p[2])
     agree = same.float().mean().item()
     err = (k[0][same].double() - p[0][same].double()).abs().max().item() if bool(same.any()) else 0.0
     print(f"{label}: {k[1].shape[0]} rays, winners (slot, instance) equal to plain {agree:.6f}, "
           f"max |t kernel - t plain| {err:.3g}, hits {(p[1] >= 0).float().mean().item():.3f}")
-    if exact:
-        check(bool(same.all()) and torch.equal(k[0], p[0]), (label, agree, err))
-    check(agree >= WINNER_AGREE, (label, agree))
+    check(bool(same.all()) and torch.equal(k[0], p[0]), (label, agree, err))
     check(bool((k[1][nan_lane] == -1).all()) and bool((k[2][nan_lane] == -1).all()),
           f"{label}: NaN lanes must report no hit")
     return err
 
 
-def two_level_need(walk, veng, o, d, t_limit, t_stop, stop=None):
-    """`needed_work` of a two-level query over the vwalk tables' virtual
-    chunk boxes; ``stop`` = (slot, inst) of each shadow ray's closest
-    occluder (-1: none). Returns (pairs, transforms, virtual chunks, real
-    triangles of the distinct object chunks, instances) needed."""
+def vwalk_need(walk, veng, o, d, t_limit, t_stop, stop=None):
+    """`needed_work` of a vwalk query over its virtual chunks' world boxes
+    (the boxes it culls); ``stop`` = (slot, inst) of each shadow ray's
+    closest occluder (-1: none). Returns (pairs, transforms, boxes: the
+    virtual chunks, real triangles of the distinct object chunks,
+    instances) needed."""
     g = veng["gates"]
     v = veng["ord_oct"][0, :g].long()  # octant 0's box columns, in layout slots
     vg, vi = veng["vglob"][v].long(), veng["vinst"][v].long()
@@ -1086,14 +1143,61 @@ def two_level_need(walk, veng, o, d, t_limit, t_stop, stop=None):
             int(torch.unique(vi[used]).numel()))
 
 
+def iwalk_need(walk, ieng, o, d, t_limit, t_stop, stop=None):
+    """What an iwalk query on these rays needs, over its own cull entries,
+    each (instance, object chunk) a column: a live ray needs the real
+    triangles of every entry it enters within ``t_stop`` by
+    `iwalk.entry_enters` (the kernel's test of the widened instance box,
+    then of the part and chunk boxes on its object-space ray, the finest
+    boxes it culls). With ``stop`` = (slot, inst) of each shadow ray's
+    closest occluder (-1: none), an occluded ray needs only that entry's
+    triangles. Returns (pairs, transforms: the distinct (ray, instance) of
+    the needed entries, boxes: the distinct object chunks' and instances',
+    real triangles of those object chunks, instances) needed."""
+    from path_tracer_tpu_torch.trace import iwalk
+
+    dev, ch = o.device, walk.CH_W
+    segs, _, _ = iwalk._columns(ieng, dev)
+    chunk = torch.cat([torch.arange(a // ch, b // ch, device=dev) for _, a, b, _ in segs])
+    inst = torch.cat([torch.full(((b - a) // ch,), i, device=dev) for i, a, b, _ in segs])
+    obj_spans = (ieng["aux"][:, :12] != 0).any(1).view(-1, ch).sum(1)
+    spans, e, n_inst = obj_spans[chunk], chunk.numel(), ieng["inst_f"].shape[0]
+    live = walk._valid(o, d, t_limit)
+    used = torch.zeros(e, dtype=torch.bool, device=dev)
+    pairs = xforms = 0
+    if stop is not None:
+        slot, sinst = stop
+        first = torch.zeros(n_inst, dtype=torch.int64, device=dev)  # column of chunk 0 per instance
+        first[[i for i, *_ in segs]] = torch.tensor([c // ch - a // ch for _, a, _, c in segs], device=dev)
+        occ = live & (slot >= 0)
+        col = first[sinst[occ].long()] + slot[occ].long() // ch
+        pairs += int(spans[col].sum())
+        used[col] = True
+        xforms += int(occ.sum())
+        live = live & ~occ
+    onehot = torch.zeros(e, n_inst, device=dev)
+    onehot[torch.arange(e, device=dev), inst] = 1.0
+    rows = live.nonzero()[:, 0]
+    step = max(1, (1 << 26) // e)  # entry_enters tests part and chunk boxes on rows in the instance
+    for s in range(0, rows.numel(), step):
+        r = rows[s : s + step]
+        enter = iwalk.entry_enters(ieng, o[r], d[r], t_stop[r])
+        pairs += int(torch.where(enter, spans, 0).sum())
+        used |= enter.any(0)
+        xforms += int(((enter.float() @ onehot) > 0).sum())
+    chunks, insts = torch.unique(chunk[used]), int(torch.unique(inst[used]).numel())
+    return pairs, xforms, chunks.numel() + insts, int(obj_spans[chunks].sum()), insts
+
+
 def two_level_bound(n, out_bytes, need, key):
-    """Least time of one two-level query on n rays from `two_level_need`'s
-    count: the pairs' and transforms' float32 operations; the rays in and
-    out, the needed object chunks' plane rows (48 B per real triangle), the
-    virtual chunk boxes (24 B) and instance transforms (48 B) read once."""
-    pairs, xforms, vch, tris, insts = need
+    """Least time of one two-level query on n rays from `vwalk_need`'s or
+    `iwalk_need`'s count: the pairs' and transforms' float32 operations;
+    the rays in and out, the needed object chunks' plane rows (48 B per
+    real triangle), boxes (24 B) and instance transforms (48 B) read
+    once."""
+    pairs, xforms, boxes, tris, insts = need
     return bound_ms(pairs * FLOPS[key] + xforms * XFORM_FLOPS,
-                    n * (28 + out_bytes) + tris * 48 + vch * 24 + insts * 48)
+                    n * (28 + out_bytes) + tris * 48 + boxes * 24 + insts * 48)
 
 
 def phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev, card):
@@ -1143,10 +1247,15 @@ def phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev, card):
     sub = (o_s[rows].contiguous(), d_s[rows].contiguous(), tl_s[rows].contiguous())
     ik_ms, ik = time_ms(lambda: iwalk.closest_cuda(ieng, *sub), 1)
     ip = iwalk.closest_plain(ieng, *sub)
-    errs["iwalk_closest"] = check_two_level_closest("iwalk closest mixed subset", ik, ip, nan_s[rows],
-                                                    exact=False)
-    check(bool((ik[1] == k[1][rows]).all()), "iwalk and vwalk winners on the subset")
+    errs["iwalk_closest"] = check_two_level_closest("iwalk closest mixed subset", ik, ip, nan_s[rows])
     print(f"  iwalk closest on the {rows.numel()}-ray subset: {ik_ms:.3f} ms ({card})")
+    # iwalk and vwalk are one function: the same t on every ray (a tie may
+    # go to another winner: their visit orders differ)
+    ia = iwalk.closest_cuda(ieng, o_s, d_s, tl_s)
+    same = (ia[1] == k[1]).float().mean().item()
+    print(f"iwalk vs vwalk kernels on the {n} mixed rays: t equal on every ray "
+          f"{torch.equal(ia[0], k[0])}, winners equal {same:.6f}")
+    check(torch.equal(ia[0], k[0]) and same >= WINNER_AGREE, ("iwalk vs vwalk", same))
     # any hit: limits around each ray's closest t (unsorted rays), plus the edge lanes
     hit_t = torch.empty_like(k[0])
     hit_t[order] = torch.where(k[1] >= 0, k[0], 1000.0)
@@ -1161,6 +1270,7 @@ def phase_two_level_dragon(iwalk, walk, walk_eng, sh, cam, dev, card):
     kia = iwalk.any_cuda(ieng, o[ra], d[ra], tl_anyc[ra])
     errs["iwalk_any"] = check_any("iwalk mixed subset", kia, iwalk.any_plain(ieng, o[ra], d[ra], tl_anyc[ra]),
                                   o[ra], d[ra], tl_any[ra])
+    check(torch.equal(iwalk.any_cuda(ieng, o, d, tl_anyc), ka), "iwalk vs vwalk any-hit flags")
     # the public query against the baked walk's on the same rays
     bw = walk.walk_closest_hit_shade(walk_eng, o, d, tl)
     tw = iwalk.iwalk_closest_hit_shade(veng, o, d, tl)
@@ -1217,15 +1327,30 @@ def render_shapes(iwalk, walk, eng, scene, cam, w, h, rng, dev):
     return shapes, (o_ss, d_ss, tl_ss, occ_slot, occ_inst)
 
 
-def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, plain_rays=PLAIN_RAYS,
+def two_level_tables(other, eng):
+    """The arguments of another tree's vwalk or iwalk entry points
+    (``other``, from `start_other_builds`) before the rays: the tables and
+    sizes its signature takes (iwalk: with ``iwalk_parts`` this tree's
+    object boxes and slack, else the chunk ranges ``inst_c``)."""
+    if "vinst" in eng:
+        names, new = ("vinst", "vglob"), True
+    else:
+        new = other.iwalk_parts
+        names = ("inst_p", "part_c", "ocb", "opb") if new else ("inst_c",)
+    slack = (float(eng["lane_slack"]),) if new else ()
+    return (*[eng[t].data_ptr() for t in ("aux", "cb_oct", "ord_oct", *names, "inst_f")],
+            eng["gates"], eng["ord_oct"].shape[1], *slack)
+
+
+def time_two_level(iwalk, walk, eng, shapes, occluders, label, rng, card, plain_rays=PLAIN_RAYS,
                    reps=(5, 2, 2), others=()):
     """Each shape of `render_shapes` on ``eng``'s kernel, timed with CUDA
     events, compared with the plain version on ``plain_rays`` of its rays,
-    with its gate counters and its need (`two_level_need` over ``veng``,
-    the vwalk tables of the same scene) and bound; each of ``others``
-    (vwalk: other trees' libraries) has its closest hit timed beside this
-    one's."""
+    with its cull counters, its need (`vwalk_need` or `iwalk_need`, over the
+    boxes the engine culls) and bound; each of ``others`` (other trees'
+    libraries) has the same query timed beside this one's."""
     name = iwalk.engine_name(eng)
+    need_of = vwalk_need if name == "vwalk" else iwalk_need
     results = {}
     for (shape, (query, (qo, qd, qt), public)), rep in zip(shapes.items(), reps):
         nq, key = qo.shape[0], f"{name}_{query}"
@@ -1234,16 +1359,10 @@ def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, 
             rows = whole_blocks(rng, walk._valid(qo, qd, qt), plain_rays // 128)
             pm, p = time_ms(lambda: iwalk.closest_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
             nan_r = ~(torch.isfinite(qo[rows]).all(1) & torch.isfinite(qd[rows]).all(1))
-            err = check_two_level_closest(f"{label} {shape}", [x[rows] for x in k], p, nan_r,
-                                          exact=name == "vwalk")
-            need = two_level_need(walk, veng, qo, qd, qt, torch.where(k[1] >= 0, k[0], qt))
+            err = check_two_level_closest(f"{label} {shape}", [x[rows] for x in k], p, nan_r)
+            need = need_of(walk, eng, qo, qd, qt, torch.where(k[1] >= 0, k[0], qt))
             out_bytes = 12
-            for other in (o for o in others if o.vwalk_closest is not None):
-                tables = [eng[t].data_ptr() for t in ("aux", "cb_oct", "ord_oct", "vinst", "vglob", "inst_f")]
-                slack = (float(eng["lane_slack"]),) if other.vwalk_slack else ()
-                time_against(f"{label} {shape} vs {other.label}", other.vwalk_closest,
-                             (*tables, eng["gates"], eng["ord_oct"].shape[1], *slack),
-                             lambda: iwalk.closest_cuda(eng, qo, qd, qt), (qo, qd, qt), 3, rep, card)
+            this = lambda: iwalk.closest_cuda(eng, qo, qd, qt)  # noqa: E731
         else:
             km, ka = time_ms(lambda: iwalk.any_cuda(eng, qo, qd, qt), rep)
             live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
@@ -1252,24 +1371,34 @@ def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, 
             pm, pa = time_ms(lambda: iwalk.any_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
             err = check_any(f"{label} {shape}", ka[rows], pa, qo[rows], qd[rows], qt[rows])
             o_ss, d_ss, tl_ss, occ_slot, occ_inst = occluders
-            need = two_level_need(walk, veng, o_ss, d_ss, tl_ss, tl_ss, (occ_slot, occ_inst))
+            need = need_of(walk, eng, o_ss, d_ss, tl_ss, tl_ss, (occ_slot, occ_inst))
             out_bytes = 1
+            this = lambda: iwalk.any_cuda(eng, qo, qd, qt)  # noqa: E731
+        for other in (o for o in others if getattr(o, key) is not None):
+            time_against(f"{label} {shape} vs {other.label}", getattr(other, key),
+                         two_level_tables(other, eng), this, (qo, qd, qt),
+                         3 if query == "closest" else 0, rep, card)
         stats = iwalk.iwalk_stats(eng, *public, query=query)
         bms, by = two_level_bound(nq, out_bytes, need, key)
         blocks = max(stats["blocks"], 1)
-        tested = stats.get("pairs", stats["lane_visits"] * walk.CH_W)
+        tested = stats["pairs"]
         results[shape] = {"key": key, "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                           "rays": nq, "plain_rays": rows.numel(), "err": err, "stats": stats,
-                          "needed_pairs": need[0], "tested_pairs": tested}
-        if "pairs" in stats:
-            print(f"{label} {shape}: pairs tested {tested}, needed {need[0]}: tested / needed "
-                  f"{tested / max(need[0], 1):.3f}; entering lanes per staged chunk "
-                  f"{stats['lane_visits'] / max(stats['staged'], 1):.2f}")
+                          "needed_pairs": need[0], "tested_pairs": tested, "need": need}
+        levels = ""
+        if name == "iwalk":
+            lanes = max(stats["lanes"], 1)
+            levels = (f"; per valid lane: instances entered {stats['instances'] / lanes:.2f}, "
+                      f"parts {stats['parts'] / lanes:.2f}, chunks {stats['chunks'] / lanes:.2f} "
+                      f"({stats['lanes']} valid lanes)")
+        print(f"{label} {shape}: pairs tested {tested}, needed {need[0]}: tested / needed "
+              f"{tested / max(need[0], 1):.3f}; lanes listed per staged chunk "
+              f"{stats['lane_visits'] / max(stats['staged'], 1):.2f}{levels}")
         print(f"time {label} {shape}: kernel {km:.3f} ms at {nq} rays, plain {pm:.3f} ms at "
               f"{rows.numel()} rays, bound {bms:.4f} ms ({by}) from {need[0]} needed pairs and "
-              f"{need[1]} transforms in {need[2]} virtual chunks ({need[3]} object tris, {need[4]} "
+              f"{need[1]} transforms, {need[2]} boxes ({need[3]} object tris, {need[4]} "
               f"instances); pairs the kernel tested {tested}; blocks with a "
-              f"live lane {stats['blocks']}, gate entries visited per block "
+              f"live lane {stats['blocks']}, gate entries admitted per block "
               f"{stats['visits'] / blocks:.1f}, chunks staged per block {stats['staged'] / blocks:.1f}, "
               f"skipped by the window per block {stats['skipped'] / blocks:.1f}, distinct entries "
               f"{stats['entries']} of {eng['gates']} ({card})")
@@ -1277,60 +1406,66 @@ def time_two_level(iwalk, walk, eng, veng, shapes, occluders, label, rng, card, 
 
 
 def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, card, others=()):
-    """Phase 12: vwalk at the dragon's render shapes (its closest hit beside
-    each of ``others``), on the cull's edge cases and the tie set, iwalk on
-    4,096 of its bounce and shadow rays, iwalk at many_instance_scene's
-    1920x1080."""
+    """Phase 12: vwalk and iwalk at the two-level dragon's render shapes
+    (the same rays; vwalk's queries beside each of ``others``', and
+    iwalk's beside theirs: at every shape where the other takes this
+    tree's tables, else on 32,768 rays of whole blocks of the bounce and
+    shadow shapes), both on the cull's edge cases and the tie sets, then
+    iwalk at many_instance_scene's 1920x1080 (beside each of
+    ``others``)."""
     rng = np.random.default_rng(8765)
     shapes, occ = render_shapes(iwalk, walk, veng, scene2, cam, WIDTH, HEIGHT, rng, dev)
-    res = {"dragon": time_two_level(iwalk, walk, veng, veng, shapes, occ, "vwalk dragon", rng, card,
-                                    others=others)}
-    # vwalk's segment-cull edge cases, the ulp limits on camera rays
+    res = {"dragon": time_two_level(iwalk, walk, veng, shapes, occ, "vwalk dragon", rng, card,
+                                    others=others),
+           "dragon_iwalk": time_two_level(iwalk, walk, ieng, shapes, occ, "iwalk dragon", rng, card)}
+    for other in (o for o in others if o.iwalk_closest is not None):
+        # an older tree's iwalk (seconds per launch here) on 32,768 rays of
+        # whole blocks of the bounce and shadow shapes; one with this tree's
+        # tables on every shape
+        for shape in (("camera", "bounce", "shadow") if other.iwalk_parts else ("bounce", "shadow")):
+            query, rays, _ = shapes[shape]
+            if not other.iwalk_parts:
+                rows = whole_blocks(rng, walk._valid(*rays), 256)
+                rays = tuple(x[rows].contiguous() for x in rays)
+            this = ((lambda: iwalk.closest_cuda(ieng, *rays)) if query == "closest"
+                    else (lambda: iwalk.any_cuda(ieng, *rays)))
+            time_against(f"iwalk dragon {shape} vs {other.label}", getattr(other, f"iwalk_{query}"),
+                         two_level_tables(other, ieng), this, rays, 3 if query == "closest" else 0,
+                         1 if not other.iwalk_parts else 3, card)
+    # both culls' edge cases, the ulp limits on camera rays
     _, (qo, qd, qt), _ = shapes["camera"]
     cam_rows = torch.arange(0, qo.shape[0], qo.shape[0] // (4 * EDGE_ULP), device=dev)
     cq = tuple(x[cam_rows].contiguous() for x in (qo, qd, qt))
     kt, ks, _ = iwalk.closest_cuda(veng, *cq)
-    eo, ed, et = edge_rays(rng, *iwalk.virtual_boxes(veng), veng["root_lo"], veng["root_hi"],
-                           cq[0], cq[1], kt, ks, dev)
-    etc = walk._exit_clamp(veng, eo, ed, et).contiguous()
-    edge_err = check_any("vwalk edge cases", iwalk.any_cuda(veng, eo, ed, etc),
-                         iwalk.any_plain(veng, eo, ed, etc), eo, ed, etc)
-    res["dragon"]["shadow"]["err"] = max(res["dragon"]["shadow"]["err"], edge_err)
-    nan_e = torch.zeros(eo.shape[0], dtype=torch.bool, device=dev)
-    edge_err = check_two_level_closest("vwalk closest edge cases", iwalk.closest_cuda(veng, eo, ed, etc),
-                                       iwalk.closest_plain(veng, eo, ed, etc), nan_e)
-    res["dragon"]["bounce"]["err"] = max(res["dragon"]["bounce"]["err"], edge_err,
-                                         vwalk_ties(iwalk, walk, dev))
-    # iwalk on whole blocks of the dragon's bounce rays and on shadow rays
-    sub = {}
-    for name in ("bounce", "shadow"):
-        query, rays, _ = shapes[name]
-        qo, qd, qt = rays
-        if query == "closest":
-            rows = whole_blocks(rng, walk._valid(qo, qd, qt), SUBSET // 128)
-        else:
-            live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
-            rows = torch.as_tensor(np.sort(rng.choice(live, min(SUBSET, live.size), replace=False)),
-                                   device=dev)
-        r = tuple(x[rows].contiguous() for x in rays)
-        sub[name] = (query, r, r)
-    # the subset's shadow rays, sorted, and each one's closest occluder
-    _, o_q, d_q, tl_q = walk._sorted_rays(ieng, *sub["shadow"][1])
-    occ_sub = (o_q, d_q, tl_q, *iwalk.closest_cuda(ieng, o_q, d_q, tl_q)[1:])
-    res["dragon_iwalk"] = time_two_level(iwalk, walk, ieng, veng, sub, occ_sub, "iwalk dragon subset",
-                                         rng, card, plain_rays=SUBSET, reps=(1, 1))
+    for name, eng, boxes, to_world in (
+            ("vwalk", veng, iwalk.virtual_boxes(veng), None),
+            ("iwalk", ieng, (ieng["ocb"][:, 0:3], ieng["ocb"][:, 3:6]), iwalk_to_world(iwalk, ieng, rng))):
+        eo, ed, et = edge_rays(rng, *boxes, eng["root_lo"], eng["root_hi"], cq[0], cq[1], kt, ks, dev,
+                               to_world)
+        etc = walk._exit_clamp(eng, eo, ed, et).contiguous()
+        r = res["dragon" if name == "vwalk" else "dragon_iwalk"]
+        r["shadow"]["err"] = max(r["shadow"]["err"], check_any(
+            f"{name} edge cases", iwalk.any_cuda(eng, eo, ed, etc), iwalk.any_plain(eng, eo, ed, etc),
+            eo, ed, etc))
+        nan_e = torch.zeros(eo.shape[0], dtype=torch.bool, device=dev)
+        r["bounce"]["err"] = max(r["bounce"]["err"], check_two_level_closest(
+            f"{name} closest edge cases", iwalk.closest_cuda(eng, eo, ed, etc),
+            iwalk.closest_plain(eng, eo, ed, etc), nan_e))
+    v_tie, i_tie, ia_tie = two_level_ties(iwalk, walk, dev)
+    res["dragon"]["bounce"]["err"] = max(res["dragon"]["bounce"]["err"], v_tie)
+    res["dragon_iwalk"]["bounce"]["err"] = max(res["dragon_iwalk"]["bounce"]["err"], i_tie)
+    res["dragon_iwalk"]["shadow"]["err"] = max(res["dragon_iwalk"]["shadow"]["err"], ia_tie)
     t0 = time.perf_counter()
     sh_m, cam_m = scenes.many_instance_scene(aspect=MANY_W / MANY_H, two_level=True)
     scene_m = sh_m.device(DEVICE, engine="iwalk")
     ieng_m = scene_m["twolevel"]["iwalk"]
-    veng_m = sh_m.twolevel.device(DEVICE)["iwalk"]
     print(f"many_instance_scene two-level: {sh_m.twolevel.num_instances} instances, "
           f"{sh_m.twolevel.num_chunks} object chunks, {sh_m.twolevel.num_virtual_chunks} virtual "
-          f"chunks, default engine {sh_m.twolevel.engine}, host build and both packings "
+          f"chunks, default engine {sh_m.twolevel.engine}, host build and iwalk packing "
           f"{time.perf_counter() - t0:.2f} s")
     shapes_m, occ_m = render_shapes(iwalk, walk, ieng_m, scene_m, cam_m, MANY_W, MANY_H, rng, dev)
-    res["many"] = time_two_level(iwalk, walk, ieng_m, veng_m, shapes_m, occ_m, "iwalk many_instance",
-                                 rng, card)
+    res["many"] = time_two_level(iwalk, walk, ieng_m, shapes_m, occ_m, "iwalk many_instance", rng,
+                                 card, others=others)
     return res, sh_m, cam_m
 
 
@@ -1348,6 +1483,41 @@ def render_iwalk_cli(card):
         del os.environ["PT_VWALK"]
     check(res["engine"] == "iwalk", res["engine"])
     print(f"many_instance_scene --two-level PT_VWALK=0 bounce steps: {launches['iwalk_any']}")
+    return launches
+
+
+def render_iwalk_dragon(sh2, scene2, cam, card):
+    """Phase 14, last part: ``PT_VWALK=0`` dragon_scene --two-level through
+    the CLI at 1024x576, 1 spp (iwalk launches > 0, vwalk 0), then the same
+    sample through vwalk in process (``scene2``, the two-level dragon's
+    vwalk tables; the same seeds): image means within 1%."""
+    from path_tracer_tpu_torch.integrator.wavefront import render_sample
+
+    os.environ["PT_VWALK"] = "0"
+    try:
+        launches, res = render_cli(
+            "dragon_scene", 1, card, ("iwalk_closest", "iwalk_any", "closest"), two_level=True,
+            absent=("vwalk_closest", "vwalk_any", "walk_closest", "walk_any"))
+    finally:
+        del os.environ["PT_VWALK"]
+    check(res["engine"] == "iwalk", res["engine"])
+    print(f"dragon_scene --two-level PT_VWALK=0 bounce steps: {launches['iwalk_any']}")
+    ndc = torch.as_tensor(cam.view_proj_inverse(), device=DEVICE)
+    org = torch.as_tensor(cam.origin, device=DEVICE)
+    t0 = time.perf_counter()
+    rad, _, _, rays = render_sample(
+        scene2, ndc, org, 0, WIDTH, HEIGHT, max_bounces=MAX_BOUNCES,
+        has_lights="light" in scene2, spp=1, mtypes=sh2.active_mtypes, any_volumes=sh2.has_volumes)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    vwalk_mean = rad.mean().item()
+    iwalk_mean = res["film"][..., :3].mean().item()
+    rel = abs(iwalk_mean - vwalk_mean) / vwalk_mean
+    print(f"dragon_scene --two-level 1 spp through vwalk in process: trace {trace_s:.2f} s, "
+          f"{float(rays[:, 0].sum()) / trace_s / 1e6:.4f} Mrays/s; image mean {vwalk_mean:.6f}, "
+          f"iwalk {iwalk_mean:.6f}: rel diff {rel:.5f} (limit {MEAN_TOL}); trace iwalk / vwalk "
+          f"{res['trace_s'] / trace_s:.2f} ({card})")
+    check(rel <= MEAN_TOL, rel)
     return launches
 
 
@@ -1487,7 +1657,7 @@ def time_stream_against(label, other, key, eng, this, rays, reps, card):
     else:
         fn = other.stream_any
         outs = [torch.empty(n, dtype=torch.bool, device=dev)]
-    tables = [eng["aux"], eng["cab"], eng["pab"]] + [eng["qab"]] * other.stream_qab
+    tables = [eng["aux"], eng["cab"], eng["pab"], eng["qab"]]
     sizes = [eng["pab"].shape[0], eng["cab"].shape[0] // eng["pab"].shape[0]]
 
     def run_other():
@@ -1707,10 +1877,10 @@ def phase_light_bvh(dev, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, nargs="+", default=[],
-                    help="csrc directories of a parent commit (or variants of it): time their dense "
-                         "kernels, walk and vwalk closest hits and stream kernels beside this "
-                         "tree's (phases 3, 7, 12 and 17), each whose source differs from this "
-                         "tree's")
+                    help="csrc directories of a parent commit (or variants of it): time their dense, "
+                         "walk, vwalk, iwalk and stream kernels "
+                         "beside this tree's (phases 3, 7, 12 and 17), each whose source differs "
+                         "from this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1781,7 +1951,11 @@ def main(argv=None) -> int:
         stream_launches = render_stream(sh, scene, cam, card)
     del scene
     print("dragon_scene(nu=96, nv=64, env_h=64), engine stream:")
-    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4, engine="stream")
+    # 16 bounces (64 until iwalk ran at the two-level dragon's full render
+    # shapes): its CPU half, the stream's plain version, is the smoke's
+    # longest step
+    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4, engine="stream",
+                  max_bounces=16)
     probe_t = phase_probes(card)
     t0 = time.perf_counter()
     phase_light_bvh(dev, card)
@@ -1799,7 +1973,7 @@ def main(argv=None) -> int:
     for rs in two_t.values():
         for r in rs.values():
             errs[r["key"]] = max(errs[r["key"]], r["err"])
-    del scene2, veng, ieng, sh2
+    del veng, ieng
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
     vwalk_launches, _ = render_cli(
         "dragon_scene", DRAGON_SPP, card, ("vwalk_closest", "vwalk_any", "closest"), two_level=True,
@@ -1812,6 +1986,8 @@ def main(argv=None) -> int:
     print(f"many_instance_scene --two-level bounce steps: {many_launches['vwalk_any']}")
     iwalk_launches = render_iwalk_cli(card)
     del sh_m, cam_m
+    render_iwalk_dragon(sh2, scene2, cam, card)
+    del scene2, sh2
     print("many_instance_scene(grid=3, subdivisions=1) two-level:")
     small = lambda: scenes.many_instance_scene(grid=3, subdivisions=1, two_level=True)  # noqa: E731
     means = {e: cross_backend(small, 32, 32, 4, engine=e) for e in ("vwalk", "iwalk")}
@@ -1846,7 +2022,7 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "rays": r["rays"],
             **({"tested_pairs": r["tested_pairs"], "needed_pairs": r["needed_pairs"]}
-               if key.startswith(("walk_", "vwalk_", "stream_")) or src == DENSE_SRC else {}),
+               if "tested_pairs" in r else {}),
             **({"needed_pairs_512": r["needed_pairs_512"]} if "needed_pairs_512" in r else {}),
             "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })

@@ -9,7 +9,7 @@
 //   iwalk_closest_kernel  <- _iwalk_closest_kernel
 //   iwalk_any_kernel      <- _iwalk_any_kernel
 //
-// Tables (trace/iwalk.py pack_vwalk / pack_iwalk):
+// Tables (trace/iwalk.py pack_vwalk / pack_iwalk, and upload):
 //   aux     [K*128, 24] f32, the OBJECT-space plane rows of every model's
 //           chunks (chunk c at rows c*128 .. c*128+127), shared by all the
 //           instances of a model
@@ -21,8 +21,12 @@
 //   pair, with the world box of the object chunk's 8 transformed corners;
 //   vinst/vglob [kq] i32 give the instance and the object chunk of each
 //   layout slot.
-// iwalk: a gate entry is an instance (its world box); inst_c [I, 2] i32 is
-//   the object chunk range [c0, c1) that an admitted instance brute-walks.
+// iwalk: a gate entry is an instance (the world box of its model's object
+//   box); under it the port's object tables (trace/iwalk.py
+//   pack_object_boxes): ocb [K, 6] f32 the object chunk boxes, padded;
+//   opb [P, 6] f32 the boxes of the parts, runs of at most 32 chunks of one
+//   model; part_c [P, 2] i32 each part's chunk range; inst_p [I, 2] i32
+//   each instance's part range.
 //
 // vwalk: walk_hit.cu's lane walk (walk_common.cuh lane_walk), for the
 // closest hit and the any hit: the block gates 128 virtual chunk world
@@ -41,36 +45,60 @@
 // (trace/iwalk.py lane_slack): the cull stays exact, and winner, instance
 // and t equal the ungated plain version's.
 //
-// iwalk: walk_common.cuh's block walk. The block reduces its world-space
-// ray bounds, gates 128 instance boxes at a time with a warp ballot and
-// visits the survivors in the octant order of its first ray, skipping an
-// entry whose entry t fails the live window. On a visit every thread
-// transforms its own ray into the instance's object space (a broadcast
-// load: every lane reads the same address); the block stages every chunk
-// of the instance's range (128 plane rows, three float4 each) and every
-// thread tests them, reducing the window after each chunk, and the any-hit
-// leaves the range once every live lane is occluded. Dead lanes and blocks
-// behave as in walk_hit.cu.
+// iwalk: walk_common.cuh inst_walk, a per-lane cull in three levels, each
+// lane's own slab test (segment.cuh enters) within its own window (closest:
+// min(best, t_limit); any hit: t_limit while unoccluded):
+//   1. instances: the block gates 128 instance world boxes at a time in the
+//      octant order of its first ray (a warp ballot, the block window), and
+//      each live lane tests the admitted boxes of a warp word, widened by
+//      ``slack`` as vwalk's; the masks are ORed block-wide behind one
+//      barrier;
+//   2. for each instance some lane entered, in visit order, each entering
+//      lane computes its object-space ray once (obj_ray) and tests the
+//      instance's part boxes, 32 at a time, ORed block-wide (no barrier for
+//      a model of one part);
+//   3. for each part some lane entered, in ascending order, its lanes test
+//      its chunk boxes (at most 32), ORed block-wide; each chunk some lane
+//      entered is staged in ascending order (walk_common.cuh stage_chunk),
+//      the lanes that (closest: still) enter it list their object-space
+//      rays, and thread j tests triangle j against every listed ray.
+// The instances come in the contract's visit order and the chunks of an
+// instance in ascending order, so the closest hit's (t, triangle) key,
+// merged with strict < after the next barrier, keeps the contract's tie
+// order: minimum t, then the first instance in the block's octant order,
+// then the lowest chunk, then the lowest lane. The any hit flags an
+// occluded lane; the lane stops listing, and the block leaves at the next
+// barrier (a staging or a block OR) once no valid lane is open.
+// The cull is exact: the object chunk boxes hold the triangles the pair
+// test sees (their vertices solved from the plane rows, padded by 1e-4 of
+// the model's largest coordinate, as the walk pads its chunk boxes), a
+// part's box holds its chunks', the instance box with ``slack`` holds the
+// world segment of every object hit (lane_slack), and enters is monotone
+// in the box and the window: winner, instance and t equal the ungated
+// plain version's on every ray, ties included.
 //
 // What bounds it: FP32 ALU per tested ray x triangle pair (closest 42 ops,
 // any 41, as in walk_hit.cu), plus the transform (30 ops per ray per
-// listing for vwalk, per visit for iwalk), vwalk's segment tests (~20 ops
-// per live lane and admitted box) and the gate scan (~40 ops per box per
-// block). iwalk tests every chunk of an admitted instance: on a
-// 442,368-triangle knot (5,033 chunks) one admitted instance costs a block
-// 5,033 stagings, so iwalk is far slower than vwalk there and is the engine
-// only above vwalk's virtual-chunk cap (or on request).
+// listing for vwalk, per entered instance for iwalk) and the lanes'
+// segment tests (~20 ops per live lane and tested box: vwalk's admitted
+// virtual chunks; iwalk's admitted instances, the part boxes of each
+// entered instance and the chunk boxes of each entered part). On the card
+// both walks run far above that bound, for the barriers: one per warp
+// word of admitted boxes, one per staged chunk, and for iwalk one per part
+// word of a many-part model and per entered part.
 //
 // Outputs. Closest: best t, the object-global slot (chunk*128 + lane) and
 // the instance, or (1e30, -1, -1) on a miss. Any: one flag per ray.
 //
-// Counters. With a non-null ``stats`` ([6 + entries] u64, zeroed by the
-// caller) each block adds stats[0..5] as in walk_hit.cu (blocks with a live
-// lane, gate entries visited, survivors the window skipped, lanes testing
-// a staged chunk (vwalk: those that listed their rays), summed over
-// stagings, staged chunks, and for vwalk the (lane, real triangle) pairs),
-// and sets stats[6 + e] for every gate entry e it visits (vwalk: stages).
-// Off on the main path.
+// Counters. With a non-null ``stats`` (zeroed by the caller) each block
+// with a live lane adds stats[0..5] as in walk_hit.cu (blocks with a live
+// lane, gate entries admitted, survivors the window skipped, lanes listed
+// on a staged chunk summed over stagings, staged chunks, (lane, real
+// triangle) pairs); vwalk ([6 + entries] u64) sets stats[6 + e] for every
+// virtual chunk e it stages; iwalk ([9 + I] u64) adds the (lane, instance),
+// (lane, part) and (lane, chunk) box tests that entered to stats[6..8] and
+// sets stats[9 + i] for every instance i some lane entered. Off on the
+// main path.
 //
 // Floating point: -fmad=false; the transform and the pair test repeat the
 // plain torch versions' (trace/iwalk.py) expressions in their order, so
@@ -79,18 +107,6 @@
 #include "walk_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ void write_closest(int n, float best, int slot, int inst,
-                                              float* __restrict__ out_t,
-                                              int* __restrict__ out_slot,
-                                              int* __restrict__ out_inst) {
-  const int ray = blockIdx.x * SBLK + threadIdx.x;
-  if (ray < n) {
-    out_t[ray] = best;
-    out_slot[ray] = slot;
-    out_inst[ray] = slot >= 0 ? inst : -1;
-  }
-}
 
 // Closest hit (iwalk.py _vwalk_closest_kernel): walk_common.cuh lane_walk
 // over the virtual chunks, the lanes' segment tests against the world
@@ -120,97 +136,34 @@ vwalk_any_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct
                          tlim, n, nullptr, nullptr, nullptr, out, stats);
 }
 
+// Closest hit (iwalk.py _iwalk_closest_kernel): walk_common.cuh inst_walk.
 __global__ void __launch_bounds__(SBLK)
 iwalk_closest_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct,
-                     const int* __restrict__ ord_oct, const int* __restrict__ inst_c,
-                     const float* __restrict__ inst_f, int k, int kq,
-                     const float* __restrict__ orig, const float* __restrict__ dir,
-                     const float* __restrict__ tlim, int n, float* __restrict__ out_t,
-                     int* __restrict__ out_slot, int* __restrict__ out_inst,
-                     unsigned long long* __restrict__ stats) {
-  __shared__ Shared sh;
-  const Ray r = load_ray(orig, dir, tlim, n, sh);
-  block_bounds(r, sh);
-
-  float best = BIG;
-  int slot = -1, inst = -1;
-  unsigned long long visits = 0, skips = 0, lanes = 0, stagings = 0;
-  if (sh.bb.anyv) {
-    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
-    float win = sh.bb.tmax;  // uniform across the block
-    for (int base = 0; base < k; base += SBLK) {
-      gate_batch(cb_oct, k, kq, base, sh);
-      for (int w = 0; w < WARPS; ++w) {
-        unsigned m = sh.bits[w];
-        while (m) {
-          const int q = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          if (!admits(sh.te[q], win)) {  // once per instance, as on the TPU
-            ++skips;
-            continue;
-          }
-          ++visits;
-          const int i = ord[base + q];
-          const Ray o = obj_ray(r, inst_f, i);
-          for (int c = inst_c[2 * i]; c < inst_c[2 * i + 1]; ++c) {
-            if (stats != nullptr) lanes += mark(stats + NSTATS, i, r.valid);
-            ++stagings;
-            stage(aux, c, sh);
-            if (r.valid && closest_chunk(o, sh, c, best, slot)) inst = i;
-            win = fminf(win, block_max(fminf(best, r.tl), sh));
-          }
-        }
-      }
-    }
-  }
-  write_closest(n, best, slot, inst, out_t, out_slot, out_inst);
-  count(stats, sh.bb.anyv, visits, skips, lanes, stagings);
+                     const int* __restrict__ ord_oct, const int* __restrict__ inst_p,
+                     const int* __restrict__ part_c, const float* __restrict__ ocb,
+                     const float* __restrict__ opb, const float* __restrict__ inst_f, int k,
+                     int kq, float slack, const float* __restrict__ orig,
+                     const float* __restrict__ dir, const float* __restrict__ tlim, int n,
+                     float* __restrict__ out_t, int* __restrict__ out_slot,
+                     int* __restrict__ out_inst, unsigned long long* __restrict__ stats) {
+  inst_walk<true>(aux, cb_oct, ord_oct, inst_p, part_c, ocb, opb, inst_f, k, kq, slack, orig, dir,
+                  tlim, n, out_t, out_slot, out_inst, nullptr, stats);
 }
 
-__global__ void __launch_bounds__(SBLK)
+// Shadow test (iwalk.py _iwalk_any_kernel): walk_common.cuh inst_walk.
+// Eight blocks per SM (64 registers, a few spilled) rather than the five
+// that 92 registers allow: its launches wait on per-block barrier chains,
+// and more resident blocks hide them (PERF.md section 5, the lb8 design step).
+__global__ void __launch_bounds__(SBLK, 8)
 iwalk_any_kernel(const float* __restrict__ aux, const float* __restrict__ cb_oct,
-                 const int* __restrict__ ord_oct, const int* __restrict__ inst_c,
-                 const float* __restrict__ inst_f, int k, int kq,
-                 const float* __restrict__ orig, const float* __restrict__ dir,
+                 const int* __restrict__ ord_oct, const int* __restrict__ inst_p,
+                 const int* __restrict__ part_c, const float* __restrict__ ocb,
+                 const float* __restrict__ opb, const float* __restrict__ inst_f, int k, int kq,
+                 float slack, const float* __restrict__ orig, const float* __restrict__ dir,
                  const float* __restrict__ tlim, int n, uint8_t* __restrict__ out,
                  unsigned long long* __restrict__ stats) {
-  __shared__ Shared sh;
-  const Ray r = load_ray(orig, dir, tlim, n, sh);
-  block_bounds(r, sh);
-
-  bool occ = false;
-  unsigned long long visits = 0, skips = 0, lanes = 0, stagings = 0;
-  if (sh.bb.anyv) {
-    const int* ord = ord_oct + (size_t)sh.bb.oct * kq;
-    float win = sh.bb.tmax;  // uniform; <= 0 once every live lane is occluded
-    for (int base = 0; base < k && win > 0.0f; base += SBLK) {
-      gate_batch(cb_oct, k, kq, base, sh);
-      for (int w = 0; w < WARPS && win > 0.0f; ++w) {
-        unsigned m = sh.bits[w];
-        while (m && win > 0.0f) {
-          const int q = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          if (!admits(sh.te[q], win)) {
-            ++skips;
-            continue;
-          }
-          ++visits;
-          const int i = ord[base + q];
-          const Ray o = obj_ray(r, inst_f, i);
-          for (int c = inst_c[2 * i]; c < inst_c[2 * i + 1] && win > 0.0f; ++c) {
-            if (stats != nullptr) lanes += mark(stats + NSTATS, i, r.valid && !occ);
-            ++stagings;
-            stage(aux, c, sh);
-            if (r.valid && !occ) occ = any_chunk(o, sh);
-            win = fminf(win, block_max(occ ? 0.0f : r.tl, sh));
-          }
-        }
-      }
-    }
-  }
-  const int ray = blockIdx.x * SBLK + threadIdx.x;
-  if (ray < n) out[ray] = occ ? 1 : 0;
-  count(stats, sh.bb.anyv, visits, skips, lanes, stagings);
+  inst_walk<false>(aux, cb_oct, ord_oct, inst_p, part_c, ocb, opb, inst_f, k, kq, slack, orig,
+                   dir, tlim, n, nullptr, nullptr, nullptr, out, stats);
 }
 
 }  // namespace
@@ -253,8 +206,9 @@ extern "C" int vwalk_any(int device, const float* aux, const float* cb_oct,
 }
 
 extern "C" int iwalk_closest(int device, const float* aux, const float* cb_oct,
-                             const int* ord_oct, const int* inst_c, const float* inst_f,
-                             int k, int kq, const float* orig, const float* dir,
+                             const int* ord_oct, const int* inst_p, const int* part_c,
+                             const float* ocb, const float* opb, const float* inst_f, int k,
+                             int kq, float slack, const float* orig, const float* dir,
                              const float* tlim, int n, float* out_t, int* out_slot,
                              int* out_inst, unsigned long long* stats, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -262,22 +216,24 @@ extern "C" int iwalk_closest(int device, const float* aux, const float* cb_oct,
   if (n > 0) {
     const int blocks = (n + SBLK - 1) / SBLK;
     iwalk_closest_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
-        aux, cb_oct, ord_oct, inst_c, inst_f, k, kq, orig, dir, tlim, n, out_t, out_slot,
-        out_inst, stats);
+        aux, cb_oct, ord_oct, inst_p, part_c, ocb, opb, inst_f, k, kq, slack, orig, dir, tlim, n,
+        out_t, out_slot, out_inst, stats);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int iwalk_any(int device, const float* aux, const float* cb_oct,
-                         const int* ord_oct, const int* inst_c, const float* inst_f, int k,
-                         int kq, const float* orig, const float* dir, const float* tlim,
+                         const int* ord_oct, const int* inst_p, const int* part_c,
+                         const float* ocb, const float* opb, const float* inst_f, int k, int kq,
+                         float slack, const float* orig, const float* dir, const float* tlim,
                          int n, uint8_t* out, unsigned long long* stats, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     const int blocks = (n + SBLK - 1) / SBLK;
     iwalk_any_kernel<<<blocks, SBLK, 0, (cudaStream_t)stream>>>(
-        aux, cb_oct, ord_oct, inst_c, inst_f, k, kq, orig, dir, tlim, n, out, stats);
+        aux, cb_oct, ord_oct, inst_p, part_c, ocb, opb, inst_f, k, kq, slack, orig, dir, tlim, n,
+        out, stats);
   }
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,12 @@ versions, and the runs.
   reads entry (index + k) mod M) and the marginal cost of a gather; against
   ``torch.gather``.
 
+A probe's single launch lasts 15-30 us, where a mean over a run moves by
+tens of percent between runs; so each kernel and its library call are
+also timed as the median of `MEDIAN_N` single launches each, alternating
+(`_median_pair_ms`), and those medians are the probes' ``ms`` and
+``library_ms``.
+
 Each kernel has one wrapper: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel or raises. ``LAUNCHES["row_gather"]`` and
 ``LAUNCHES["tile_gather"]`` count the launches. Inputs are made from a seed
@@ -47,6 +53,7 @@ SUBLANE_M = (8, 64, 128, 256, 512, 1024)  # mode 0: x [M, 128]
 LANE_M = (128, 256, 512, 1024, 2048, 4096, 8192)  # mode 1: x [8, M]
 WAVE = (512, 128)  # the natural traversal tile, mode 0
 REPS = 16
+MEDIAN_N = 200  # single launches of each side in a median timing
 _TILE_FLOATS = 8192  # shared-memory floats a tile block stages (32 KB)
 
 
@@ -202,6 +209,38 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _median_pair_ms(fn_a, fn_b, n: int = MEDIAN_N) -> tuple:
+    """Median device ms of ``n`` single calls each of ``fn_a()`` and
+    ``fn_b()``, alternating (a then b, then b then a, so neither always
+    follows the other), each call between its own two CUDA events, after
+    one warm-up call of each."""
+    fn_a()
+    fn_b()
+    runs = []
+    torch.cuda.synchronize()
+    for i in range(n):
+        for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            (fn_a if side == 0 else fn_b)()
+            end.record()
+            runs.append((side, start, end))
+    torch.cuda.synchronize()
+    times = ([], [])
+    for side, start, end in runs:
+        times[side].append(start.elapsed_time(end))
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def _median_line(what, kernel_ms, library_ms, library) -> str:
+    """The printed verdict of a median timing."""
+    slower = "kernel" if kernel_ms > library_ms else library
+    ratio = max(kernel_ms, library_ms) / min(kernel_ms, library_ms)
+    return (f"{what}: median of {MEDIAN_N} single launches each, alternating: kernel "
+            f"{kernel_ms * 1e3:.2f} us, {library} {library_ms * 1e3:.2f} us; the {slower} is "
+            f"slower ({ratio:.3f}x)")
+
+
 def _equal(name, a, b):
     if not torch.equal(a, b):
         raise RuntimeError(f"{name}: max |difference| {(a - b).abs().max().item():.3g}")
@@ -220,8 +259,11 @@ def run_rows(device, seed: int = 0) -> dict:
     ways = {"kernel": row_gather_cuda, "plain": row_gather_plain,
             "library": lambda t, c: torch.index_select(t, 0, c)}
     res = {"rows": N_INDICES, "bytes": N_INDICES * (2 * ROW_W * 4 + 4), "max_abs_err": 0.0}
+    med = _median_pair_ms(lambda: row_gather_cuda(table, idx), lambda: ways["library"](table, idx))
+    print(_median_line(f"row gather ({N_INDICES} rows)", *med, "index_select"))
+    medians = {"kernel": med[0], "library": med[1]}
     for name, fn in ways.items():
-        ms = _time_ms(lambda: fn(table, idx), 50)
+        ms = medians[name] if name in medians else _time_ms(lambda: fn(table, idx), 50)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         chain(fn, table, idx)
@@ -230,6 +272,7 @@ def run_rows(device, seed: int = 0) -> dict:
         chain_ms = _time_ms(lambda: chain(fn, table, idx), 5) / CHAIN
         res[name] = {"ms": ms, "chain_ms": chain_ms, "chain_host_ms": per * 1e3}
         print(f"row gather {name}: {ms * 1e3:.1f} us per {N_INDICES}-row gather "
+              f"({'median' if name != 'plain' else 'mean of 50'}) "
               f"({N_INDICES / ms / 1e3:.1f}M rows/s, {res['bytes'] / ms / 1e6:.1f} GB/s); in the "
               f"chain of {CHAIN}: {chain_ms * 1e3:.1f} us per gather ({N_INDICES / chain_ms / 1e3:.1f}M "
               f"rows/s; host clock {per * 1e6:.1f} us)")
@@ -253,9 +296,13 @@ def run_tiles(device, seed: int = 0) -> dict:
                               ("library", tile_gather_library))}
         lanes = shape[0] * shape[1]
         marg = {name: (v[REPS] - v[1]) / (REPS - 1) for name, v in t.items()}
+        med = _median_pair_ms(lambda: tile_gather_cuda(x, idx, axis, 1),
+                              lambda: tile_gather_library(x, idx, axis, 1))
+        print(_median_line(f"{tag} {shape} 1-gather", *med, "torch.gather"))
         res[f"{tag} {shape}"] = {"shape": shape, "axis": axis, "lanes": lanes, "bytes": 3 * lanes * 4,
-                                 "ms": t["kernel"][1], "plain_ms": t["plain"][1],
-                                 "library_ms": t["library"][1], "marginal_ms": marg["kernel"],
+                                 "ms": med[0], "plain_ms": t["plain"][1],
+                                 "library_ms": med[1], "mean_ms": t["kernel"][1],
+                                 "library_mean_ms": t["library"][1], "marginal_ms": marg["kernel"],
                                  "library_marginal_ms": marg["library"]}
         print(f"{tag:13s} shape={str(shape):12s} M={shape[axis]:5d}: kernel 1-gather call "
               f"{t['kernel'][1] * 1e3:7.2f} us, {REPS}-gather {t['kernel'][REPS] * 1e3:7.2f} us, "

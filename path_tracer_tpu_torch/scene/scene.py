@@ -312,8 +312,9 @@ def from_jax_scene(data: dict, device) -> SceneData:
     row tables (``bvh``/``lights_bvh`` ``packed`` and the triangle tables'
     ``packed``) of a table the port traces through its stack BVH. A two-level
     dict (empty ``tri``) must hold a single-part vwalk or iwalk engine in
-    ``twolevel["iwalk"]``, whose kept tables are carried over as they are;
-    the JAX gather machine's tables and multi-part engines raise."""
+    ``twolevel["iwalk"]``, whose kept tables are carried over as they are
+    (iwalk's object boxes rebuilt from them by ``iwalk.upload``); the JAX
+    gather machine's tables and multi-part engines raise."""
     a = lambda x: np.asarray(x)  # noqa: E731
     jt = data["tri"]
     tri = {}

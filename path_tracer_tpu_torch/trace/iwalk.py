@@ -18,8 +18,12 @@ reached through ``iwalk_closest_hit_shade`` and ``iwalk_any_hit``):
   instance transform; the virtual chunks get the walk's SAH octant orders,
   and one gated visit tests one object chunk of one instance.
 * iwalk, above vwalk's cap of `VWALK_MAX_VCH` virtual chunks or on request:
-  the gate works on instance world boxes; an admitted instance brute-walks
-  its chunk range ``inst_c``.
+  the gate works on instance world boxes; under an admitted instance each
+  lane culls the model's object parts (runs of at most `PART_W` chunks)
+  and object chunks on its object-space ray. Those boxes are port-only
+  tables (`pack_object_boxes`, built by `upload` from ``aux`` and
+  ``inst_c``: ``ocb``, ``opb``, ``part_c``, ``inst_p``); the tables
+  `pack_iwalk` returns stay the JAX ones.
 * The JAX package splits both engines into parts because a part's plane
   table must fit the TPU's VMEM; on Hopper the kernels read one table from
   device memory, so there are no parts, and the plane table ``w``, the
@@ -35,7 +39,10 @@ reached through ``iwalk_closest_hit_shade`` and ``iwalk_any_hit``):
   pair. Closest: minimum t; among ties the first in the kernel's visit
   order wins (vwalk: position of the virtual chunk in the ray block's
   octant order, then lane; iwalk: position of the instance, then chunk,
-  then lane). Any hit: an OR.
+  then lane). Any hit: an OR. `culled_closest_plain` / `culled_any_plain`
+  are the queries through each kernel's per-lane cull (vwalk: the widened
+  virtual chunk boxes; iwalk: the widened instance box, then the object
+  part and chunk boxes), which the tests hold equal to the plain versions.
 
 Each kernel has one wrapper: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel or raises. ``LAUNCHES["vwalk_closest"]``,
@@ -53,7 +60,7 @@ import torch
 from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.bvh import build_sah_tree, chunk_partition
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES, load
-from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue
+from path_tracer_tpu_torch.trace.dense_cuda import AUX_COLS, _epilogue, _valid
 from path_tracer_tpu_torch.trace.walk import (
     _BIG,
     _PLAIN_PAIRS,
@@ -83,6 +90,11 @@ _COMMON = ("cb_oct", "ord_oct", "inst_f", "inst_rows", "aux", "origmap",
            "sort_lo", "sort_scale", "root_lo", "root_hi")
 VWALK_TABLES = _COMMON + ("vinst", "vglob")
 IWALK_TABLES = _COMMON + ("inst_c",)
+# iwalk's port-only object tables (`pack_object_boxes`; `upload` adds them),
+# in the kernels' argument order
+IWALK_BOXES = ("inst_p", "part_c", "ocb", "opb")
+PART_W = 32  # object chunks per part: the kernels' chunk mask is one 32-bit word
+NSTATS_IWALK = 9  # iwalk's counters before its per-instance flags
 
 
 # --- host packing (NumPy) ---
@@ -246,7 +258,8 @@ def pack_iwalk(models, shared: dict | None = None) -> dict:
     instances: ``cb_oct`` [8, 6, kq] world boxes in each octant's order,
     ``ord_oct`` [8, kq] instance ids, ``inst_c`` [I, 2] i32 each instance's
     object chunk range; plus ``inst_f``, ``inst_rows``, ``aux``,
-    ``origmap`` and the scene box (`_scene_box`)."""
+    ``origmap`` and the scene box (`_scene_box`): the JAX package's tables.
+    `upload` adds the port's object tables (`pack_object_boxes`)."""
     s = model_tables(models) if shared is None else shared
     chunk_off = s["chunk_off"]
     K = int(chunk_off[-1])
@@ -338,9 +351,10 @@ def pack_vwalk(models, shared: dict | None = None) -> dict:
 
 
 def lane_slack(tables: dict) -> float:
-    """The widening of vwalk's world gate boxes for its lanes' segment tests.
-    A virtual chunk's world box holds the 8 float32-transformed corners of
-    an unpadded object chunk box, while the pair test that must not be lost
+    """The widening of the two-level world gate boxes (vwalk's virtual
+    chunks, iwalk's instances) for the lanes' segment tests. Such a box
+    holds the 8 float32-transformed corners of an unpadded object box (a
+    chunk's, or a model's), while the pair test that must not be lost
     runs on the object-space ray: its rounding scales with object
     coordinates, the box's with world ones. Bound both: world coordinates by
     the root box W, object ones by sqrt(3) W plus the largest inverse
@@ -367,15 +381,93 @@ def lane_slack(tables: dict) -> float:
     return 1e-4 * (3.0 ** 0.5 * w + t_inv) + 1e-6
 
 
+def _plane_vertices(planes):
+    """The vertices ``[T, 3, 3]`` (float64) of the triangles that the plane
+    rows ``planes [T, 12]`` (n0 d0 n1 d1 n2 d2) describe: the points where
+    n0.x = d0 and (u, v) = (n1.x + d1, n2.x + d2) is (0, 0), (1, 0) and
+    (0, 1), solved exactly up to float64 rounding (Cramer's rule), so they
+    are the corners of the triangle the pair tests see; NaN or inf where
+    the rows are singular."""
+    p = planes.astype(np.float64)
+    r0, r1, r2 = p[:, 0:3], p[:, 4:7], p[:, 8:11]
+    c0, c1, c2 = np.cross(r1, r2), np.cross(r2, r0), np.cross(r0, r1)
+    det = (r0 * c0).sum(axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        base = (p[:, 3:4] * c0 - p[:, 7:8] * c1 - p[:, 11:12] * c2) / det[:, None]
+        return np.stack([base, base + c1 / det[:, None], base + c2 / det[:, None]], axis=1)
+
+
+def pack_object_boxes(aux, inst_c) -> dict:
+    """iwalk's object-space cull tables, from the shared plane rows ``aux``
+    [K*CH_W, AUX_COLS] and the instances' chunk ranges ``inst_c`` [I, 2]
+    (host numpy): ``ocb`` [K, 6] f32 each object chunk's box (lo xyz | hi
+    xyz); ``opb`` [P, 6] f32 the boxes of the parts, runs of at most
+    `PART_W` chunks of one model (a chunk's model is its first row's id,
+    ``aux`` column 21), ``part_c`` [P, 2] i32 each part's chunk range and
+    ``inst_p`` [I, 2] i32 each instance's part range.
+
+    A chunk's box holds the vertices of its rows' triangles as the pair
+    tests see them (`_plane_vertices`), padded by 1e-4 of the model's
+    largest coordinate plus 1e-6, as ``walk.pack_walk`` pads its chunk
+    boxes: the lanes' object-space segment test then keeps every triangle
+    the pair test can hit, within its rounding. A row with n0 = 0 (a pad
+    row, or a degenerate triangle) has det = 0 for every ray and never hits,
+    so it adds nothing; a real row whose vertices cannot be solved makes its
+    chunk's box the whole space; a chunk of no hittable row gets an
+    inverted box, never entered. Built from the tables the kernels read,
+    so `from_jax_scene` rebuilds the same bits."""
+    aux = np.asarray(aux, np.float32)
+    k = aux.shape[0] // CH_W
+    planes = aux[:, :12]
+    live = (planes[:, 0:3] != 0.0).any(axis=1)
+    v = _plane_vertices(planes[live])  # [L, 3, 3]
+    ok = np.isfinite(v).all(axis=(1, 2))
+    chunk = np.flatnonzero(live) // CH_W
+    model = aux[::CH_W, 21].astype(np.int64)  # [k]: each chunk's first row is real
+    vmax = np.abs(np.where(ok[:, None, None], v, 0.0)).max(axis=(1, 2))
+    big = np.zeros(int(model.max(initial=0)) + 1)
+    np.maximum.at(big, model[chunk], vmax)
+    pad = 1e-4 * np.maximum(big, 1.0) + 1e-6
+    lo = np.full((k, 3), np.inf)
+    hi = np.full((k, 3), -np.inf)
+    np.minimum.at(lo, chunk[ok], v[ok].min(axis=1))
+    np.maximum.at(hi, chunk[ok], v[ok].max(axis=1))
+    whole = np.zeros(k, bool)
+    whole[chunk[~ok]] = True
+    lo[whole], hi[whole] = -np.inf, np.inf
+    empty = ~np.isfinite(lo).all(axis=1) & ~whole
+    ocb = np.concatenate([lo - pad[model][:, None], hi + pad[model][:, None]], axis=1)
+    ocb[empty] = [_BIG] * 3 + [-_BIG] * 3
+    ocb = ocb.astype(np.float32)
+    # parts: runs of PART_W chunks within each model's contiguous range
+    first = np.flatnonzero(np.diff(model, prepend=-1))
+    part_c = np.array([(a, min(a + PART_W, b))
+                       for m0, b in zip(first, np.append(first[1:], k))
+                       for a in range(m0, b, PART_W)], np.int64).reshape(-1, 2)
+    starts = part_c[:, 0]
+    opb = np.empty((starts.size, 6), np.float32)
+    for i, (a, b) in enumerate(part_c):
+        opb[i, 0:3] = ocb[a:b, 0:3].min(axis=0)
+        opb[i, 3:6] = ocb[a:b, 3:6].max(axis=0)
+    inst_c = np.asarray(inst_c, np.int64)
+    inst_p = np.stack([np.searchsorted(starts, inst_c[:, 0]),
+                       np.searchsorted(starts, inst_c[:, 1])], axis=1)
+    inst_p[inst_c[:, 0] >= inst_c[:, 1]] = 0
+    return {"ocb": ocb, "opb": opb, "part_c": part_c.astype(np.int32),
+            "inst_p": inst_p.astype(np.int32)}
+
+
 def upload(tables: dict, device) -> dict:
     """An engine's tables as tensors on ``device``, plus ``gates`` (an int:
-    the gate entries, the columns of ``cb_oct`` that are not 2e30 pads) and,
-    for vwalk, ``lane_slack`` (`lane_slack`, a 0-dim float32 tensor kept on
-    the CPU: the kernel takes it by value)."""
+    the gate entries, the columns of ``cb_oct`` that are not 2e30 pads),
+    ``lane_slack`` (`lane_slack`, a 0-dim float32 tensor kept on the CPU:
+    the kernels take it by value) and, for iwalk, its object tables
+    (`pack_object_boxes`)."""
+    if "inst_c" in tables:
+        tables = {**tables, **pack_object_boxes(tables["aux"], tables["inst_c"])}
     eng = {k: torch.from_numpy(np.array(v, order="C")).to(device) for k, v in tables.items()}
     eng["gates"] = int((np.asarray(tables["cb_oct"])[0, 0] < 1e30).sum())
-    if "vinst" in tables:
-        eng["lane_slack"] = torch.tensor(lane_slack(tables), dtype=torch.float32)
+    eng["lane_slack"] = torch.tensor(lane_slack(tables), dtype=torch.float32)
     return eng
 
 
@@ -408,24 +500,28 @@ def _obj_rays(m, o, d):
 
 
 def _lib():
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return load("iwalk_hit", {
-        "vwalk_closest": [i, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i, p, p, p, p, p],
-        "vwalk_any": [i, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i, p, p, p],
-        "iwalk_closest": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p, p, p],
-        "iwalk_any": [i, p, p, p, p, p, i, i, p, p, p, i, p, p, p],
+        "vwalk_closest": [i, p, p, p, p, p, p, i, i, f, p, p, p, i, p, p, p, p, p],
+        "vwalk_any": [i, p, p, p, p, p, p, i, i, f, p, p, p, i, p, p, p],
+        "iwalk_closest": [i, p, p, p, p, p, p, p, p, i, i, f, p, p, p, i, p, p, p, p, p],
+        "iwalk_any": [i, p, p, p, p, p, p, p, p, i, i, f, p, p, p, i, p, p, p],
     })
 
 
 def _index_tables(eng):
-    """The engine's gate-entry index tables, in the kernels' argument order."""
-    return ("vinst", "vglob") if "vinst" in eng else ("inst_c",)
+    """The engine's tables after ``ord_oct`` and before ``inst_f``, in the
+    kernels' argument order."""
+    return ("vinst", "vglob") if "vinst" in eng else IWALK_BOXES
 
 
 def _check_cuda(eng, origin, direction, t_limit):
     dev = origin.device
+    if "vinst" not in eng and "ocb" not in eng:
+        raise ValueError("an iwalk table needs its object boxes (iwalk.upload adds them)")
     checks = [("aux", torch.float32), ("cb_oct", torch.float32), ("ord_oct", torch.int32),
-              ("inst_f", torch.float32)] + [(k, torch.int32) for k in _index_tables(eng)]
+              ("inst_f", torch.float32)] + [
+        (k, torch.float32 if k in ("ocb", "opb") else torch.int32) for k in _index_tables(eng)]
     for name, x, dtype in [(k, eng[k], t) for k, t in checks] + [
         ("origin", origin, torch.float32), ("direction", direction, torch.float32),
         ("t_limit", t_limit, torch.float32),
@@ -449,24 +545,31 @@ def _check_cuda(eng, origin, direction, t_limit):
     if "vinst" in eng:
         if eng["vinst"].shape != (kq,) or eng["vglob"].shape != (kq,):
             raise ValueError("vinst and vglob must be [kq]")
-    elif eng["inst_c"].shape != (n_inst, 2) or eng["gates"] > n_inst:
-        raise ValueError("inst_c must be [I, 2] and gates <= I")
+    else:
+        n_parts = eng["opb"].shape[0]
+        if (eng["ocb"].shape != (aux.shape[0] // CH_W, 6) or eng["opb"].shape != (n_parts, 6)
+                or eng["part_c"].shape != (n_parts, 2) or eng["inst_p"].shape != (n_inst, 2)):
+            raise ValueError("ocb must be [k, 6], opb [P, 6], part_c [P, 2] and inst_p [I, 2]")
+        if eng["gates"] > n_inst:
+            raise ValueError("gates must be <= I")
     n = origin.shape[0]
     if origin.shape != (n, 3) or direction.shape != (n, 3) or t_limit.shape != (n,):
         raise ValueError("origin/direction must be [N, 3] and t_limit [N]")
 
 
-def _num_flags(eng) -> int:
-    """The counters' flag slots: one per gate entry (vwalk: virtual chunk,
-    by layout slot; iwalk: instance, by id)."""
-    return eng["gates"] if "vinst" in eng else eng["inst_f"].shape[0]
+def num_stats(eng) -> int:
+    """The length of a kernel's ``stats`` tensor: vwalk's six counters and
+    a flag per virtual chunk (by layout slot), or iwalk's nine
+    (`NSTATS_IWALK`) and a flag per instance (by id)."""
+    if "vinst" in eng:
+        return NSTATS + eng["gates"]
+    return NSTATS_IWALK + eng["inst_f"].shape[0]
 
 
 def _check_stats(eng, origin, stats):
     if stats is not None and (stats.device != origin.device or stats.dtype != torch.int64
-                              or stats.shape != (NSTATS + _num_flags(eng),)):
-        raise ValueError(f"stats must be an int64 [{NSTATS} + gate entries] tensor on the rays' "
-                         "device")
+                              or stats.shape != (num_stats(eng),)):
+        raise ValueError(f"stats must be an int64 [{num_stats(eng)}] tensor on the rays' device")
     return None if stats is None else stats.data_ptr()
 
 
@@ -478,11 +581,9 @@ def _launch(eng, query, origin, direction, t_limit, outs, stats):
     fn = getattr(_lib(), key)
     tables = [eng[k].data_ptr() for k in ("aux", "cb_oct", "ord_oct", *_index_tables(eng), "inst_f")]
     dev = origin.device
-    # vwalk widens its boxes for the lanes' segment tests
-    slack = (float(eng["lane_slack"]),) if "vinst" in eng else ()
     LAUNCHES[key] += 1
-    err = fn(dev.index, *tables, eng["gates"], eng["ord_oct"].shape[1], *slack, origin.data_ptr(),
-             direction.data_ptr(), t_limit.data_ptr(), origin.shape[0],
+    err = fn(dev.index, *tables, eng["gates"], eng["ord_oct"].shape[1], float(eng["lane_slack"]),
+             origin.data_ptr(), direction.data_ptr(), t_limit.data_ptr(), origin.shape[0],
              *[x.data_ptr() for x in outs], stats_ptr, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{key} launch failed: cudaError {err}")
@@ -494,12 +595,12 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
     ``(best_t [N] f32, slot [N] i32, inst [N] i32)``: the object-global
     slot (chunk * 128 + lane) and the instance of the winner, or
     (1e30, -1, -1) on a miss. ``stats``, a zeroed int64 CUDA tensor
-    [6 + gate entries] (virtual chunks, or instances), receives (blocks
-    with a live lane, gate entries visited, survivors skipped by the
-    window, lanes testing a staged chunk, staged chunks, and for vwalk the
-    (lane, real triangle) pairs tested; vwalk's lanes are those whose own
-    segment test entered the chunk), then a 1 for every gate entry visited
-    (vwalk: staged)."""
+    [`num_stats`], receives (blocks with a live lane, gate entries
+    admitted, survivors skipped by the window, lanes listed on a staged
+    chunk, staged chunks, (lane, real triangle) pairs tested), for iwalk
+    then the (lane, instance), (lane, part) and (lane, chunk) box tests
+    that entered, then a 1 for every virtual chunk staged (vwalk) or
+    instance some lane entered (iwalk)."""
     n, dev = origin.shape[0], origin.device
     best_t = torch.empty(n, dtype=torch.float32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
@@ -511,7 +612,7 @@ def closest_cuda(eng, origin, direction, t_limit, stats=None):
 def any_cuda(eng, origin, direction, t_limit, stats=None):
     """Kernel shadow test (raw origin/direction, exit-clamped t_limit): bool
     ``[N]``, False on dead and non-finite lanes. ``stats`` as for
-    `closest_cuda` (vwalk's lanes: those that entered a staged chunk and
+    `closest_cuda` (the listed lanes: those that entered a staged chunk and
     were not yet occluded)."""
     out = torch.empty(origin.shape[0], dtype=torch.bool, device=origin.device)
     _launch(eng, "any", origin, direction, t_limit, (out,), stats)
@@ -634,7 +735,7 @@ def any_plain(eng, origin, direction, t_limit):
     return out
 
 
-# --- vwalk's segment cull, as a plain model (tests, chip_smoke.py) ---
+# --- the kernels' per-lane cull, as a plain model (tests, chip_smoke.py) ---
 
 
 def virtual_boxes(eng):
@@ -650,15 +751,49 @@ def virtual_boxes(eng):
     return lo, hi
 
 
+def instance_boxes(eng):
+    """iwalk's gate boxes widened by its ``lane_slack``, by instance id:
+    ``(lo, hi)`` [I, 3]; an instance that is no gate entry (no chunks) gets
+    an inverted box."""
+    g, n_inst = eng["gates"], eng["inst_f"].shape[0]
+    ids = eng["ord_oct"][0, :g].long()
+    lo = torch.full((n_inst, 3), _BIG, dtype=eng["cb_oct"].dtype, device=ids.device)
+    hi = torch.full_like(lo, -_BIG)
+    slack = float(eng["lane_slack"])
+    lo[ids] = eng["cb_oct"][0, 0:3, :g].T - slack
+    hi[ids] = eng["cb_oct"][0, 3:6, :g].T + slack
+    return lo, hi
+
+
+def to_world(eng, inst, o, d):
+    """Object-space rays ``o, d [n, 3]`` through the forward rigid transform
+    of instances ``inst [n]`` (``inst_rows``' forward rotation R, columns
+    12-20, and its inverse translation -R^T t, columns 9-11, turned back
+    to t), in float64 rounded once to float32: world rays that meet the
+    same object points at the same t, up to that rounding (tests,
+    chip_smoke.py)."""
+    rows = eng["inst_rows"].double()[inst.long()]
+    rot = rows[:, 12:21].view(-1, 3, 3)
+    tr = -(rot @ rows[:, 9:12, None])[:, :, 0]
+    return (((rot @ o.double()[:, :, None])[:, :, 0] + tr).float().contiguous(),
+            (rot @ d.double()[:, :, None])[:, :, 0].float().contiguous())
+
+
 def entry_hits(eng, o, d, tl):
-    """``[n, g]``: whether each lane (lane values ``o, d``, ``tl [n]``) has
-    a hit in (EPSILON, t_limit) in each of vwalk's virtual chunks (layout
-    slots), on its object-space ray, by the any-hit kernels' sign tests."""
+    """``[n, E]``: whether each lane (lane values ``o, d``, ``tl [n]``) has
+    a hit in (EPSILON, t_limit) in each cull entry, on its object-space ray,
+    by the any-hit kernels' sign tests. vwalk's entries are its virtual
+    chunks (layout slots); iwalk's the (instance, object chunk) pairs of
+    `_columns`, instance by instance."""
+    planes = eng["aux"][:, :12].to(o.dtype)
+    inst_f = eng["inst_f"].to(o.dtype)
+    if "inst_c" in eng:
+        segs, _, _ = _columns(eng, o.device)
+        return torch.cat([_shadow_hits(planes[a:b], *_obj_rays(inst_f[i], o, d), tl[:, None])
+                          .view(o.shape[0], -1, CH_W).any(dim=2) for i, a, b, _ in segs], dim=1)
     g = eng["gates"]
     vi = eng["vinst"][:g].to(device=o.device, dtype=torch.int64)
     vg = eng["vglob"][:g].to(device=o.device, dtype=torch.int64)
-    planes = eng["aux"][:, :12].to(o.dtype)
-    inst_f = eng["inst_f"].to(o.dtype)
     hits = torch.zeros((o.shape[0], g), dtype=torch.bool, device=o.device)
     for i in torch.unique(vi).tolist():
         cols = (vi == i).nonzero()[:, 0]
@@ -668,30 +803,65 @@ def entry_hits(eng, o, d, tl):
     return hits
 
 
+def entry_enters(eng, o, d, tw):
+    """``[n, E]`` (the entries of `entry_hits`): whether each lane passes
+    the kernel's cull of each entry within its window ``tw [n]``, each level
+    by ``walk.lane_enters``. vwalk: the virtual chunk's widened world box.
+    iwalk: the instance's widened world box (`instance_boxes`) on the world
+    ray, then on the object-space ray (`_obj_rays`, the kernels' obj_ray)
+    the box of the part that holds the chunk (``opb``) and the chunk's own
+    box (``ocb``)."""
+    if "vinst" in eng:
+        return lane_enters(*virtual_boxes(eng), o, d, tw)
+    ilo, ihi = instance_boxes(eng)
+    inst_f = eng["inst_f"].to(o.dtype)
+    ocb, opb = eng["ocb"].to(o.dtype), eng["opb"].to(o.dtype)
+    starts = eng["part_c"][:, 0].to(device=o.device, dtype=torch.int64)
+    segs = _columns(eng, o.device)[0]
+    out = torch.zeros((o.shape[0], sum(b - a for _, a, b, _ in segs) // CH_W), dtype=torch.bool,
+                      device=o.device)
+    for i, a, b, col in segs:
+        c = torch.arange(a // CH_W, b // CH_W, device=o.device)
+        part = torch.searchsorted(starts, c, right=True) - 1
+        r = lane_enters(ilo[i : i + 1], ihi[i : i + 1], o, d, tw)[:, 0].nonzero()[:, 0]
+        oo, dd = _obj_rays(inst_f[i], o[r], d[r])  # elementwise: the same bits on a row subset
+        p = lane_enters(opb[part, 0:3], opb[part, 3:6], oo, dd, tw[r])
+        out[r, col // CH_W : col // CH_W + c.numel()] = p & lane_enters(
+            ocb[c, 0:3], ocb[c, 3:6], oo, dd, tw[r])
+    return out
+
+
+def _column_entries(eng, segs, device):
+    """The cull entry (of `entry_enters`) of each column chunk of
+    `_columns`: vwalk's virtual chunk (`_column_vchunks`); iwalk's column
+    chunks are its entries, in order."""
+    if "inst_c" in eng:
+        return torch.arange(sum(b - a for _, a, b, _ in segs) // CH_W, device=device)
+    return _column_vchunks(eng, segs, device)
+
+
 def culled_closest_plain(eng, origin, direction, t_limit):
-    """vwalk's closest hit through its kernel's segment cull at its
-    tightest: a lane tests the object chunk of a virtual chunk on its
-    object-space ray only if ``walk.lane_enters`` passes the virtual
-    chunk's widened world box (`virtual_boxes`) within ``min(t*,
-    t_limit)``, t* the lane's plain closest t (the least window a kernel
-    lane can reach). Equal to `closest_plain` when the cull is exact."""
+    """The closest hit through the kernel's per-lane cull at its tightest: a
+    lane tests the object chunk of an (instance, chunk) column only if it
+    passes `entry_enters` within ``min(t*, t_limit)``, t* the lane's plain
+    closest t (the least window a kernel lane can reach). Equal to
+    `closest_plain` when the cull is exact."""
     n, dev = origin.shape[0], origin.device
     t_star, _, _ = closest_plain(eng, origin, direction, t_limit)
     segs, col_slot, col_inst, planes, inst_f, live, steps = _plain_steps(
         eng, origin, direction, t_limit)
     oct_live = _block_octant(direction)[live]
     rank = _rank_columns(eng, segs, col_slot, col_inst, dev) if steps else None
-    vcol = _column_vchunks(eng, segs, dev)
-    lo, hi = virtual_boxes(eng)
+    ent = _column_entries(eng, segs, dev)
     best_t = torch.full((n,), _BIG, dtype=origin.dtype, device=dev)
     slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
     inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
     for o, d, tl, s in steps:
         rows = live[s : s + o.shape[0]]
-        enter = lane_enters(lo, hi, o, d, torch.minimum(t_star[rows], tl[:, 0]))
+        enter = entry_enters(eng, o, d, torch.minimum(t_star[rows], tl[:, 0]))
         tm = torch.cat([_candidate_t(planes[a:b], *_obj_rays(inst_f[i], o, d), tl)
                         for i, a, b, _ in segs], dim=1)
-        tm = torch.where(enter[:, vcol].repeat_interleave(CH_W, dim=1), tm, _BIG)
+        tm = torch.where(enter[:, ent].repeat_interleave(CH_W, dim=1), tm, _BIG)
         bt, first = _closest_columns(tm, rank, oct_live[s : s + o.shape[0]])
         hit = bt < _BIG
         best_t[rows] = bt
@@ -701,19 +871,42 @@ def culled_closest_plain(eng, origin, direction, t_limit):
 
 
 def culled_any_plain(eng, origin, direction, t_limit):
-    """vwalk's any hit through its kernel's segment cull: a lane tests the
-    object chunk of a virtual chunk on its object-space ray only if
-    ``walk.lane_enters`` passes the virtual chunk's widened world box
-    (`virtual_boxes`) within the lane's t_limit. Equal to `any_plain` when
-    the cull is exact."""
+    """The any hit through the kernel's per-lane cull: a lane tests an
+    entry's object chunk only if it passes `entry_enters` within its
+    t_limit. Equal to `any_plain` when the cull is exact."""
     o, d, tl = _lanes(origin, direction, t_limit)
     live = (tl > 0.0).nonzero()[:, 0]
     out = torch.zeros(origin.shape[0], dtype=torch.bool, device=origin.device)
     if live.numel():
         o, d, tl = o[live], d[live], tl[live]
-        enter = lane_enters(*virtual_boxes(eng), o, d, tl)
-        out[live] = (entry_hits(eng, o, d, tl) & enter).any(dim=1)
+        out[live] = (entry_hits(eng, o, d, tl) & entry_enters(eng, o, d, tl)).any(dim=1)
     return out
+
+
+def tie_tables(positions, index: int, matrix):
+    """`pack_iwalk` tables of two coincident instances (``matrix`` [3, 4])
+    of the soup ``positions`` with triangle ``index`` also copied into the
+    first two pad slots of another object chunk B (tests, chip_smoke.py):
+    one triangle in two instances, in two chunks of each and twice within
+    one. B is the first chunk with two pad slots (the one before the
+    triangle's own chunk A if there is one); `upload` builds the object
+    boxes from the rows, so B's box grows to hold the copies. Returns
+    (tables, the three object slots that hold the triangle)."""
+    from path_tracer_tpu_torch.scene.model import Model
+
+    pos = np.asarray(positions, np.float32)
+    tables = pack_iwalk([Model(None, matrices=[matrix, matrix], positions=pos)])
+    aux = tables["aux"]
+    k = aux.shape[0] // CH_W
+    real = (aux[:, :12] != 0).any(axis=1).reshape(k, CH_W)
+    src = int(np.flatnonzero((tables["origmap"] == index) & real.reshape(-1))[0])
+    cand = np.flatnonzero(real.sum(axis=1) <= CH_W - 2)
+    cand = cand[cand != src // CH_W]
+    b = int(cand[0])
+    dst = [b * CH_W + int(real[b].sum()) + i for i in range(2)]
+    aux[dst] = aux[src]
+    tables["origmap"][dst] = tables["origmap"][src]
+    return tables, (src, *dst)
 
 
 # --- public queries (the JAX iwalk_* contracts) ---
@@ -758,25 +951,30 @@ def iwalk_any_hit(eng: dict, origin, direction, t_limit) -> torch.Tensor:
 
 
 def iwalk_stats(eng: dict, origin, direction, t_limit, query: str = "closest") -> dict:
-    """Gate economics of one ``query`` ("closest" or "any") on the card, with
+    """Cull economics of one ``query`` ("closest" or "any") on the card, with
     the public query's ray order: ``blocks`` (with a live lane), ``visits``
     (gate entries a block admitted: virtual chunks or instances),
     ``skipped`` (gated survivors the live window skipped), ``lane_visits``
-    (lanes testing a staged chunk; vwalk: those whose own segment test
-    entered it, and for the any hit that were not yet occluded), ``staged``
-    (chunks staged), summed over blocks, and ``entries`` (distinct gate
-    entries visited; vwalk: staged); vwalk adds ``pairs``, the (lane, real
-    triangle) pair tests. CUDA tensors only."""
+    (lanes listed on a staged chunk: those whose own segment test entered
+    it, and for the any hit that were not yet occluded), ``staged`` (chunks
+    staged), ``pairs`` (the (lane, real triangle) pair tests), summed over
+    blocks, ``entries`` (distinct gate entries: vwalk's virtual chunks
+    staged, iwalk's instances some lane entered) and ``lanes`` (the valid
+    lanes); iwalk adds ``instances``, ``parts`` and ``chunks``, the (lane,
+    box) tests that entered at each level. CUDA tensors only."""
     o, d, tl = _f32(origin, direction, t_limit)
-    stats = torch.zeros(NSTATS + _num_flags(eng), dtype=torch.int64, device=o.device)
+    stats = torch.zeros(num_stats(eng), dtype=torch.int64, device=o.device)
     if query == "closest":
-        _, o_s, d_s, tl_s = _sorted_rays(eng, o, d, tl)
-        closest_cuda(eng, o_s, d_s, tl_s, stats=stats)
+        _, o, d, tl = _sorted_rays(eng, o, d, tl)
+        closest_cuda(eng, o, d, tl, stats=stats)
     else:
-        any_cuda(eng, o, d, _exit_clamp(eng, o, d, tl).contiguous(), stats=stats)
-    blocks, visits, skipped, lane_visits, staged, pairs = (int(x) for x in stats[:NSTATS].cpu())
-    out = {"blocks": blocks, "visits": visits, "skipped": skipped, "lane_visits": lane_visits,
-           "staged": staged, "entries": int(stats[NSTATS:].sum())}
+        tl = _exit_clamp(eng, o, d, tl).contiguous()
+        any_cuda(eng, o, d, tl, stats=stats)
+    c = stats.cpu().tolist()
+    out = {"blocks": c[0], "visits": c[1], "skipped": c[2], "lane_visits": c[3], "staged": c[4],
+           "pairs": c[5], "lanes": int(_valid(o, d, tl).sum())}
     if "vinst" in eng:
-        out["pairs"] = pairs
+        out["entries"] = sum(c[NSTATS:])
+    else:
+        out.update(instances=c[6], parts=c[7], chunks=c[8], entries=sum(c[NSTATS_IWALK:]))
     return out

@@ -380,26 +380,30 @@ def test_two_level_kernel_rejects_bad_inputs(iwalk_case):
 
 def test_two_level_stats_counts(iwalk_case):
     """The counters of both two-level kernels: live blocks, gate entries
-    visited, staged chunks (vwalk: at most one per visit, the lanes'
-    segment cull; iwalk: the instance's range), lanes per staging; a
-    counted launch's results equal an uncounted one's."""
+    admitted, staged chunks (at most one per admitted virtual chunk for
+    vwalk, at most each admitted instance's chunks for iwalk, and at least
+    the entries some lane entered), listed lanes per staging, pairs between
+    the hits and 128 per listed lane; iwalk's (lane, instance), (lane,
+    part) and (lane, chunk) box tests nest; a counted launch's results
+    equal an uncounted one's."""
     eng, (o, d, tl), (o_s, d_s, tl_s) = iwalk_case
     vwalk = iwalk.engine_name(eng) == "vwalk"
+    most = int((eng["inst_c"][:, 1] - eng["inst_c"][:, 0]).max()) if not vwalk else 1
     for query in ("closest", "any"):
         s = iwalk.iwalk_stats(eng, o, d, tl, query=query)
         assert 0 < s["blocks"] <= 8 and 0 < s["entries"] <= eng["gates"]
         assert 0 < s["lane_visits"] <= 128 * s["staged"]
-        if vwalk:  # the segment cull stages what a lane enters
-            if query == "closest":
-                hits = int((iwalk.iwalk_closest_hit_shade(eng, o, d, tl)[0] >= 0).sum())
-            else:
-                hits = int(iwalk.iwalk_any_hit(eng, o, d, tl).sum())
-            assert s["entries"] <= s["staged"] <= s["visits"]
-            assert hits <= s["pairs"] <= 128 * s["lane_visits"]
+        if query == "closest":
+            hits = int((iwalk.iwalk_closest_hit_shade(eng, o, d, tl)[0] >= 0).sum())
         else:
-            assert s["visits"] >= s["entries"] and s["staged"] >= s["visits"]
-            assert "pairs" not in s
-    stats = torch.zeros(walk.NSTATS + iwalk._num_flags(eng), dtype=torch.int64, device=o.device)
+            hits = int(iwalk.iwalk_any_hit(eng, o, d, tl).sum())
+        assert s["entries"] <= s["staged"] <= most * s["visits"]
+        assert hits <= s["pairs"] <= 128 * s["lane_visits"]
+        if not vwalk:
+            assert 0 < s["instances"] <= s["visits"] * 128 and s["lanes"] <= 1024
+            assert s["chunks"] >= s["lane_visits"] and s["parts"] >= s["instances"] // 4
+            assert s["chunks"] <= iwalk.PART_W * s["parts"]
+    stats = torch.zeros(iwalk.num_stats(eng), dtype=torch.int64, device=o.device)
     assert all(torch.equal(a, b) for a, b in zip(iwalk.closest_cuda(eng, o_s, d_s, tl_s, stats=stats),
                                                  iwalk.closest_cuda(eng, o_s, d_s, tl_s)))
     with pytest.raises(ValueError):
@@ -454,15 +458,21 @@ def test_walk_any_edge_cases_equal_plain(walk_case):
 
 
 def test_two_level_any_edge_cases_equal_plain(iwalk_case):
-    """As for the walk, on the gate boxes (vwalk: the virtual chunks' boxes
-    its lanes test; iwalk: the instance boxes)."""
+    """As for the walk, on the boxes the lanes test (vwalk: the virtual
+    chunks' widened world boxes; iwalk: its object chunk boxes, the rays'
+    origins and directions mapped to world through an instance of the
+    chunk's model), both queries equal to the plain versions and to the
+    plain models of the cull."""
     eng, _, (o, d, tl) = iwalk_case
     vwalk = iwalk.engine_name(eng) == "vwalk"
-    g = eng["gates"]
-    boxes = (iwalk.virtual_boxes(eng) if vwalk else
-             (eng["cb_oct"][0, 0:3, :g].T.contiguous(), eng["cb_oct"][0, 3:6, :g].T.contiguous()))
+    boxes = iwalk.virtual_boxes(eng) if vwalk else (eng["ocb"][:, 0:3], eng["ocb"][:, 3:6])
     kt, ks, _ = iwalk.closest_cuda(eng, o, d, tl)
     eo, ed, et = _edge_rays(eng, *boxes, kt, ks, o, d, tl, 19)
+    if not vwalk:  # the face rays (rows 512-1023) are object-space: to world
+        c = torch.randint(0, eng["ocb"].shape[0], (1,), device=o.device)  # any chunk's model
+        i = ((c >= eng["inst_c"][:, 0]) & (c < eng["inst_c"][:, 1])).int().argmax()
+        f = slice(512, 1024)
+        eo[f], ed[f] = iwalk.to_world(eng, i.expand(512), eo[f], ed[f])
     etc = walk._exit_clamp(eng, eo, ed, et).contiguous()
     k = iwalk.any_cuda(eng, eo, ed, etc)
     p = iwalk.any_plain(eng, eo, ed, etc)
@@ -470,9 +480,8 @@ def test_two_level_any_edge_cases_equal_plain(iwalk_case):
     assert torch.equal(k, p)
     kc, pc = iwalk.closest_cuda(eng, eo, ed, etc), iwalk.closest_plain(eng, eo, ed, etc)
     assert all(torch.equal(a, b) for a, b in zip(kc, pc))
-    if vwalk:
-        assert torch.equal(iwalk.culled_any_plain(eng, eo, ed, etc), p)
-        assert all(torch.equal(a, b) for a, b in zip(iwalk.culled_closest_plain(eng, eo, ed, etc), pc))
+    assert torch.equal(iwalk.culled_any_plain(eng, eo, ed, etc), p)
+    assert all(torch.equal(a, b) for a, b in zip(iwalk.culled_closest_plain(eng, eo, ed, etc), pc))
 
 
 def test_walk_closest_ties_equal_plain(cuda):
@@ -496,6 +505,29 @@ def test_walk_closest_ties_equal_plain(cuda):
     ow, dw = (o @ rot.T + tr).contiguous(), (d @ rot.T).contiguous()
     k, p = iwalk.closest_cuda(veng, ow, dw, tl), iwalk.closest_plain(veng, ow, dw, tl)
     assert all(torch.equal(a, b) for a, b in zip(k, p)) and bool((k[1] >= 0).all())
+
+
+def test_iwalk_ties_equal_plain(cuda):
+    """``iwalk.tie_tables``: two coincident instances of ``walk.tie_soup``
+    with its triangle T also held twice in a second object chunk, every
+    ray's closest hit. The closest kernel picks the plain version's winner
+    (the first instance in the block's octant order, then the lowest chunk,
+    then the lowest lane), instance and t; the any kernel flags every ray
+    with a limit past T and none with a limit short of it."""
+    pos, o, d = walk.tie_soup()
+    m = rigid_transform(rotation_y(0.7), (0.5, 0.2, -0.1))
+    tables, slots = iwalk.tie_tables(pos, pos.shape[0] - 1, m)
+    eng = iwalk.upload(tables, cuda)
+    rot, tr = torch.from_numpy(m[:, :3]).to(cuda), torch.from_numpy(m[:, 3]).to(cuda)
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    ow, dw = (o @ rot.T + tr).contiguous(), (d @ rot.T).contiguous()
+    tl = torch.full((o.shape[0],), float("inf"), device=cuda)
+    k, p = iwalk.closest_cuda(eng, ow, dw, tl), iwalk.closest_plain(eng, ow, dw, tl)
+    assert all(torch.equal(a, b) for a, b in zip(k, p)) and bool((k[1] == min(slots)).all())
+    for scale, want in ((1.001, True), (0.999, False)):
+        lim = (k[0] * scale).contiguous()
+        a = iwalk.any_cuda(eng, ow, dw, lim)
+        assert torch.equal(a, iwalk.any_plain(eng, ow, dw, lim)) and bool((a == want).all())
 
 
 def test_stack_bvh_on_card_equals_cpu(cuda):

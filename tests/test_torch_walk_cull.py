@@ -1,7 +1,8 @@
-"""The per-lane segment cull of the walk and vwalk kernels
-(``csrc/segment.cuh`` enters, used by ``csrc/walk_common.cuh`` lane_walk),
-through its plain torch model (``trace/walk.py`` lane_enters, the kernel's
-float expressions in its order), on the walk tables of
+"""The per-lane segment cull of the walk, vwalk and iwalk kernels
+(``csrc/segment.cuh`` enters, used by ``csrc/walk_common.cuh`` lane_walk
+and inst_walk), through its plain torch model (``trace/walk.py``
+lane_enters, the kernel's float expressions in its order; iwalk's three
+levels in ``trace/iwalk.py`` entry_enters), on the walk tables of
 ``dragon_scene(nu=96, nv=64, env_h=64)`` (24,588 triangles) and on
 ``tests/test_torch_iwalk.py``'s small two-level tables.
 
@@ -15,7 +16,11 @@ origins on them, and limits one ulp either side of each ray's closest t.
 The tie rule (minimum t, then the first chunk in the block's octant order,
 then the lowest lane) is held on a soup with one triangle in two chunks and
 twice within one, and on two coincident instances of a model that holds a
-triangle twice.
+triangle twice; iwalk's (the first instance in the block's octant order,
+then the lowest chunk, then the lowest lane) on two coincident instances of
+a model that holds a triangle in two chunks, twice within one. iwalk's
+object boxes (``iwalk.pack_object_boxes``) are held to nest and to hold
+their triangles.
 """
 
 import numpy as np
@@ -49,16 +54,23 @@ def _models():
             TModel(None, matrices=mats_b, positions=bp, normals=bn)]
 
 
+KINDS = ("walk", "vwalk", "iwalk")
+
+
 @pytest.fixture(scope="module")
 def engines():
-    """{"walk": (engine, chunk boxes lo/hi, light point), "vwalk": ...}."""
+    """{"walk": (engine, chunk boxes lo/hi, light point), "vwalk": ...,
+    "iwalk": (engine, OBJECT chunk boxes lo/hi, light point)}."""
     sh, _ = tscenes.dragon_scene(nu=96, nv=64, env_h=64)
     scene = sh.device("cpu")
     weng = scene["tri"]["walk"]
     light = scene["light"]["positions_flat"][:, 0:3].mean(dim=0)
     veng = iwalk.upload(iwalk.pack_vwalk(_models()), "cpu")
+    ieng = iwalk.upload(iwalk.pack_iwalk(_models()), "cpu")
+    up = torch.tensor([0.0, 5.0, 0.0])
     return {"walk": (weng, *walk.chunk_boxes(weng), light),
-            "vwalk": (veng, *iwalk.virtual_boxes(veng), torch.tensor([0.0, 5.0, 0.0]))}
+            "vwalk": (veng, *iwalk.virtual_boxes(veng), up),
+            "iwalk": (ieng, ieng["ocb"][:, 0:3], ieng["ocb"][:, 3:6], up)}
 
 
 def _unit(v):
@@ -77,8 +89,8 @@ def _closest_t(kind, eng, o, d, tl):
 
 def _rays(kind, eng, lo, hi, light, name, n=384):
     """One ray set: (origin, direction, t_limit) before the exit clamp."""
-    g = torch.Generator().manual_seed(SETS.index(name) + (0 if kind == "walk" else 10))
-    rng = np.random.default_rng(SETS.index(name) + (0 if kind == "walk" else 10))
+    g = torch.Generator().manual_seed(SETS.index(name) + 10 * KINDS.index(kind))
+    rng = np.random.default_rng(SETS.index(name) + 10 * KINDS.index(kind))
     s_lo, s_hi = eng["root_lo"], eng["root_hi"]
     inf = torch.full((n,), 3.0e38)
     if name in ("random", "ulp"):
@@ -116,13 +128,24 @@ def _rays(kind, eng, lo, hi, light, name, n=384):
     d = _unit(torch.randn((n, 3), generator=g))
     along = torch.arange(n) % 2 == 0
     d[along, a[along]] = 0.0
+    if kind == "iwalk":  # object chunk box faces, through an instance of the chunk
+        return (*_to_world(eng, c, o, _unit(d)), inf)
     return o, _unit(d), inf
+
+
+def _to_world(eng, chunk, o, d):
+    """Object-space rays ``o, d`` of object chunks ``chunk`` through the
+    forward transform of the first instance whose range holds each."""
+    c0, c1 = eng["inst_c"][:, 0].long(), eng["inst_c"][:, 1].long()
+    return iwalk.to_world(eng, ((chunk[:, None] >= c0) & (chunk[:, None] < c1)).int().argmax(dim=1),
+                          o, d)
 
 
 def _hits_by_chunk(kind, eng, o, d, tl):
     """``[n, E]``: whether each lane has a hit in (EPSILON, t_limit) in each
-    gate entry (the walk's layout chunk; vwalk's virtual chunk, on its
-    object-space ray), and the lane values."""
+    cull entry (the walk's layout chunk; vwalk's virtual chunk, iwalk's
+    (instance, object chunk), on the object-space ray), and the lane
+    values."""
     o, d, tl = walk._lanes(o, d, tl)
     if kind == "walk":
         hits = walk._shadow_hits(eng["aux"][:, :12], o, d, tl[:, None])
@@ -130,14 +153,22 @@ def _hits_by_chunk(kind, eng, o, d, tl):
     return iwalk.entry_hits(eng, o, d, tl), o, d, tl
 
 
+def _enters(kind, eng, lo, hi, o, d, tw):
+    """``[n, E]``: whether each lane passes the kernel's cull of each entry
+    of `_hits_by_chunk` within ``tw``."""
+    if kind == "iwalk":
+        return iwalk.entry_enters(eng, o, d, tw)
+    return walk.lane_enters(lo, hi, o, d, tw)
+
+
 @pytest.mark.parametrize("name", SETS)
-@pytest.mark.parametrize("kind", ["walk", "vwalk"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_lane_cull_is_exact(engines, kind, name):
     eng, lo, hi, light = engines[kind]
     o, d, tl = _rays(kind, eng, lo, hi, light, name)
     tlc = walk._exit_clamp(eng, o, d, tl)
     hits, o_, d_, tl_ = _hits_by_chunk(kind, eng, o, d, tlc)
-    enter = walk.lane_enters(lo, hi, o_, d_, tl_)
+    enter = _enters(kind, eng, lo, hi, o_, d_, tl_)
     lost = hits & ~enter
     assert int(lost.sum()) == 0, (kind, name, int(lost.sum()))
     plain = (walk if kind == "walk" else iwalk).any_plain(eng, o, d, tlc)
@@ -167,7 +198,7 @@ def test_lane_enters_edge_cases():
 
 
 @pytest.mark.parametrize("name", SETS)
-@pytest.mark.parametrize("kind", ["walk", "vwalk"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_closest_cull_is_exact(engines, kind, name):
     eng, lo, hi, light = engines[kind]
     mod = walk if kind == "walk" else iwalk
@@ -181,7 +212,7 @@ def test_closest_cull_is_exact(engines, kind, name):
     o_, d_, tl_ = walk._lanes(o, d, tlc)
     live = tl_ > 0
     window = torch.minimum(plain[0], tl_)
-    assert walk.lane_enters(lo, hi, o_, d_, window)[live].float().mean() < 0.5
+    assert _enters(kind, eng, lo, hi, o_, d_, window)[live].float().mean() < 0.5
 
 
 def test_closest_tie_rule():
@@ -228,3 +259,50 @@ def test_closest_tie_rule():
     assert (vt > 0.09).all() and (vt < 0.11).all()
     assert all(torch.equal(a, b) for a, b in zip(iwalk.culled_closest_plain(veng, ow, dw, tl),
                                                  (vt, vslot, vinst)))
+
+    # iwalk: two coincident instances of the soup, T also held twice in a
+    # second object chunk: the first instance in the block's octant order,
+    # then the lowest chunk, then the lowest lane
+    ieng = iwalk.upload(iwalk.tie_tables(pos, index, m)[0], "cpu")
+    it, islot, iinst = iwalk.closest_plain(ieng, ow, dw, tl)
+    copies = ((ieng["origmap"] == index) & (ieng["aux"][:, :12] != 0).any(1)).nonzero()[:, 0]
+    assert copies.numel() == 3 and torch.unique(copies // walk.CH_W).numel() == 2
+    assert (islot == copies.min()).all()
+    assert torch.equal(iinst, ieng["ord_oct"][walk._block_octant(dw), 0])
+    assert torch.equal(it, vt)
+    assert all(torch.equal(a, b) for a, b in zip(iwalk.culled_closest_plain(ieng, ow, dw, tl),
+                                                 (it, islot, iinst)))
+
+
+def test_object_boxes_nest_and_hold_triangles():
+    """iwalk's object tables (``iwalk.pack_object_boxes``, added by
+    ``upload``): the JAX-parity tables pass through unchanged; parts tile
+    each model's chunks, at most ``PART_W`` each, never straddling two
+    models, and each instance's part range covers its chunk range; a part's
+    box holds its chunks' boxes, and a chunk's box holds every real
+    triangle of the chunk, within its pad of the triangles' own box."""
+    models = _models()
+    tables = iwalk.pack_iwalk(models)
+    assert set(tables) == set(iwalk.IWALK_TABLES)
+    eng = iwalk.upload(tables, "cpu")
+    assert all(torch.equal(eng[k], torch.from_numpy(tables[k])) for k in iwalk.IWALK_TABLES)
+    inst_p, part_c, ocb, opb = (eng[k] for k in iwalk.IWALK_BOXES)
+    kc = eng["aux"].shape[0] // walk.CH_W
+    assert ocb.shape == (kc, 6) and ocb.dtype == opb.dtype == torch.float32
+    assert part_c[0, 0] == 0 and part_c[-1, 1] == kc and torch.equal(part_c[1:, 0], part_c[:-1, 1])
+    span = part_c[:, 1] - part_c[:, 0]
+    assert (span >= 1).all() and (span <= iwalk.PART_W).all() and (span == iwalk.PART_W).any()
+    model = eng["aux"][:: walk.CH_W, 21].long()
+    assert all((model[a:b] == model[a]).all() for a, b in part_c.tolist())
+    for (c0, c1), (p0, p1) in zip(eng["inst_c"].tolist(), inst_p.tolist()):
+        assert part_c[p0, 0] == c0 and part_c[p1 - 1, 1] == c1
+    for p, (a, b) in enumerate(part_c.tolist()):
+        assert (opb[p, :3] <= ocb[a:b, :3]).all() and (opb[p, 3:] >= ocb[a:b, 3:]).all()
+    pos = torch.from_numpy(np.concatenate([np.asarray(m.positions, np.float32) for m in models]))
+    rows = (eng["aux"][:, :12] != 0).any(1).nonzero()[:, 0]
+    v, c = pos[eng["origmap"][rows].long()], rows // walk.CH_W  # [R, 3, 3] object vertices
+    assert (v >= ocb[c, None, :3]).all() and (v <= ocb[c, None, 3:]).all()
+    shared = iwalk.model_tables(models)
+    lo, hi = torch.from_numpy(shared["cbox_min"]), torch.from_numpy(shared["cbox_max"])
+    pad = 1e-4 * torch.maximum(pos.abs().amax(), torch.tensor(1.0)) + 1e-6
+    assert ((lo - ocb[:, :3]) <= 2 * pad).all() and ((ocb[:, 3:] - hi) <= 2 * pad).all()
