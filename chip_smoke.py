@@ -60,10 +60,8 @@ Phases (any failure raises and the script exits non-zero without the final
     against the baked walk's on the same rays (hit flags, t);
 12. the two-level kernels timed at the render's shapes: vwalk and iwalk on
     the same rays of the two-level dragon (589,824 camera, 589,824 bounce,
-    1,179,648 shadow rays; with ``--parent``, vwalk's queries beside the
-    parent's as in phase 7, and iwalk's closest and any hit beside the
-    parent's on 32,768 bounce and shadow rays of whole blocks, or at every
-    shape for a variant that takes this tree's tables), and iwalk
+    1,179,648 shadow rays; with ``--parent``, both engines' queries beside
+    the parent's as in phase 7), and iwalk
     on ``many_instance_scene`` at 1920x1080 (2,073,600 camera and bounce
     rays, 4,147,200 shadow rays; with ``--parent``, both queries beside the
     parent's at every shape), each compared with its plain version on
@@ -117,8 +115,14 @@ Phases (any failure raises and the script exits non-zero without the final
     1%;
 20. the gather probes (``python -m path_tracer_tpu_torch.probes.gather``):
     row gather and in-tile gather kernels equal to their plain and library
-    versions, timed, each kernel and its library call as the median of 200
-    single launches each, alternating;
+    versions, timed, each kernel and its library call as the device-only
+    median of 200 single launches each, alternating, queued behind a sleep
+    (``ms``, ``library_ms``), as the issue-inclusive median of 200 single
+    launches on an idle card (``issue_ms``, ``library_issue_ms``) and by the
+    host's issue time per call, beside the launch floor (an empty kernel's
+    device-only median, ``floor_ms``); with ``--parent``, both probe
+    kernels at every probe shape beside the parent's, device-only, in turns
+    (other, this, this, other, ...), outputs equal;
 21. the Cornell shell with an emissive ``icosphere(subdivisions=5)``: 20,482
     light triangles, above the dense engine's 16,384, so the lights take the
     stack BVH (torch ops): 32x32, 2 spp on the CPU and on the card, image
@@ -157,7 +161,8 @@ triangles (``qab``, the boxes its kernels cull and stage: the bound's
 need) and, printed beside it as ``needed_pairs_512``, over its chunks of
 512 (``cab``, the need of the bounds before the groups). A probe's bound is its bytes: every row or
 entry read once and written once, with the indices; ``library_ms`` is
-``torch.index_select`` (row gather) or ``torch.gather`` (in-tile gather).
+``torch.index_select`` (row gather) or ``torch.gather`` (in-tile gather),
+each device-only like ``ms``.
 
 The last lines are the card line, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -840,21 +845,21 @@ def kernel_sources(csrc: Path, name: str) -> list:
 
 
 def start_other_builds(srcs):
-    """Start nvcc on ``dense_hit.cu``, ``walk_hit.cu``, ``iwalk_hit.cu`` and
-    ``dense_stream.cu`` of each csrc directory in ``srcs`` (a parent
-    commit's, or a variant of it) with this tree's flags, beside phase 2's
-    builds, skipping a source whose text and headers equal this tree's
-    (nothing to compare); returns a function that waits for them, prints
-    their ptxas lines and returns, per directory, its label and its entry
-    points (ctypes; None where skipped): ``dense_closest``/``dense_any``,
-    ``walk_closest``/``walk_any``, ``vwalk_closest``/``vwalk_any``,
-    ``iwalk_closest``/``iwalk_any`` (``iwalk_parts``: whether they take
-    this tree's object boxes and slack, or the chunk ranges of trees before
-    the object boxes came) and ``stream_closest``/``stream_any``, each
-    with this tree's signature but for ``iwalk_parts``."""
+    """Start nvcc on ``dense_hit.cu``, ``walk_hit.cu``, ``iwalk_hit.cu``,
+    ``dense_stream.cu`` and ``gather_probe.cu`` of each csrc directory in
+    ``srcs`` (a parent commit's, or a variant of it) with this tree's flags,
+    beside phase 2's builds, skipping a source whose text and headers equal
+    this tree's (nothing to compare); returns a function that waits for
+    them, prints their ptxas lines and returns, per directory, its label
+    and its entry points (ctypes; None where skipped):
+    ``dense_closest``/``dense_any``, ``walk_closest``/``walk_any``,
+    ``vwalk_closest``/``vwalk_any``, ``iwalk_closest``/``iwalk_any`` and
+    ``stream_closest``/``stream_any``, each with this tree's signature, and
+    ``probe``, the probe kernels' wrappers (`gather.other_probe`)."""
     import ctypes
     import shutil
 
+    from path_tracer_tpu_torch.probes import gather
     from path_tracer_tpu_torch.trace import cuda_lib
 
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -862,7 +867,7 @@ def start_other_builds(srcs):
     for idx, src in enumerate(srcs):
         out = OUT_DIR / "parent" / str(idx)
         out.mkdir(parents=True, exist_ok=True)
-        for name in ("dense_hit", "walk_hit", "iwalk_hit", "dense_stream"):
+        for name in ("dense_hit", "walk_hit", "iwalk_hit", "dense_stream", "gather_probe"):
             if kernel_sources(src, name) == kernel_sources(cuda_lib.CSRC, name):
                 print(f"{src}: {name}.cu and its headers equal this tree's; not timed")
                 continue
@@ -887,7 +892,7 @@ def start_other_builds(srcs):
                                              walk_closest=None, walk_any=None,
                                              vwalk_closest=None, vwalk_any=None,
                                              iwalk_closest=None, iwalk_any=None,
-                                             stream_closest=None, stream_any=None)
+                                             stream_closest=None, stream_any=None, probe=None)
             if (idx, "dense_hit") in libs:
                 sig = [i, p, p, i, p, p, p, i, p, p, p]
                 fns["dense_closest"] = (libs[idx, "dense_hit"].dense_closest, sig)
@@ -900,10 +905,7 @@ def start_other_builds(srcs):
                 head = [i, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i]
                 fns["vwalk_closest"] = (libs[idx, "iwalk_hit"].vwalk_closest, head + [p, p, p, p, p])
                 fns["vwalk_any"] = (libs[idx, "iwalk_hit"].vwalk_any, head + [p, p, p])
-                decl = (src / "iwalk_hit.cu").read_text().split('extern "C" int iwalk_closest(')[1]
-                other.iwalk_parts = "const int* inst_p" in decl.split(")")[0]
-                head = ([i, p, p, p, p, p, p, p, p, i, i, ctypes.c_float] if other.iwalk_parts
-                        else [i, p, p, p, p, p, i, i]) + [p, p, p, i]
+                head = [i, p, p, p, p, p, p, p, p, i, i, ctypes.c_float, p, p, p, i]
                 fns["iwalk_closest"] = (libs[idx, "iwalk_hit"].iwalk_closest, head + [p, p, p, p, p])
                 fns["iwalk_any"] = (libs[idx, "iwalk_hit"].iwalk_any, head + [p, p, p])
             if (idx, "dense_stream") in libs:
@@ -913,6 +915,8 @@ def start_other_builds(srcs):
             for key, (fn, types) in fns.items():
                 fn.argtypes, fn.restype = types, ctypes.c_int
                 setattr(other, key, fn)
+            if (idx, "gather_probe") in libs:
+                other.probe = gather.other_probe(libs[idx, "gather_probe"], src)
             others.append(other)
         return others
 
@@ -1327,19 +1331,12 @@ def render_shapes(iwalk, walk, eng, scene, cam, w, h, rng, dev):
     return shapes, (o_ss, d_ss, tl_ss, occ_slot, occ_inst)
 
 
-def two_level_tables(other, eng):
-    """The arguments of another tree's vwalk or iwalk entry points
-    (``other``, from `start_other_builds`) before the rays: the tables and
-    sizes its signature takes (iwalk: with ``iwalk_parts`` this tree's
-    object boxes and slack, else the chunk ranges ``inst_c``)."""
-    if "vinst" in eng:
-        names, new = ("vinst", "vglob"), True
-    else:
-        new = other.iwalk_parts
-        names = ("inst_p", "part_c", "ocb", "opb") if new else ("inst_c",)
-    slack = (float(eng["lane_slack"]),) if new else ()
+def two_level_tables(eng):
+    """The arguments of another tree's vwalk or iwalk entry points before
+    the rays: ``eng``'s tables and sizes."""
+    names = ("vinst", "vglob") if "vinst" in eng else ("inst_p", "part_c", "ocb", "opb")
     return (*[eng[t].data_ptr() for t in ("aux", "cb_oct", "ord_oct", *names, "inst_f")],
-            eng["gates"], eng["ord_oct"].shape[1], *slack)
+            eng["gates"], eng["ord_oct"].shape[1], float(eng["lane_slack"]))
 
 
 def time_two_level(iwalk, walk, eng, shapes, occluders, label, rng, card, plain_rays=PLAIN_RAYS,
@@ -1376,7 +1373,7 @@ def time_two_level(iwalk, walk, eng, shapes, occluders, label, rng, card, plain_
             this = lambda: iwalk.any_cuda(eng, qo, qd, qt)  # noqa: E731
         for other in (o for o in others if getattr(o, key) is not None):
             time_against(f"{label} {shape} vs {other.label}", getattr(other, key),
-                         two_level_tables(other, eng), this, (qo, qd, qt),
+                         two_level_tables(eng), this, (qo, qd, qt),
                          3 if query == "closest" else 0, rep, card)
         stats = iwalk.iwalk_stats(eng, *public, query=query)
         bms, by = two_level_bound(nq, out_bytes, need, key)
@@ -1407,31 +1404,15 @@ def time_two_level(iwalk, walk, eng, shapes, occluders, label, rng, card, plain_
 
 def phase_two_level_shapes(iwalk, walk, scenes, scene2, veng, ieng, cam, dev, card, others=()):
     """Phase 12: vwalk and iwalk at the two-level dragon's render shapes
-    (the same rays; vwalk's queries beside each of ``others``', and
-    iwalk's beside theirs: at every shape where the other takes this
-    tree's tables, else on 32,768 rays of whole blocks of the bounce and
-    shadow shapes), both on the cull's edge cases and the tie sets, then
-    iwalk at many_instance_scene's 1920x1080 (beside each of
-    ``others``)."""
+    (the same rays; each query beside each of ``others``'), both on the
+    cull's edge cases and the tie sets, then iwalk at
+    many_instance_scene's 1920x1080 (beside each of ``others``)."""
     rng = np.random.default_rng(8765)
     shapes, occ = render_shapes(iwalk, walk, veng, scene2, cam, WIDTH, HEIGHT, rng, dev)
     res = {"dragon": time_two_level(iwalk, walk, veng, shapes, occ, "vwalk dragon", rng, card,
                                     others=others),
-           "dragon_iwalk": time_two_level(iwalk, walk, ieng, shapes, occ, "iwalk dragon", rng, card)}
-    for other in (o for o in others if o.iwalk_closest is not None):
-        # an older tree's iwalk (seconds per launch here) on 32,768 rays of
-        # whole blocks of the bounce and shadow shapes; one with this tree's
-        # tables on every shape
-        for shape in (("camera", "bounce", "shadow") if other.iwalk_parts else ("bounce", "shadow")):
-            query, rays, _ = shapes[shape]
-            if not other.iwalk_parts:
-                rows = whole_blocks(rng, walk._valid(*rays), 256)
-                rays = tuple(x[rows].contiguous() for x in rays)
-            this = ((lambda: iwalk.closest_cuda(ieng, *rays)) if query == "closest"
-                    else (lambda: iwalk.any_cuda(ieng, *rays)))
-            time_against(f"iwalk dragon {shape} vs {other.label}", getattr(other, f"iwalk_{query}"),
-                         two_level_tables(other, ieng), this, rays, 3 if query == "closest" else 0,
-                         1 if not other.iwalk_parts else 3, card)
+           "dragon_iwalk": time_two_level(iwalk, walk, ieng, shapes, occ, "iwalk dragon", rng, card,
+                                          others=others)}
     # both culls' edge cases, the ulp limits on camera rays
     _, (qo, qd, qt), _ = shapes["camera"]
     cam_rows = torch.arange(0, qo.shape[0], qo.shape[0] // (4 * EDGE_ULP), device=dev)
@@ -1797,25 +1778,32 @@ def render_stream(sh, walk_scene, cam, card):
     return launches
 
 
-def phase_probes(card):
-    """Phase 20: the gather probes through their entry point, launch counts
-    zeroed just before and read just after; returns their kernel rows."""
+def phase_probes(card, others=()):
+    """Phase 20: the gather probes through their entry point (with each
+    of ``others``' probe kernels beside them), launch counts zeroed just
+    before and read just after; returns their kernel rows."""
     from path_tracer_tpu_torch.probes import gather
 
     LAUNCHES = zero_launches()
-    out = gather.main([])
+    out = gather.run(others=[o.probe for o in others if o.probe is not None])
     launches = dict(LAUNCHES)
     print(f"probe launches {launches} ({card})")
     check(launches["row_gather"] > 0 and launches["tile_gather"] > 0, launches)
     r, w = out["rows"], out["tiles"][f"sublane wave {gather.WAVE}"]
     rows = {}
-    for key, nbytes, ms, plain_ms, lib_ms, nq in (
-            ("row_gather", r["bytes"], r["kernel"]["ms"], r["plain"]["ms"], r["library"]["ms"],
-             r["rows"]),
-            ("tile_gather", w["bytes"], w["ms"], w["plain_ms"], w["library_ms"], w["lanes"])):
+    for key, nbytes, t, plain_ms, nq in (
+            ("row_gather", r["bytes"], r["kernel"], r["plain"]["ms"], r["rows"]),
+            ("tile_gather", w["bytes"], w, w["plain_ms"], w["lanes"])):
         bms, by = bound_ms(0.0, nbytes)
-        rows[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-                     "bound_by": by, "rays": nq, "plain_rays": nq, "launches": launches[key]}
+        rows[key] = {"plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "rays": nq,
+                     "plain_rays": nq, "launches": launches[key],
+                     **{k: t[k] for k in ("ms", "library_ms", "issue_ms", "library_issue_ms",
+                                          "host_issue_ms", "library_host_issue_ms", "floor_ms")}}
+        print(f"{key}: device-only {t['ms'] * 1e3:.2f} us ({t['library_ms'] * 1e3:.2f} us the "
+              f"library's), issue-inclusive {t['issue_ms'] * 1e3:.2f} us "
+              f"({t['library_issue_ms'] * 1e3:.2f}), host issue per call "
+              f"{t['host_issue_ms'] * 1e3:.2f} us ({t['library_host_issue_ms'] * 1e3:.2f}), launch "
+              f"floor {t['floor_ms'] * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}) ({card})")
     return rows
 
 
@@ -1878,9 +1866,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, nargs="+", default=[],
                     help="csrc directories of a parent commit (or variants of it): time their dense, "
-                         "walk, vwalk, iwalk and stream kernels "
-                         "beside this tree's (phases 3, 7, 12 and 17), each whose source differs "
-                         "from this tree's")
+                         "walk, vwalk, iwalk, stream and probe kernels "
+                         "beside this tree's (phases 3, 7, 12, 17 and 20), each whose source "
+                         "differs from this tree's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1956,7 +1944,7 @@ def main(argv=None) -> int:
     # longest step
     cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4, engine="stream",
                   max_bounces=16)
-    probe_t = phase_probes(card)
+    probe_t = phase_probes(card, others)
     t0 = time.perf_counter()
     phase_light_bvh(dev, card)
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
@@ -2024,6 +2012,8 @@ def main(argv=None) -> int:
             **({"tested_pairs": r["tested_pairs"], "needed_pairs": r["needed_pairs"]}
                if "tested_pairs" in r else {}),
             **({"needed_pairs_512": r["needed_pairs_512"]} if "needed_pairs_512" in r else {}),
+            **{k: r[k] for k in ("issue_ms", "library_issue_ms", "host_issue_ms",
+                                 "library_host_issue_ms", "floor_ms") if k in r},
             "plain_rays": r.get("plain_rays", PLAIN_RAYS if src != DENSE_SRC else r["rays"]),
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -40,21 +40,22 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
     """The library's path, tagged by its source, every header and the flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    src = (csrc / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def build(*names: str) -> list[Path]:
-    """Compile ``csrc/<name>.cu`` for each name (once per source and flags
+def build(*names: str, csrc: Path = CSRC) -> list[Path]:
+    """Compile ``<csrc>/<name>.cu`` for each name (once per source and flags
     version; all missing ones by concurrent nvcc processes) and return the
-    library paths. nvcc's output (``-Xptxas -v``: registers, shared memory,
+    library paths; ``csrc`` is this package's sources unless another
+    tree's are named. nvcc's output (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside each library with the suffix ``.log``. Raises
     with nvcc's output if a build fails."""
-    libs = [_lib_path(n) for n in names]
+    libs = [_lib_path(n, csrc) for n in names]
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -63,7 +64,7 @@ def build(*names: str) -> list[Path]:
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         jobs.append((lib, tmp, proc))

@@ -714,12 +714,38 @@ def test_row_gather_kernel_equals_plain(cuda):
     assert dc.LAUNCHES["row_gather"] == n0 + 1
     assert torch.equal(k, gather.row_gather_plain(table, idx))
     assert torch.equal(k, torch.index_select(table, 0, idx))
-    assert torch.equal(gather.chain(gather.row_gather, table, idx),
-                       gather.chain(gather.row_gather_plain, table, idx))
+    c = gather.chain(gather.row_gather, table, idx)
+    assert torch.equal(c, gather.chain(gather.row_gather_plain, table, idx))
+    assert torch.equal(c, gather.chain(lambda t, i: torch.index_select(t, 0, i), table, idx))
 
 
-@pytest.mark.parametrize("shape,axis", [((8, 128), 0), ((1024, 128), 0), ((8, 128), 1), ((8, 8192), 1)])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 16 * 37 + 5])
+def test_row_gather_kernel_counts_and_ends(cuda, n):
+    """Row counts around the kernel's units of 16 rows per warp, with
+    repeated indices and the table's first and last rows; no index, no
+    launch."""
+    rng = np.random.default_rng(n)
+    m = 4096
+    table = torch.from_numpy(rng.standard_normal((m, gather.ROW_W)).astype(np.float32)).to(cuda)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    idx[0::3] = 0
+    idx[1::5] = m - 1
+    idx[2::7] = 1234
+    idx = torch.from_numpy(idx).to(cuda)
+    n0 = dc.LAUNCHES["row_gather"]
+    k = gather.row_gather_cuda(table, idx)
+    assert dc.LAUNCHES["row_gather"] == n0 + (n > 0)
+    assert k.shape == (n, gather.ROW_W)
+    assert torch.equal(k, gather.row_gather_plain(table, idx))
+    assert torch.equal(k, torch.index_select(table, 0, idx))
+
+
+@pytest.mark.parametrize("shape,axis", [((8, 128), 0), ((1024, 128), 0), ((8, 128), 1), ((8, 8192), 1)]
+                         + [((m, 128), 0) for m in (64, 128, 256, 512)]
+                         + [((8, m), 1) for m in (256, 512, 1024, 2048, 4096)])
 def test_tile_gather_kernel_equals_plain(cuda, shape, axis):
+    """Every probe shape (mode 1 up to the 32 KB tile of 8,192 entries),
+    at 1 and 16 gathers."""
     x, idx = gather.tile_inputs(2, shape, axis, cuda)
     for reps in (1, 16):
         n0 = dc.LAUNCHES["tile_gather"]

@@ -1,15 +1,31 @@
 """The gather probes' plain versions (``path_tracer_tpu_torch/probes/gather.py``)
-against NumPy's ``take`` / ``take_along_axis``, the JAX probes' own check
-(their Pallas kernels cannot run on the CPU), and the wrappers' CPU path.
-The kernels against these plain versions run on the card
-(``tests/test_torch_kernels.py``, ``chip_smoke.py``)."""
+against NumPy's ``take`` / ``take_along_axis`` and against the JAX probes
+themselves (``benches/pallas_gather_probe.py::pallas_gather`` and
+``benches/pallas_lane_gather_probe.py::probe``, their Pallas kernels run in
+TPU interpret mode on the CPU), and the wrappers' CPU path. The kernels
+against these plain versions run on the card (``tests/test_torch_kernels.py``,
+``chip_smoke.py``)."""
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from path_tracer_tpu_torch.probes import gather
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+
+BENCHES = Path(__file__).resolve().parent.parent / "benches"
+
+
+def _bench(name):
+    """A probe of ``benches/`` imported by its path (``benches`` is no package)."""
+    spec = importlib.util.spec_from_file_location(f"_bench_{name}", BENCHES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_row_gather_plain_equals_numpy_take():
@@ -59,3 +75,31 @@ def test_probe_wrappers_reject_cpu_tensors_for_kernels():
     x, i = gather.tile_inputs(0, (8, 128), 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         gather.tile_gather_cuda(x, i, 0)
+
+
+def test_row_gather_plain_equals_jax_probe():
+    """``pallas_gather`` (its row-DMA pipeline in interpret mode) on a
+    [1024, 128] table and 64 indices: the plain version's bits."""
+    probe = _bench("pallas_gather_probe")
+    rng = np.random.default_rng(6)
+    table = rng.standard_normal((1024, gather.ROW_W)).astype(np.float32)
+    idx = rng.integers(0, 1024, 64).astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(probe.pallas_gather(table, idx))
+    out = gather.row_gather(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,axis", [((512, 128), 0), ((8, 2048), 1)])
+@pytest.mark.parametrize("reps", [1, 16])
+def test_tile_gather_plain_equals_jax_probe(shape, axis, reps):
+    """``probe`` (the in-tile ``take_along_axis`` kernel, interpret mode)
+    at the wave and a lane tile, 1 and 16 gathers: the plain version's
+    bits. Only where M >= reps: the JAX probe subtracts M from an index
+    once, the port takes it mod M, the same there."""
+    assert shape[axis] >= reps
+    probe = _bench("pallas_lane_gather_probe")
+    x, idx = gather.tile_inputs(7, shape, axis, "cpu")
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(probe.probe(x.numpy(), idx.numpy(), axis=axis, reps=reps))
+    np.testing.assert_array_equal(gather.tile_gather(x, idx, axis, reps).numpy(), ref)
