@@ -27,7 +27,7 @@ Phases (any failure raises and the script exits non-zero without the final
    other);
 4. the offline render of ``mesh_scene`` at 1024x576, 8 spp, 64 bounces
    through ``path_tracer_tpu_torch.cli``, with the kernels' launch counts;
-5. ``cornell_specular`` at 32x32, 4 spp rendered on the CPU (plain
+5. ``cornell_specular`` at 32x32, 2 spp rendered on the CPU (plain
    versions) and on the card (kernels): image means within 1%;
 6. walk kernels against their plain versions on the full ``dragon_scene``
    world table (884,748 tris; 32,768 camera + 32,768 random rays with inf /
@@ -49,7 +49,7 @@ Phases (any failure raises and the script exits non-zero without the final
    6's host scene, built once: phases 8 and 18 print no build time of
    their own);
 9. ``dragon_scene(nu=96, nv=64, env_h=64)`` (24,588 tris, the walk engine)
-   at 32x32, 4 spp on the CPU and on the card: image means within 1%;
+   at 32x32, 2 spp on the CPU and on the card: image means within 1%;
 10. (with phase 2) ``iwalk_hit.cu``, built in the same call, its ptxas lines;
 11. the two-level kernels against their plain versions on the full
     two-level dragon tables (made from phase 6's models; 10,070 virtual
@@ -111,7 +111,7 @@ Phases (any failure raises and the script exits non-zero without the final
     bounces (stream launches > 0, walk 0), then the same render through the
     walk in process (sample 0, the same seeds): image means within 1%;
 19. ``dragon_scene(nu=96, nv=64, env_h=64)`` with ``engine="stream"`` at
-    32x32, 4 spp, 16 bounces on the CPU and on the card: image means within
+    32x32, 2 spp, 16 bounces on the CPU and on the card: image means within
     1%;
 20. the gather probes (``python -m path_tracer_tpu_torch.probes.gather``):
     row gather and in-tile gather kernels equal to their plain and library
@@ -129,7 +129,27 @@ Phases (any failure raises and the script exits non-zero without the final
     means within 1%; then the stack BVH's closest and any hit on the card
     over 65,536 rays of that light table, timed.
 
-Phases run in the order 1-9, 16-21, 10-15. Each render's launch counts
+22. ``render_film`` (``integrator/wavefront.py``) on ``mesh_scene`` at
+    1024x576, 8 spp (after phase 4), the walk ``dragon_scene`` at 1024x576,
+    2 spp (after phase 8) and ``many_instance_scene --two-level`` at
+    1920x1080, 4 spp (vwalk; after phase 14): ``render_sample``, pinned
+    ``render_film`` and pooled ``render_film`` twice at the engine's
+    default tile, each with trace seconds, Mrays/s and bounce steps
+    (``wavefront.STEPS``); pinned bit-equal to ``render_sample`` (radiance
+    and ray totals), the two pooled renders bit-equal (the deterministic
+    flush), pooled means within 1% of pinned with equal ray totals; then
+    the tile sweep: one more tile size (262,144 lanes; 1,048,576 at
+    1920x1080), pinned (bit-equal to ``render_sample``: full tiles and a
+    remainder tile) and pooled;
+23. the two-level gather engine (``trace/twolevel.py``, torch ops) on
+    ``many_instance_scene`` two-level: closest and any hit against iwalk's
+    kernels on 65,536 rays (hit flags, t on every common hit, a different
+    instance only at the same t, any-hit flags), the ms per query of both;
+    then ``PT_IWALK=0`` through the CLI at 256x144, 1 spp (no two-level
+    kernel launches), its mean within 1% of the same render through vwalk.
+
+Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15. Each
+render's launch counts
 (and the probes') are set to 0 just before it and read just after. The
 dense closest hit is held to winners and every output column equal to the
 plain version on every ray of every set and shape, the walk, vwalk, iwalk
@@ -223,6 +243,8 @@ REPLACES = {
     "tile_gather": "benches/pallas_lane_gather_probe.py:45",
 }
 MANY_W, MANY_H, MANY_SPP = 1920, 1080, 4  # BASELINE config 5's film
+FILM_TILES = (262144,)  # phase 22's tile sweep at 1024x576 (589,824 lanes), beside the whole film
+MANY_FILM_TILES = (1048576,)  # and at 1920x1080 (2,073,600 lanes)
 TWO_CAMERA, TWO_RANDOM = (256, 128), 32768  # phase 11's camera film and random rays
 SUBSET = 4096  # the float64 and iwalk subsets of the dragon's rays
 T_REL = 1e-5  # two-level vs baked t
@@ -1807,6 +1829,171 @@ def phase_probes(card, others=()):
     return rows
 
 
+# --- render_film: the pooled work queue and tiles (phase 22) ---
+
+
+def film_run(label, card, fn, spp):
+    """One render, launch counts and bounce steps zeroed just before and
+    read just after: ``(radiance [N, 3], rays_total [2] float64, result)``
+    with the trace seconds (host clock ending in a synchronize), Mrays/s,
+    bounce steps, ``trace_lanes`` calls, the mean radiance per sample and
+    the launches."""
+    from path_tracer_tpu_torch.integrator import wavefront
+
+    wavefront.STEPS.update(bounce=0, calls=0)
+    launches = zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rad, rays = fn()
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    r = {"trace_s": trace_s, "mrays_per_s": float(rays[0]) / trace_s / 1e6,
+         "steps": wavefront.STEPS["bounce"], "calls": wavefront.STEPS["calls"],
+         "mean": rad.mean().item() / spp, "launches": dict(launches)}
+    check(bool(torch.isfinite(rad).all()) and r["mean"] > 0.0, (label, r["mean"]))
+    print(f"  {label}: trace {trace_s:.3f} s, {r['mrays_per_s']:.4f} Mrays/s, {r['steps']} bounce "
+          f"steps in {r['calls']} trace_lanes calls, mean {r['mean']:.6f} ({card})")
+    return rad, rays, r
+
+
+def phase_film(label, sh, scene, cam, width, height, spp, sweep, card):
+    """Phase 22: one scene through ``render_sample`` (pinned lanes, one
+    wave), pinned ``render_film`` and pooled ``render_film`` twice, at
+    `render_film`'s default tile: pinned bit-equal to ``render_sample``
+    (radiance and ray totals), the two pooled renders bit-equal (the
+    deterministic flush), pooled within 1% of pinned in mean with equal ray
+    totals; then the tile sweep, each tile of ``sweep`` pinned (bit-equal
+    to ``render_sample``: full tiles and a remainder) and pooled. Returns
+    the results by run."""
+    from path_tracer_tpu_torch.integrator import wavefront as wf
+    from path_tracer_tpu_torch.trace.traversal import engine_name
+
+    ndc = torch.as_tensor(cam.view_proj_inverse(), device=DEVICE)
+    org = torch.as_tensor(cam.origin, device=DEVICE)
+    args = dict(max_bounces=MAX_BOUNCES, has_lights="light" in scene, mtypes=sh.active_mtypes,
+                any_volumes=sh.has_volumes)
+    print(f"{label} {width}x{height} {spp} spp through render_film (engine {engine_name(scene)}, "
+          f"default tile {wf.TILE_LANES or 'the whole film'}, default pool {wf.POOL}):")
+
+    def sample():
+        rad, _, _, rays = wf.render_sample(scene, ndc, org, 0, width, height, spp=spp, **args)
+        return rad, rays.sum(0, dtype=torch.float64)
+
+    def film(pool, tile=None):
+        return lambda: wf.render_film(scene, ndc, org, 0, width, height, spp, tile_lanes=tile,
+                                      pool=pool, **args)
+
+    res = {}
+    ref, ref_rays, res["render_sample"] = film_run("render_sample", card, sample, spp)
+    rad, rays, res["pinned"] = film_run("render_film pinned", card, film(False), spp)
+    check(torch.equal(rad, ref) and torch.equal(rays, ref_rays), f"{label}: pinned != render_sample")
+    pool_a, pool_rays, res["pooled"] = film_run("render_film pooled", card, film(True), spp)
+    pool_b, _, res["pooled_again"] = film_run("render_film pooled, again", card, film(True), spp)
+    rel = abs(res["pooled"]["mean"] - res["pinned"]["mean"]) / res["pinned"]["mean"]
+    diff = ((pool_a - ref).abs() / ref.abs().clamp(min=1e-3)).max().item()
+    print(f"  pinned render_film bit-equal to render_sample; pooled runs bit-equal: "
+          f"{torch.equal(pool_a, pool_b)}; pooled vs pinned: mean rel diff {rel:.2e} (limit "
+          f"{MEAN_TOL}), max pixel rel diff {diff:.2e}, ray totals {pool_rays.tolist()} vs "
+          f"{ref_rays.tolist()}; steps {res['pooled']['steps']} vs {res['pinned']['steps']}, trace "
+          f"pooled / pinned {res['pooled']['trace_s'] / res['pinned']['trace_s']:.3f} ({card})")
+    check(torch.equal(pool_a, pool_b), f"{label}: two pooled renders differ")
+    check(rel <= MEAN_TOL and torch.equal(pool_rays, ref_rays), (label, rel, pool_rays, ref_rays))
+    rows = [("whole film", res["pinned"], res["pooled"])]
+    for tile in sweep:
+        rad, _, pin = film_run(f"render_film pinned, tiles of {tile}", card, film(False, tile), spp)
+        check(torch.equal(rad, ref), f"{label}: pinned tiles of {tile} != render_sample")
+        _, _, pooled = film_run(f"render_film pooled, tiles of {tile}", card, film(True, tile), spp)
+        res[f"pinned_{tile}"], res[f"pooled_{tile}"] = pin, pooled
+        rows.append((f"tiles of {tile}", pin, pooled))
+    print(f"  tile sweep, {label} {width}x{height} {spp} spp ({card}):")
+    for name, pin, pooled in rows:
+        print(f"    {name}: pinned {pin['trace_s']:.3f} s / {pin['steps']} steps / "
+              f"{pin['mrays_per_s']:.4f} Mrays/s; pooled {pooled['trace_s']:.3f} s / "
+              f"{pooled['steps']} steps / {pooled['mrays_per_s']:.4f} Mrays/s")
+    return res
+
+
+# --- the two-level gather engine (phase 23) ---
+
+
+def phase_gather(sh, cam, dev, card):
+    """Phase 23: the gather engine (torch ops) on many_instance_scene
+    two-level: its closest and any hit against iwalk's kernels on 65,536
+    rays (32,768 camera rays of a 256x128 film, 32,768 from inside the box
+    in random directions; shadow limits 0.5-1.5x each closest t): hit
+    flags, t on every common hit to float32 rounding of the hit point (a
+    different instance only at the same t), any-hit flags; the ms per query
+    of both engines; then ``PT_IWALK=0`` through the CLI at 256x144, 1 spp
+    (no two-level kernel launches) against the same render through vwalk in
+    process: image means within 1%."""
+    from path_tracer_tpu_torch.integrator.wavefront import render_sample
+    from path_tracer_tpu_torch.trace import iwalk, twolevel
+
+    t0 = time.perf_counter()
+    geng = sh.twolevel.device(DEVICE, engine="gather")["gather"]
+    ieng = sh.twolevel.device(DEVICE, engine="iwalk")["iwalk"]
+    torch.cuda.synchronize()
+    print(f"gather engine on many_instance_scene two-level: {geng['inst_rows'].shape[0]} instances, "
+          f"{geng['blas_packed'].shape[0]} BLAS nodes, {geng['tri_packed'].shape[0]} object tris; "
+          f"gather and iwalk tables built in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(2323)
+    co, cd = camera_rays(cam, *TWO_CAMERA, dev)
+    ro = torch.as_tensor(rng.uniform((-270, 5, -270), (270, 550, 270), (TWO_RANDOM, 3))
+                         .astype(np.float32), device=dev)
+    o, d = torch.cat([co, ro]), torch.cat([cd, unit_rows(rng, TWO_RANDOM, dev)])
+    n = o.shape[0]
+    tl = torch.full((n,), math.inf, device=dev)
+    g_ms = {}
+    g_ms["closest"], gq = time_ms(lambda: twolevel.closest_hit(geng, o, d, tl), 2)
+    i_ms = {}
+    i_ms["closest"], iq = time_ms(lambda: iwalk.iwalk_closest_hit_shade(ieng, o, d, tl), 5)
+    hg, hi = gq[0] >= 0, iq[0] >= 0
+    flags = (hg == hi).float().mean().item()
+    both = hg & hi
+    pscale = torch.maximum(iq[1].abs(), (o + d * iq[1][:, None]).abs().amax(1))
+    same_t = ((gq[1] - iq[1]).abs() <= T_REL * pscale)[both]
+    other = (gq[4] != iq[6])[both]
+    scale = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+    tl_any = torch.where(hi, iq[1] * scale, 1e4)
+    g_ms["any"], ga = time_ms(lambda: twolevel.any_hit(geng, o, d, tl_any), 2)
+    i_ms["any"], ia = time_ms(lambda: iwalk.iwalk_any_hit(ieng, o, d, tl_any), 5)
+    any_flags = (ga == ia).float().mean().item()
+    print(f"gather vs iwalk on {n} rays: hit flags equal {flags:.6f} ({int((hg != hi).sum())} "
+          f"differ), t within rel {T_REL:g} of the hit point's scale on {int(same_t.sum())} of "
+          f"{int(both.sum())} common hits, a different instance on {int(other.sum())} (all at the "
+          f"same t: {bool(same_t[other].all())}); any-hit flags equal {any_flags:.6f} "
+          f"({int((ga != ia).sum())} differ, occluded {ia.float().mean().item():.3f})")
+    print(f"gather engine ms per query on {n} rays: closest {g_ms['closest']:.2f} ms, any "
+          f"{g_ms['any']:.2f} ms; iwalk's kernels (with their sort) {i_ms['closest']:.3f} / "
+          f"{i_ms['any']:.3f} ms ({card})")
+    check(flags >= WINNER_AGREE and any_flags >= WINNER_AGREE and bool(same_t.all()),
+          (flags, any_flags, int(same_t.sum()), int(both.sum())))
+    del geng, ieng
+
+    os.environ["PT_IWALK"] = "0"
+    try:
+        _, res = render_cli(
+            "many_instance_scene", 1, card, ("closest",), width=256, height=144, two_level=True,
+            absent=("vwalk_closest", "vwalk_any", "iwalk_closest", "iwalk_any"))
+    finally:
+        del os.environ["PT_IWALK"]
+    check(res["engine"] == "gather", res["engine"])
+    # the same film (same aspect, so the same camera) through vwalk
+    vscene = sh.device(DEVICE)
+    ndc = torch.as_tensor(cam.view_proj_inverse(), device=DEVICE)
+    org = torch.as_tensor(cam.origin, device=DEVICE)
+    rad, _, _, _ = render_sample(vscene, ndc, org, 0, 256, 144, max_bounces=MAX_BOUNCES,
+                                 has_lights="light" in vscene, spp=1, mtypes=sh.active_mtypes,
+                                 any_volumes=sh.has_volumes)
+    vwalk_mean = rad.mean().item()
+    gather_mean = res["film"][..., :3].mean().item()
+    rel = abs(gather_mean - vwalk_mean) / vwalk_mean
+    print(f"many_instance_scene --two-level PT_IWALK=0 256x144 1 spp: image mean {gather_mean:.6f}, "
+          f"vwalk in process {vwalk_mean:.6f}: rel diff {rel:.5f} (limit {MEAN_TOL}) ({card})")
+    check(rel <= MEAN_TOL, rel)
+    return g_ms
+
+
 # --- the stack BVH (light tables above 16,384 triangles) ---
 
 
@@ -1898,10 +2085,16 @@ def main(argv=None) -> int:
     dev = torch.device(DEVICE)
 
     sh, cam = scenes.mesh_scene(aspect=WIDTH / HEIGHT)
-    errs, dense_t = phase_dense(dc, walk, sh.device(DEVICE), cam, dev, card, others)
+    mesh = sh.device(DEVICE)
+    errs, dense_t = phase_dense(dc, walk, mesh, cam, dev, card, others)
     dense_launches, _ = render_cli("mesh_scene", SPP, card, ("closest", "any"))
+    t0 = time.perf_counter()
+    film_t = {"mesh": phase_film("mesh_scene", sh, mesh, cam, WIDTH, HEIGHT, SPP, FILM_TILES, card)}
+    del mesh
+    print(f"phase 22 (mesh_scene): {time.perf_counter() - t0:.1f} s")
     print("cornell_specular:")
-    cross_backend(scenes.cornell_specular, 32, 32, 4)  # 64x64 until the stream phases came
+    # 64x64 until the stream phases came, 4 spp until phases 22-23 came
+    cross_backend(scenes.cornell_specular, 32, 32, 2)
 
     t0 = time.perf_counter()
     sh, cam = scenes.dragon_scene(aspect=WIDTH / HEIGHT)
@@ -1920,8 +2113,12 @@ def main(argv=None) -> int:
         walk_launches, res = render_cli("dragon_scene", DRAGON_SPP, card,
                                         ("walk_closest", "walk_any", "closest"))
     print(f"dragon_scene bounce steps: {walk_launches['walk_any']} (one any-hit per step)")
+    t0 = time.perf_counter()
+    film_t["dragon"] = phase_film("dragon_scene", sh, scene, cam, WIDTH, HEIGHT, DRAGON_SPP,
+                                  FILM_TILES, card)
+    print(f"phase 22 (dragon_scene): {time.perf_counter() - t0:.1f} s")
     print("dragon_scene(nu=96, nv=64, env_h=64):")
-    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4)
+    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 2)  # 4 until 22-23
 
     t0 = time.perf_counter()
     stream_scene = sh.device(DEVICE, engine="stream")
@@ -1940,9 +2137,9 @@ def main(argv=None) -> int:
     del scene
     print("dragon_scene(nu=96, nv=64, env_h=64), engine stream:")
     # 16 bounces (64 until iwalk ran at the two-level dragon's full render
-    # shapes): its CPU half, the stream's plain version, is the smoke's
-    # longest step
-    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 4, engine="stream",
+    # shapes) and 2 spp (4 until phases 22-23 came): its CPU half, the
+    # stream's plain version, is the smoke's longest step
+    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 2, engine="stream",
                   max_bounces=16)
     probe_t = phase_probes(card, others)
     t0 = time.perf_counter()
@@ -1973,6 +2170,13 @@ def main(argv=None) -> int:
         absent=("walk_closest", "walk_any", "iwalk_closest", "iwalk_any"))
     print(f"many_instance_scene --two-level bounce steps: {many_launches['vwalk_any']}")
     iwalk_launches = render_iwalk_cli(card)
+    t0 = time.perf_counter()
+    film_t["many"] = phase_film("many_instance_scene --two-level", sh_m, sh_m.device(DEVICE), cam_m,
+                                MANY_W, MANY_H, MANY_SPP, MANY_FILM_TILES, card)
+    print(f"phase 22 (many_instance_scene): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_gather(sh_m, cam_m, dev, card)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
     del sh_m, cam_m
     render_iwalk_dragon(sh2, scene2, cam, card)
     del scene2, sh2

@@ -6,11 +6,12 @@ and a tonemapped PNG. ``--device`` picks the torch device (default ``cuda``;
 with no card it raises rather than falling back to the CPU). ``--two-level``
 keeps shared object-space tables plus instance transforms instead of baking
 instances to world space, and traces through the two-level kernels (vwalk,
-or iwalk above vwalk's cap). ``PT_WALK=0`` in the environment switches the
-walk off as in the JAX package: a baked soup above 16,384 triangles then
-goes through the streamed dense kernels (``trace/dense_stream.py``);
-``PT_VWALK=0`` sends a two-level scene through iwalk instead of vwalk. The
-world engine is printed.
+or iwalk above vwalk's cap), or above iwalk's caps through the gather
+engine (``trace/twolevel.py``). ``PT_WALK=0`` in the environment switches
+the walk off as in the JAX package: a baked soup above 16,384 triangles
+then goes through the streamed dense kernels (``trace/dense_stream.py``);
+``PT_VWALK=0`` sends a two-level scene through iwalk instead of vwalk, and
+``PT_IWALK=0`` through the gather engine. The world engine is printed.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ def main(argv=None) -> dict:
     from path_tracer_tpu_torch.integrator.wavefront import render_sample
     from path_tracer_tpu_torch.scene.scene import env_engine, world_engine
     from path_tracer_tpu_torch.trace import dense_stream, iwalk
+    from path_tracer_tpu_torch.trace.traversal import engine_name
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -83,9 +85,11 @@ def main(argv=None) -> dict:
     _sync(device)
     phases["upload"] = time.perf_counter() - t0
     if "twolevel" in scene:
-        eng = scene["twolevel"]["iwalk"]
-        engine = iwalk.engine_name(eng)
-        print(f"two-level engine: {engine} ({eng['gates']} gate entries, "
+        engine = engine_name(scene)
+        eng = scene["twolevel"].get("iwalk") or scene["twolevel"]["gather"]
+        what = (f"{eng['gates']} gate entries" if "iwalk" in scene["twolevel"]
+                else f"{eng['inst_rows'].shape[0]} instances")
+        print(f"two-level engine: {engine} ({what}, "
               f"{iwalk.table_bytes(eng) / 2**20:.1f} MiB of tables)")
     else:
         engine = world_engine(scene_host.num_world_tris, engine)

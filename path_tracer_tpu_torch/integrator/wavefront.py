@@ -1,10 +1,13 @@
 """Wavefront path integrator: NEE + MIS, Russian roulette, nested media.
 
-Port of ``path_tracer_tpu/integrator/wavefront.py`` in its pinned-lane mode:
-the whole film advances bounce by bounce, every reference branch
+Port of ``path_tracer_tpu/integrator/wavefront.py``'s offline path: a tile
+of lanes advances bounce by bounce, every reference branch
 (``src/integrator.rs:143-281``) turned into masked lane arithmetic, with
-path regeneration between a lane's samples. The bounce loop is a Python
-``while`` that reads ``alive.any()`` once per bounce (one host sync).
+path regeneration: a lane whose path ends starts its pixel's next sample
+(pinned lanes) or the tile's next undone (pixel, sample) item (the pooled
+work queue). `render_film` traces the film in tiles and spp batches. The
+bounce loop is a Python ``while`` that reads ``alive.any()`` once per
+bounce (one host sync); ``STEPS`` counts the bounce steps.
 
 RNG: every draw site has a fixed stream id (``_S_*``, as in the JAX
 package); values depend only on (lane, sample, bounce, site), so both
@@ -12,6 +15,8 @@ packages draw the same numbers for the same path.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -33,6 +38,7 @@ from path_tracer_tpu_torch.core.vecmath import dot, normalize, ray_at
 from path_tracer_tpu_torch.integrator import bsdf as bsdf_mod
 from path_tracer_tpu_torch.scene.envmap import sample_environment
 from path_tracer_tpu_torch.scene.materials import unpack_material_rows
+from path_tracer_tpu_torch.trace import twolevel
 from path_tracer_tpu_torch.trace.traversal import any_hit, closest_hit, closest_hit_shade
 
 # RNG stream ids (per bounce). Volume slots use VOLUME + k.
@@ -43,6 +49,11 @@ _S_NEE_BSDF = 9
 _S_SCATTER = 10
 _S_CAMERA = 11
 _S_LENS = 12
+
+# Bounce steps (loop iterations) and `trace_lanes` calls since the last
+# reset; a profiler or the smoke zeroes them before a render and reads them
+# after, as it does the kernels' ``LAUNCHES``.
+STEPS = {"bounce": 0, "calls": 0}
 
 
 def mis_heuristic(f: torch.Tensor, g: torch.Tensor, power: int = HEURISTIC_POWER) -> torch.Tensor:
@@ -77,37 +88,49 @@ def _world(scene):
 
 
 def _world_closest(scene, o, d, lim):
-    """World closest hit through the two-level kernels (scenes built with
-    ``two_level=True``, as ``path_tracer_tpu/integrator/wavefront.py:93-101``),
-    the walk kernel (world soups above 16,384 triangles, ``:107-111``) or the
-    dense kernel; each epilogue already fetched the winner's shading normal
-    (world space) and model id. Returns ``(tri_idx, t, u, v, shade)``."""
-    ti, t, u, v, n_raw, model = closest_hit_shade(_world(scene), o, d, lim)
-    return ti, t, u, v, {"n_raw": n_raw, "model": model}
+    """World closest hit (as ``path_tracer_tpu/integrator/wavefront.py:87-132``).
+    Returns ``(tri_idx, t, u, v, inst, shade)``. The two-level gather engine
+    (``:102-105``) gives the hit's instance and no ``shade``; every other
+    engine (the two-level kernels, the walk, the stream, the dense kernel,
+    the stack BVH) gives ``inst`` None and a ``shade`` dict: the winner's
+    shading normal (world space) and model id, fetched in its epilogue."""
+    world = _world(scene)
+    if "gather" in world:
+        return (*twolevel.closest_hit(world["gather"], o, d, lim), None)
+    ti, t, u, v, n_raw, model = closest_hit_shade(world, o, d, lim)
+    return ti, t, u, v, None, {"n_raw": n_raw, "model": model}
 
 
 def _world_any(scene, o, d, lim):
     return any_hit(_world(scene), o, d, lim)
 
 
-def _hit_normal(scene, idx, u, v, direction, shade=None):
+def _hit_normal(scene, idx, u, v, direction, inst, shade=None):
     """Shading normal flipped against the ray + front_facing flag
     (primitive.rs:160-170). With a ``shade`` dict the interpolation already
-    happened in the kernel's epilogue (the only way on a two-level scene);
-    without one it is gathered here from the baked table."""
+    happened in the kernel's epilogue; without one it is gathered here: on
+    the gather engine in object space and rotated by the hit's instance (the
+    reference's deferred normal transform, tlas.rs:103-109), else from the
+    baked table."""
     if shade is not None:
         n = normalize(shade["n_raw"], eps=1e-20)
+    elif "twolevel" in scene:
+        gather = scene["twolevel"]["gather"]
+        n = twolevel.object_normal_to_world(gather["inst_rows"], inst,
+                                            _interp_normal(gather["normals_flat"], idx, u, v))
     else:
         n = _interp_normal(scene["tri"]["normals_flat"], idx, u, v)
     front = dot(direction, n) < 0.0
     return torch.where(front[:, None], n, -n), front
 
 
-def _hit_material_model(scene, tri_idx, shade=None):
+def _hit_material_model(scene, tri_idx, inst, shade=None):
     """(material id, model id) of each hit: one material per model, so the
-    two ids are equal."""
+    two ids are equal (the gather engine's from its instance's row)."""
     if shade is not None:
         model_id = shade["model"].clamp(min=0)
+    elif "twolevel" in scene:
+        model_id = _rows(scene["twolevel"]["gather"]["inst_rows"], inst)[:, 25].to(torch.int32)
     else:
         model_id = _rows(scene["tri"]["model_rows"], tri_idx)[:, 0].to(torch.int32)
     return model_id, model_id
@@ -234,6 +257,29 @@ def _sample_guard(rad):
     return torch.where(finite[:, None], rad * scale[:, None], 0.0)
 
 
+def _flush_by_pixel(accum, pix, flush):
+    """``accum[pix[i]] += flush[i]`` for every lane i, each pixel's rows
+    summed in lane order, the same bits every run. A pixel's samples can end
+    in one step on several lanes, so the adds must not be atomics, whose
+    order changes from run to run. index_put_(accumulate=True) is torch's
+    stable sort by pixel and segment sum in one call: on a CUDA tensor it
+    always takes its sort-based kernel (each pixel's run summed in order by
+    one thread); on a CPU tensor it may use atomic adds above its grain
+    size unless deterministic algorithms are on, so they are turned on
+    around the call there (the first turn-on costs the host ~2 s of imports,
+    which CUDA renders do not pay). A lane that did not die adds an exact
+    0."""
+    if accum.is_cuda:
+        accum.index_put_((pix,), flush, accumulate=True)
+        return
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        accum.index_put_((pix,), flush, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(det)
+
+
 def trace_lanes(
     scene: dict,
     ndc_to_world: torch.Tensor,
@@ -249,6 +295,7 @@ def trace_lanes(
     mtypes: tuple = bsdf_mod.ALL_MTYPES,
     any_volumes: bool = True,
     consistent_ggx: bool = False,
+    pool: bool = False,
     aperture: float = 0.0,
     focus: float = 0.0,
     cam_basis: torch.Tensor | None = None,
@@ -256,6 +303,19 @@ def trace_lanes(
     """Trace ``spp`` path samples per film lane (lane = y*width + x, y
     bottom-up, int64 ids) with path regeneration: when a lane's path ends
     it starts the same pixel's next sample.
+
+    ``pool=True`` turns per-lane regeneration into a work queue over the
+    tile's (pixel, sample) items (JAX ``:364-390``): a lane whose path ends
+    takes the next undone item, so the wave stays full until the queue
+    drains instead of idling through the longest pixel's samples. The queue
+    is pixel-major, item ``w`` = (pixel ``lane[0] + w // spp``, sample
+    ``sample_id + w % spp``), so a pixel's samples are neighbouring items
+    and neighbouring lanes stay spatially coherent; items 0..n-1 start in
+    flight. Every RNG draw is keyed on (pixel, sample, bounce, site), so
+    each sample's radiance is the pinned mode's; only the order in which a
+    pixel's samples are summed differs (float reassociation). Needs
+    contiguous ``lane`` ids; returns zero ``position`` / ``first_id``
+    (their rows belong to items, not pixels).
 
     Returns ``(radiance [n,3], position [n,4], first_id [n] int64,
     rays_cast [n,2] float32)``: the radiance SUM over the lane's samples,
@@ -271,6 +331,7 @@ def trace_lanes(
     limit = base + int(spp)
     nee = enable_nee and has_lights
     mat = scene["mat"]
+    STEPS["calls"] += 1
 
     def camera_rays(s_idx, ln):
         # Sub-pixel jitter: Owen-scrambled Sobol indexed by sample, seeded
@@ -300,7 +361,18 @@ def trace_lanes(
             return o2, d2 / nrm[:, None]
         return o, d
 
-    s_idx = torch.full((n,), base, dtype=torch.int64, device=dev)
+    if pool:
+        lane0 = int(lane[0])
+        if not torch.equal(lane, torch.arange(lane0, lane0 + n, dtype=lane.dtype, device=dev)):
+            raise ValueError("pool mode needs contiguous lane ids")
+        per = max(int(spp), 1)
+        total_work = n * int(spp)
+        w0 = torch.arange(n, dtype=torch.int64, device=dev)
+        lane = lane0 + w0 // per  # the pixel each lane traces now
+        s_idx = base + w0 % per
+        next_w = n  # items 0..n-1 are in flight
+    else:
+        s_idx = torch.full((n,), base, dtype=torch.int64, device=dev)
     o, d = camera_rays(s_idx, lane)
     throughput = torch.ones((n, 3), dtype=f32, device=dev)
     radiance = torch.zeros((n, 3), dtype=f32, device=dev)  # current sample
@@ -315,6 +387,7 @@ def trace_lanes(
     rays_strict = torch.zeros(n, dtype=f32, device=dev)
 
     while bool(alive.any()):
+        STEPS["bounce"] += 1
         was_alive = alive
 
         # Bounce-limit expiry (reference loop bound, integrator.rs:163)
@@ -328,7 +401,7 @@ def trace_lanes(
         throughput = torch.where(rr_on[:, None], throughput / torch.clamp(survive, min=1e-20)[:, None], throughput)
 
         # --- closest hit on the world (dead lanes get a zero-extent ray) ---
-        tri_idx, t_hit, hu, hv, shade = _world_closest(scene, o, d, torch.where(alive, INFINITY, 0.0))
+        tri_idx, t_hit, hu, hv, inst, shade = _world_closest(scene, o, d, torch.where(alive, INFINITY, 0.0))
         hit = (tri_idx >= 0) & alive
 
         # First-bounce position/id buffers for the first sample only
@@ -377,8 +450,8 @@ def trace_lanes(
 
         # --- surface interaction for unscattered hit lanes ---
         surf = hit & ~scattered
-        normal, front = _hit_normal(scene, tri_idx, hu, hv, d, shade)
-        mat_idx, model_id = _hit_material_model(scene, tri_idx, shade)
+        normal, front = _hit_normal(scene, tri_idx, hu, hv, d, inst, shade)
+        mat_idx, model_id = _hit_material_model(scene, tri_idx, inst, shade)
         first_id = torch.where(at_b0 & hit, model_id.to(torch.int64), first_id)
         m_lane = bsdf_mod.gather_mat(mat, mat_idx)
         wi_viewer = -d
@@ -449,10 +522,22 @@ def trace_lanes(
 
         # --- flush finished samples + path regeneration ---
         died = was_alive & ~alive
-        accum = accum + torch.where(died[:, None], _sample_guard(radiance), 0.0)
-        next_s = s_idx + 1
-        regen = died & (next_s < limit)
-        s_idx = torch.where(died, next_s, s_idx)
+        flush = torch.where(died[:, None], _sample_guard(radiance), 0.0)
+        if pool:
+            _flush_by_pixel(accum, lane - lane0, flush)
+            # Dead lanes claim the next items in lane order: an exclusive
+            # prefix count of deaths replaces an atomic counter.
+            died_i = died.to(torch.int64)
+            w_new = next_w + torch.cumsum(died_i, 0) - died_i
+            regen = died & (w_new < total_work)
+            lane = torch.where(regen, lane0 + w_new // per, lane)
+            s_idx = torch.where(regen, base + w_new % per, s_idx)
+            next_w = next_w + died_i.sum()  # a device scalar after the first step
+        else:
+            accum = accum + flush
+            next_s = s_idx + 1
+            regen = died & (next_s < limit)
+            s_idx = torch.where(died, next_s, s_idx)
         new_o, new_d = camera_rays(s_idx, lane)
         o = torch.where(regen[:, None], new_o, o)
         d = torch.where(regen[:, None], new_d, d)
@@ -463,7 +548,10 @@ def trace_lanes(
         b = torch.where(regen, 0, b)
         alive = alive | regen
 
-    return accum, position, first_id, torch.stack([rays, rays_strict], dim=1)
+    rays2 = torch.stack([rays, rays_strict], dim=1)
+    if pool:
+        return accum, torch.zeros_like(position), torch.zeros_like(first_id), rays2
+    return accum, position, first_id, rays2
 
 
 def render_sample(
@@ -483,8 +571,8 @@ def render_sample(
     focus: float = 0.0,
     cam_basis=None,
 ):
-    """Trace ``spp`` samples/pixel over the whole film as one wave of lanes
-    on ``ndc_to_world``'s device. Returns ``(radiance_sum [N,3],
+    """Trace ``spp`` samples/pixel over the whole film as one wave of pinned
+    lanes on ``ndc_to_world``'s device. Returns ``(radiance_sum [N,3],
     position [N,4], first_id [N], rays [N,2])``, N = width*height."""
     lane = torch.arange(width * height, dtype=torch.int64, device=ndc_to_world.device)
     return trace_lanes(
@@ -493,6 +581,79 @@ def render_sample(
         spp=spp, mtypes=mtypes, any_volumes=any_volumes,
         aperture=aperture, focus=focus, cam_basis=cam_basis,
     )
+
+
+# `render_film`'s defaults: film lanes per `trace_lanes` call (None: the
+# whole film) and the queue mode. On an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 7) the whole film, pooled, was the fastest of pinned and
+# pooled at two tile sizes on each engine measured (dense, walk, vwalk):
+# every 1024x576 step is host-bound, so a smaller tile only adds steps.
+TILE_LANES = None
+POOL = True
+
+
+def render_film(
+    scene: dict,
+    ndc_to_world: torch.Tensor,
+    cam_origin: torch.Tensor,
+    base_sample: int,
+    width: int,
+    height: int,
+    spp: int,
+    max_bounces: int = MAX_BOUNCES,
+    enable_nee: bool = True,
+    has_lights: bool = True,
+    mtypes: tuple = bsdf_mod.ALL_MTYPES,
+    any_volumes: bool = True,
+    tile_lanes: int | None = None,
+    consistent_ggx: bool = False,
+    pool: bool | None = None,
+    aperture: float = 0.0,
+    focus: float = 0.0,
+    cam_basis=None,
+):
+    """Trace ``spp`` samples/pixel over the film in lane tiles (JAX
+    ``:1237-1356``): full tiles of ``tile_lanes`` lanes and one remainder
+    tile, each a `trace_lanes` call with its own lane offset, issued back to
+    back. ``PT_SPP_BATCH`` in the environment splits each tile's samples
+    into calls of that many samples (0 or unset: one call per tile), the
+    JAX package's switch; every (pixel, sample) item is traced once with the
+    same RNG keys under any split, so only the order of each pixel's sums
+    moves.
+
+    ``tile_lanes`` and ``pool`` default to `TILE_LANES` (the whole film)
+    and `POOL` (pooled). The JAX ``steps_per_iter`` (bounce
+    steps unrolled per TPU loop iteration) is not ported: each loop
+    iteration here is one bounce step.
+
+    Returns ``(radiance_sum [N,3], rays_total [2] float64)``: rays_total[0]
+    counts every query, rays_total[1] the conservative count (see
+    `trace_lanes`)."""
+    n = width * height
+    if pool is None:
+        pool = POOL
+    tile = min(tile_lanes or TILE_LANES or n, n)
+    spp_batch = int(os.environ.get("PT_SPP_BATCH", "0"))
+    if spp_batch <= 0:
+        spp_batch = spp
+    dev = ndc_to_world.device
+    rads = []
+    rays_total = torch.zeros(2, dtype=torch.float64, device=dev)
+    for off in range(0, n, tile):
+        lane = torch.arange(off, min(off + tile, n), dtype=torch.int64, device=dev)
+        rad = None
+        for s0 in range(0, spp, spp_batch):
+            rad_i, _, _, rays = trace_lanes(
+                scene, ndc_to_world, cam_origin, base_sample + s0, lane, width, height,
+                max_bounces=max_bounces, enable_nee=enable_nee, has_lights=has_lights,
+                spp=min(spp_batch, spp - s0), mtypes=mtypes, any_volumes=any_volumes,
+                consistent_ggx=consistent_ggx, pool=pool,
+                aperture=aperture, focus=focus, cam_basis=cam_basis,
+            )
+            rad = rad_i if rad is None else rad + rad_i
+            rays_total = rays_total + rays.sum(dim=0, dtype=torch.float64)
+        rads.append(rad)
+    return torch.cat(rads, dim=0), rays_total
 
 
 def render(
@@ -507,12 +668,15 @@ def render(
     start_sample: int = 0,
     film=None,
     engine: str | None = None,
+    pool: bool | None = False,
 ):
-    """Progressive multi-sample render on ``device``. Returns the HDR film
-    ``[H, W, 4]`` (rgb sum + sample count in alpha, the layout of
-    ``accumulate.wgsl``). Pass ``film`` to resume; samples go in batches of
-    32, so a caller can checkpoint between them. ``engine`` picks a
-    two-level scene's engine (`Scene.device`)."""
+    """Progressive multi-sample render on ``device`` through `render_film`.
+    Returns the HDR film ``[H, W, 4]`` (rgb sum + sample count in alpha, the
+    layout of ``accumulate.wgsl``). Pass ``film`` to resume; samples go in
+    batches of 32, so a caller can checkpoint between them. ``engine``
+    picks the world engine (`Scene.device`). ``pool`` defaults to False
+    (pinned lanes), which keeps a resumed render bit-equal to one run in one
+    go; None takes `render_film`'s default."""
     scene = scene_host.device(device, engine)
     ndc_to_world = torch.as_tensor(camera.view_proj_inverse(), device=device)
     origin = torch.as_tensor(camera.origin, device=device)
@@ -521,10 +685,10 @@ def render(
     s = start_sample
     while s < start_sample + spp:
         cur = min(32, start_sample + spp - s)
-        rad, _, _, _ = render_sample(
-            scene, ndc_to_world, origin, s, width, height,
+        rad, _ = render_film(
+            scene, ndc_to_world, origin, s, width, height, cur,
             max_bounces=max_bounces, enable_nee=enable_nee, has_lights="light" in scene,
-            spp=cur, mtypes=scene_host.active_mtypes, any_volumes=scene_host.has_volumes,
+            mtypes=scene_host.active_mtypes, any_volumes=scene_host.has_volumes, pool=pool,
         )
         frame = torch.cat([rad, torch.full((rad.shape[0], 1), float(cur), device=device)], dim=1)
         film = film + frame.reshape(height, width, 4)

@@ -24,8 +24,8 @@ can be fed identical tables:
 * ``mat``: ``rows`` (`materials.pack_material_rows`);
 * ``env``: ``[H, W, 3]``;
 * ``twolevel`` (scenes built with ``two_level=True``): ``{"iwalk": the
-  two-level engine's tables}`` (`scene.twolevel_scene`); ``tri`` is then
-  empty.
+  vwalk or iwalk engine's tables}`` or ``{"gather": the gather engine's}``
+  (`scene.twolevel_scene`); ``tri`` is then empty.
 
 Engine selection (`world_engine`, the JAX package's TPU build,
 ``path_tracer_tpu/scene/scene.py:269-331``): every table up to
@@ -48,10 +48,10 @@ table is in that tree's leaf order either way, so light order, pdf and cdf
 are the JAX package's. The stack BVH checks its tree's depth against the
 traversal stack, as the JAX scene does (``scene.py:96-97``).
 
-Two-level mode keeps each model's chunk tables in object space, shared by
-its instances, and traces the world through the vwalk or iwalk kernels
-(`scene.twolevel_scene`). The JAX package builds the baked world soup and
-its SAH tree in that mode too and then drops them
+Two-level mode keeps each model's tables in object space, shared by its
+instances, and traces the world through the vwalk or iwalk kernels or the
+gather engine (`scene.twolevel_scene`). The JAX package builds the baked
+world soup and its SAH tree in that mode too and then drops them
 (``path_tracer_tpu/scene/scene.py:337-343``); the port does not build them.
 The light tables stay world-space and dense.
 """
@@ -68,8 +68,9 @@ from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.bvh import build_sah_tree, flatten, tree_depth
 from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_materials
 from path_tracer_tpu_torch.scene.model import Model
-from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry
+from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry, upload_gather
 from path_tracer_tpu_torch.trace import bvh_stack, dense_stream, iwalk
+from path_tracer_tpu_torch.trace import twolevel as gather
 from path_tracer_tpu_torch.trace.dense_cuda import DENSE_MAX_TRIS, pack_dense_aux, pack_dense_cab
 from path_tracer_tpu_torch.trace.walk import WALK_PARTS_MAX_TRIS, pack_walk
 
@@ -93,11 +94,13 @@ def world_engine(n_tris: int, engine: str | None = None) -> str:
 
 def env_engine(num_world_tris: int, two_level: bool = False) -> str | None:
     """The engine the JAX package's switches pick: ``PT_WALK=0`` sends a
-    baked soup above ``DENSE_MAX_TRIS`` triangles to "stream", ``PT_VWALK=0``
-    sends a two-level scene to "iwalk"
-    (``path_tracer_tpu/scene/twolevel_scene.py:137-141``); else None (the
-    default rule). Neither switch touches the other kind of scene."""
+    baked soup above ``DENSE_MAX_TRIS`` triangles to "stream"; ``PT_IWALK=0``
+    sends a two-level scene to "gather", else ``PT_VWALK=0`` to "iwalk"
+    (``path_tracer_tpu/scene/twolevel_scene.py:123-141``); else None (the
+    default rule). Neither kind of switch touches the other kind of scene."""
     if two_level:
+        if os.environ.get("PT_IWALK", "1") == "0":
+            return "gather"
         return "iwalk" if os.environ.get("PT_VWALK", "1") == "0" else None
     off = os.environ.get("PT_WALK", "1") == "0"
     return "stream" if off and num_world_tris > DENSE_MAX_TRIS else None
@@ -206,7 +209,7 @@ class Scene:
         """The integrator's tensor dict on ``device`` (see the module note).
         ``engine`` names the world engine: "stream" for a baked scene
         (default: `world_engine`'s rule), "vwalk" or "iwalk" for a
-        two-level one (default: `TwoLevelGeometry.choose`'s)."""
+        two-level one, or "gather" (default: `TwoLevelGeometry.choose`'s)."""
         tri = {}
         if not self.two_level:
             tri = {
@@ -313,8 +316,9 @@ def from_jax_scene(data: dict, device) -> SceneData:
     ``packed``) of a table the port traces through its stack BVH. A two-level
     dict (empty ``tri``) must hold a single-part vwalk or iwalk engine in
     ``twolevel["iwalk"]``, whose kept tables are carried over as they are
-    (iwalk's object boxes rebuilt from them by ``iwalk.upload``); the JAX
-    gather machine's tables and multi-part engines raise."""
+    (iwalk's object boxes rebuilt from them by ``iwalk.upload``); a dict
+    without one carries the JAX gather machine's tables over, traced by the
+    port's gather engine; a multi-part engine raises."""
     a = lambda x: np.asarray(x)  # noqa: E731
     jt = data["tri"]
     tri = {}
@@ -338,11 +342,14 @@ def from_jax_scene(data: dict, device) -> SceneData:
             out["light"]["bvh"] = {"nodes": a(data["lights_bvh"]["packed"]), "tris": a(jl["packed"])}
     ported = _upload(out, device, "stream" if "stream" in tri else None)
     if "twolevel" in data:
-        eng = data["twolevel"].get("iwalk")
-        if eng is None or "parts" in eng:
-            raise NotImplementedError(
-                "the port runs single-part vwalk / iwalk engines only (no gather "
-                "phase machine, no parts)")
-        keep = iwalk.VWALK_TABLES if "vinst" in eng else iwalk.IWALK_TABLES
-        ported["twolevel"] = {"iwalk": iwalk.upload({k: a(eng[k]) for k in keep}, device)}
+        tl = data["twolevel"]
+        eng = tl.get("iwalk")
+        if eng is None:  # the JAX gather phase machine's tables
+            ported["twolevel"] = {"gather": upload_gather({k: a(tl[k]) for k in gather.TABLES},
+                                                          device)}
+        elif "parts" in eng:
+            raise NotImplementedError("the port runs single-part vwalk / iwalk engines only")
+        else:
+            keep = iwalk.VWALK_TABLES if "vinst" in eng else iwalk.IWALK_TABLES
+            ported["twolevel"] = {"iwalk": iwalk.upload({k: a(eng[k]) for k in keep}, device)}
     return ported

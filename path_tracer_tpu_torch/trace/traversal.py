@@ -2,8 +2,9 @@
 ``path_tracer_tpu/trace/traversal.py:274-411``).
 
 A geometry table (see `scene.scene.Scene.device`) is the scene's
-``twolevel`` dict, whose ``iwalk`` entry holds a two-level engine (vwalk or
-iwalk, `trace.iwalk`), or a triangle table carrying ``walk`` tables (world
+``twolevel`` dict, whose ``iwalk`` entry holds a two-level kernel engine
+(vwalk or iwalk, `trace.iwalk`) and whose ``gather`` entry holds the gather
+engine (`trace.twolevel`, torch ops), or a triangle table carrying ``walk`` tables (world
 soups above 16,384 triangles), ``stream`` ones (the streamed dense engine,
 `trace.dense_stream`: above the walk's limit, or on request), ``bvh`` ones
 (the stack BVH, `trace.bvh_stack`: world soups above 2,000,000 triangles
@@ -18,12 +19,21 @@ from __future__ import annotations
 import torch
 
 from path_tracer_tpu_torch.core.constants import EPSILON
-from path_tracer_tpu_torch.trace import bvh_stack
+from path_tracer_tpu_torch.trace import bvh_stack, twolevel
 from path_tracer_tpu_torch.trace.bvh_stack import _tri_intersect
 from path_tracer_tpu_torch.trace.dense_cuda import dense_any_hit, dense_closest_hit_shade
 from path_tracer_tpu_torch.trace.dense_stream import dense_stream_any_hit, dense_stream_closest_hit_shade
 from path_tracer_tpu_torch.trace.iwalk import iwalk_any_hit, iwalk_closest_hit_shade
 from path_tracer_tpu_torch.trace.walk import walk_any_hit, walk_closest_hit_shade
+
+
+def engine_name(scene: dict) -> str:
+    """The engine of a scene dict's world queries: "vwalk", "iwalk" or
+    "gather" (two-level), else "walk", "stream", "bvh" or "dense"."""
+    if "twolevel" in scene:
+        tl = scene["twolevel"]
+        return "gather" if "gather" in tl else ("vwalk" if "vinst" in tl["iwalk"] else "iwalk")
+    return next((k for k in ("walk", "stream", "bvh") if k in scene["tri"]), "dense")
 
 
 def closest_hit_shade(tri: dict, origin, direction, t_limit):
@@ -48,6 +58,8 @@ def closest_hit(tri: dict, origin, direction, t_limit):
     ``(tri_idx, t, u, v)``; ``tri_idx == -1`` is a miss (t is the limit)."""
     if "bvh" in tri:  # a light table carries no shading rows
         return bvh_stack.closest_hit(tri["bvh"], origin, direction, t_limit)
+    if "gather" in tri:  # no shading epilogue: the integrator shades from its instances
+        return twolevel.closest_hit(tri["gather"], origin, direction, t_limit)[:4]
     best, t, u, v, _, _ = closest_hit_shade(tri, origin, direction, t_limit)
     return best, t, u, v
 
@@ -57,6 +69,8 @@ def any_hit(tri: dict, origin, direction, t_limit):
     shadow test, ``TLAS::any_intersect``)."""
     if "iwalk" in tri:
         return iwalk_any_hit(tri["iwalk"], origin, direction, t_limit)
+    if "gather" in tri:
+        return twolevel.any_hit(tri["gather"], origin, direction, t_limit)
     if "walk" in tri:
         return walk_any_hit(tri["walk"], origin, direction, t_limit)
     if "stream" in tri:

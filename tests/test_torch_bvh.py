@@ -44,6 +44,7 @@ from path_tracer_tpu_torch.scene import triangle as ttri
 from path_tracer_tpu_torch.scene.model import Model as TModel
 from path_tracer_tpu_torch.trace import bvh_stack, dense_stream
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-4
 AGREE = 0.999

@@ -36,6 +36,7 @@ from path_tracer_tpu_torch.scene import triangle as tri_mod
 from path_tracer_tpu_torch.scene.bvh import build_sah_tree
 from path_tracer_tpu_torch.trace import dense_cuda as dc
 from path_tracer_tpu_torch.trace import walk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SETS = ("random", "shadow", "axis", "face", "ulp")
 N_RAYS = 384

@@ -37,6 +37,7 @@ from path_tracer_tpu_torch.scene import triangle as ttri
 from path_tracer_tpu_torch.trace import dense_stream as tds
 from path_tracer_tpu_torch.trace import walk as twalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 2e-4, 5e-6
 N_JAX = 512  # the one ray count of the JAX queries

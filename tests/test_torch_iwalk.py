@@ -31,6 +31,7 @@ from path_tracer_tpu_torch.scene.model import rigid_transform, rotation_y
 from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry
 from path_tracer_tpu_torch.trace import iwalk as tiwalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-4
 N_JAX = 512  # the one ray count the JAX side sees
@@ -226,8 +227,8 @@ def test_plain_tie_goes_to_first_visited(engine):
 
 def test_engine_rule(monkeypatch):
     """(e) vwalk by default; with vwalk's cap patched below the scene's
-    virtual chunks, iwalk; with iwalk's cap patched down too,
-    NotImplementedError (the gather phase machine is not ported)."""
+    virtual chunks, iwalk (asking for vwalk raises); with iwalk's cap
+    patched down too, the gather engine (``tests/test_torch_twolevel.py``)."""
     models = _models(TModel, tproc)
     geo = TwoLevelGeometry(models)
     k_sphere = geo.num_chunks - 1  # the box is one chunk
@@ -239,11 +240,10 @@ def test_engine_rule(monkeypatch):
     assert geo.engine == "iwalk"
     with pytest.raises(ValueError):
         tiwalk.pack_vwalk(models)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         geo.device("cpu", engine="vwalk")
     monkeypatch.setattr(tiwalk, "IWALK_MAX_TOTAL_CHUNKS", geo.num_chunks - 1)
-    with pytest.raises(NotImplementedError):
-        TwoLevelGeometry(models)
+    assert TwoLevelGeometry(models).engine == "gather"
     with pytest.raises(ValueError):
         tiwalk.pack_iwalk(models)
 

@@ -31,6 +31,7 @@ from path_tracer_tpu_torch.camera import ray_directions
 from path_tracer_tpu_torch.integrator import wavefront as tw
 from path_tracer_tpu_torch.scene.scene import from_jax_scene
 from path_tracer_tpu_torch.trace import iwalk as tiwalk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W = H = 16
 SPP, BOUNCES = 2, 8
@@ -200,15 +201,15 @@ def test_shade_epilogue_matches_gathered_normals():
     ndc, org = torch.from_numpy(cam.view_proj_inverse()), torch.from_numpy(cam.origin)
     d = ray_directions(ndc, org, u, v)
     o = org.expand(n, 3)
-    ti, t, hu, hv, shade = tw._world_closest(scene, o, d, torch.full((n,), float("inf")))
+    ti, t, hu, hv, inst, shade = tw._world_closest(scene, o, d, torch.full((n,), float("inf")))
     hit = ti >= 0
-    assert hit.float().mean() > 0.5
-    ns, fs = tw._hit_normal(scene, ti, hu, hv, d, shade)
-    nb, fb = tw._hit_normal(scene, ti, hu, hv, d, None)
+    assert hit.float().mean() > 0.5 and inst is None
+    ns, fs = tw._hit_normal(scene, ti, hu, hv, d, inst, shade)
+    nb, fb = tw._hit_normal(scene, ti, hu, hv, d, inst, None)
     torch.testing.assert_close(ns[hit], nb[hit], rtol=1e-6, atol=1e-6)
     assert torch.equal(fs[hit], fb[hit])
-    ms, _ = tw._hit_material_model(scene, ti, shade)
-    mb, _ = tw._hit_material_model(scene, ti, None)
+    ms, _ = tw._hit_material_model(scene, ti, inst, shade)
+    mb, _ = tw._hit_material_model(scene, ti, inst, None)
     assert torch.equal(ms[hit], mb[hit])
 
 

@@ -25,6 +25,7 @@ from path_tracer_tpu_torch.scene import procedural as tproc
 from path_tracer_tpu_torch.scene import triangle as ttri
 from path_tracer_tpu_torch.trace import walk as twalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-4
 

@@ -32,6 +32,7 @@ from path_tracer_tpu_torch.scene import procedural as tproc
 from path_tracer_tpu_torch.scene.model import Model as TModel
 from path_tracer_tpu_torch.scene.model import rigid_transform, rotation_y
 from path_tracer_tpu_torch.trace import iwalk, walk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SETS = ("random", "shadow", "axis", "face", "ulp")
 
