@@ -147,10 +147,30 @@ Phases (any failure raises and the script exits non-zero without the final
     instance only at the same t, any-hit flags), the ms per query of both;
     then ``PT_IWALK=0`` through the CLI at 256x144, 1 spp (no two-level
     kernel launches), its mean within 1% of the same render through vwalk.
+24. the interactive frame (``path_tracer_tpu_torch/interactive``): every
+    TAA stage at 1024x576 on the card against the CPU on the same
+    numpy-seeded inputs (float stages within rtol 1e-5, atol 1e-6; ids
+    equal; ``display_frame_u8`` equal but within 1e-3 of a .5 step); then
+    ``render_sample_segmented`` bit-equal to ``render_sample`` (radiance,
+    position, first id, rays) on ``cornell_specular`` and
+    ``cornell_volume`` at 1024x576, 64 bounces, samples 0 and 3,
+    count-driven and over 4 frames of one predictor, with steps, segments,
+    host reads and overflows; then ``InteractiveRenderer`` sessions at
+    1024x576 on ``cornell_specular``, ``cornell_volume`` and
+    ``mesh_scene``, static (one warm frame, 8 timed) and moving (the JAX
+    fps bench's orbit; one warm, 3 timed), each frame ending in
+    ``display(as_uint8=True)``: frames/s, ms per frame split into trace,
+    TAA and display, steps, segments and host reads per frame, dense
+    closest / any launches of every frame (each > 0) and the predictor's
+    overflows; then ``cornell_specular`` static, 2 frames each after a warm
+    frame, monolithic (``PT_INTERACTIVE_SEG=0``) and count-driven beside
+    the default's run (one reading, not an A/B: `phase_schedule_ab` runs
+    the three schedules in alternating rounds, called on its own).
 
-Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15. Each
-render's launch counts
-(and the probes') are set to 0 just before it and read just after. The
+Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24.
+Each render's launch counts
+(and the probes', and each frame's) are set to 0 just before it and read
+just after. The
 dense closest hit is held to winners and every output column equal to the
 plain version on every ray of every set and shape, the walk, vwalk, iwalk
 and stream closest hits to winners (and instances) and t (their culls are
@@ -2049,6 +2069,288 @@ def phase_light_bvh(dev, card):
           f"card equal to CPU on {sub.numel()} rays ({card})")
 
 
+# --- the interactive frame (phase 24) ---
+
+FRAME_SCENES = ("cornell_specular", "cornell_volume", "mesh_scene")
+FRAMES = 8  # timed session frames per static run, after one warm frame
+MOVING_FRAMES = 3  # and per moving run (8 put phase 24 over its ~120 s)
+OTHER_FRAMES = 2  # timed frames of the monolithic and count-driven schedules
+TAA_RTOL, TAA_ATOL = 1e-5, 1e-6  # the float TAA stages, card against CPU
+U8_EDGE = 1e-3  # display_frame_u8: a value this close to a .5 step may round either way
+# (stage, inputs) of phase 24's TAA check
+TAA_STAGES = (
+    ("accumulate", ("acc", "colour")), ("w_divide", ("acc",)),
+    ("compute_velocity", ("position", "wtc")), ("_rgb_to_ycocg", ("q",)),
+    ("_ycocg_to_rgb", ("q",)), ("_clip_aabb", ("lo", "hi", "q")), ("_bilinear", ("acc", "uv")),
+    ("_sample_catmull_rom", ("acc", "uv")),
+    ("temporal_reproject", ("colour", "acc", "velocity", "ids")), ("display_frame", ("acc",)),
+    ("pack_ids", ("prev_ids", "new_id")),
+    ("frame_update_static", ("prev_ids", "acc", "colour", "new_id")),
+    ("frame_update_moving", ("prev_ids", "acc", "colour", "new_id", "position", "wtc")),
+)
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set attributes of a module for the duration of a block."""
+    old = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+def taa_inputs(h, w):
+    """Numpy-seeded TAA inputs at h x w (ids: uint32 bits in int64)."""
+    from path_tracer_tpu_torch import scenes
+
+    rs = np.random.default_rng(24)
+    colour = np.concatenate([rs.uniform(0, 2, (h, w, 3)), rs.uniform(0.5, 2, (h, w, 1))], -1)
+    acc = np.concatenate([rs.uniform(0, 8, (h, w, 3)), rs.integers(1, 9, (h, w, 1))], -1)
+    pos = np.concatenate([rs.uniform(-300, 300, (h, w, 2)), rs.uniform(-800, 300, (h, w, 1)),
+                          rs.uniform(1, 900, (h, w, 1))], -1)
+    lo = rs.uniform(-1, 0, (h, w, 3))
+    hi = lo + rs.uniform(0, 1, (h, w, 3)) * (rs.uniform(size=(h, w, 1)) > 0.1)
+    f32 = {"colour": colour, "acc": acc, "velocity": rs.uniform(-0.2, 0.2, (h, w, 2)),
+           "position": pos, "uv": rs.uniform(-0.1, 1.1, (h, w, 2)), "lo": lo, "hi": hi,
+           "q": rs.uniform(-2, 2, (h, w, 3)),
+           "wtc": scenes.cornell_camera(aspect=w / h).world_to_clip()}
+    out = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in f32.items()}
+    out["ids"] = torch.from_numpy(rs.integers(0, 4, (h, w)) << 16 | rs.integers(0, 4, (h, w)))
+    out["prev_ids"] = torch.from_numpy(rs.integers(0, 2**32, (h, w), dtype=np.int64))
+    out["new_id"] = torch.from_numpy(rs.integers(0, 2**32, (h, w), dtype=np.int64))
+    return out
+
+
+def phase_taa(card):
+    """Phase 24a: every TAA stage at 1024x576 on the card against the CPU on
+    the same inputs: float stages within TAA_RTOL / TAA_ATOL, ids equal,
+    ``display_frame_u8`` equal but where the CPU's value lies within
+    U8_EDGE of a .5 step."""
+    from path_tracer_tpu_torch.interactive import taa
+
+    inp = taa_inputs(HEIGHT, WIDTH)
+    gpu_inp = {k: v.to(DEVICE) for k, v in inp.items()}
+    worst = 0.0
+    for name, args in TAA_STAGES:
+        fn = getattr(taa, name)
+        cpu = fn(*[inp[a] for a in args])
+        t_ms, gpu = time_ms(lambda: fn(*[gpu_inp[a] for a in args]), 5)  # noqa: B023
+        pairs = zip(cpu, gpu) if isinstance(cpu, tuple) else [(cpu, gpu)]
+        errs = []
+        for c, g in pairs:
+            g = g.cpu()
+            if c.dtype.is_floating_point:
+                check(torch.allclose(g, c, rtol=TAA_RTOL, atol=TAA_ATOL), f"TAA {name}: card vs CPU")
+                errs.append((g - c).abs().max().item())
+            else:
+                check(torch.equal(g, c), f"TAA {name}: card ids vs CPU")
+                errs.append(0.0)
+        worst = max(worst, *errs)
+        print(f"  TAA {name} {WIDTH}x{HEIGHT}: card {t_ms:.3f} ms, max |card - CPU| {max(errs):.3g}")
+    f = taa.display_frame(inp["acc"]) * 255.0
+    edge = ((f - torch.floor(f)) - 0.5).abs() < U8_EDGE
+    diff = taa.display_frame_u8(gpu_inp["acc"]).cpu() != taa.display_frame_u8(inp["acc"])
+    print(f"  TAA display_frame_u8: {int(diff.sum())} of {diff.numel()} values differ, all within "
+          f"{U8_EDGE} of a .5 step ({int(edge.sum())} such values) ({card})")
+    check(not bool((diff & ~edge).any()), "display_frame_u8: card vs CPU off a .5 step")
+    return worst
+
+
+def counted(fn):
+    """``(fn(), seconds, bounce steps, trace_lanes calls, host reads,
+    launches)`` with the counts zeroed just before and read just after."""
+    from path_tracer_tpu_torch.integrator import wavefront
+
+    wavefront.STEPS.update(bounce=0, calls=0, reads=0)
+    launches = zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, wavefront.STEPS["bounce"], wavefront.STEPS["calls"],
+            wavefront.STEPS["reads"], dict(launches))
+
+
+def phase_segmented(card):
+    """Phase 24b: `render_sample_segmented` against `render_sample` at
+    1024x576, 64 bounces, on cornell_specular and cornell_volume, samples 0
+    and 3: count-driven, then predicted over 4 frames of one predictor
+    (samples 0, 3, 0, 3): radiance, position, first id and rays bit-equal."""
+    from path_tracer_tpu_torch import scenes
+    from path_tracer_tpu_torch.integrator import wavefront as wf
+
+    for name in ("cornell_specular", "cornell_volume"):
+        sh, cam = getattr(scenes, name)(aspect=WIDTH / HEIGHT)
+        scene = sh.device(DEVICE)
+        ndc = torch.as_tensor(cam.view_proj_inverse(), device=DEVICE)
+        org = torch.as_tensor(cam.origin, device=DEVICE)
+        args = dict(max_bounces=MAX_BOUNCES, has_lights="light" in scene, mtypes=sh.active_mtypes,
+                    any_volumes=sh.has_volumes)
+        print(f"{name} {WIDTH}x{HEIGHT}, 1 spp, {MAX_BOUNCES} bounces, segmented against "
+              f"render_sample (caps {wf._seg_caps(WIDTH * HEIGHT)}):")
+
+        def run(label, fn, sid, ref=None, **kw):
+            """``fn``'s render of sample ``sid``, counted, printed and (with
+            ``ref``) held bit-equal to it."""
+            r = counted(lambda: fn(scene, ndc, org, sid, WIDTH, HEIGHT, **args, **kw))
+            if ref is not None:
+                check(all(torch.equal(a, b) for a, b in zip(r[0], ref)),
+                      f"{name} sample {sid}: {label} != render_sample")
+            print(f"  {label}, sample {sid}{': bit-equal' if ref else ''}: {r[1]:.3f} s, {r[2]} "
+                  f"steps, {r[3]} segments, {r[4]} host reads, dense closest / any "
+                  f"{r[5]['closest']} / {r[5]['any']}")
+            return r[0]
+
+        refs = {sid: run("render_sample", wf.render_sample, sid) for sid in (0, 3)}
+        with patched(wf, _SEG_PREDICT=True):
+            # sample 0 count-driven: the predictor's first frame, below
+            run("count-driven segmented", wf.render_sample_segmented, 3, refs[3])
+            pred = wf.SegmentPredictor()
+            for i, sid in enumerate((0, 3, 0, 3)):
+                kind = "count-driven, seeds the plan" if i == 0 else "predicted"
+                run(f"frame {i} of one predictor ({kind})", wf.render_sample_segmented, sid,
+                    refs[sid], predictor=pred)
+            print(f"  overflows over the 4 frames: {pred.overflows}")
+            check(pred.overflows == 0, f"{name}: a predicted frame overflowed its plan")
+        del scene
+    print(f"  ({card})")
+
+
+def session_run(label, sh, cam, mode, frames, card):
+    """One `InteractiveRenderer` at 1024x576: one warm frame, then
+    ``frames`` timed frames, each ending in ``display(as_uint8=True)``;
+    ``mode`` "moving" orbits and strafes each frame as the JAX fps bench
+    does (``benches/interactive_fps.py:42-48``). Launch and step counts
+    are zeroed just before each frame and read just after; every frame
+    must launch the dense closest and any hit. Returns the run's numbers."""
+    import copy
+
+    from path_tracer_tpu_torch.integrator import wavefront as wf
+    from path_tracer_tpu_torch.interactive import session, taa
+
+    r = session.InteractiveRenderer(sh, copy.deepcopy(cam), WIDTH, HEIGHT,
+                                    max_bounces=MAX_BOUNCES, device=DEVICE)
+    split = {"trace": 0.0, "taa": 0.0, "display": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def step(i):
+        if mode == "moving":
+            r.mouse(2e-4 if i % 2 == 0 else -1.5e-4, 1e-4, 1.0 / 60.0)
+            r.key("w" if i % 4 < 2 else "d", 6e-6)
+        r.frame()
+        t0 = time.perf_counter()
+        img = r.display(as_uint8=True)
+        split["display"] += time.perf_counter() - t0
+        return img
+
+    per = {"steps": [], "segments": [], "reads": [], "closest": [], "any": []}
+    with patched(session, render_sample_segmented=timed("trace", session.render_sample_segmented),
+                 render_sample=timed("trace", session.render_sample)), \
+            patched(taa, frame_update_static=timed("taa", taa.frame_update_static),
+                    frame_update_moving=timed("taa", taa.frame_update_moving)):
+        step(0)
+        for k in split:
+            split[k] = 0.0
+        over0 = r._predictor.overflows
+        total = 0.0
+        for i in range(1, frames + 1):
+            (img, sec, steps, calls, reads, launches) = counted(lambda: step(i))  # noqa: B023
+            total += sec
+            for k, v in (("steps", steps), ("segments", calls), ("reads", reads),
+                         ("closest", launches["closest"]), ("any", launches["any"])):
+                per[k].append(v)
+            check(launches["closest"] > 0 and launches["any"] > 0,
+                  f"{label}: frame {i} launched no dense kernel: {launches}")
+            check(img.shape == (HEIGHT, WIDTH, 3) and img.dtype == np.uint8 and img.any(),
+                  f"{label}: frame {i} image")
+    res = {"fps": frames / total, "ms": 1e3 * total / frames,
+           **{k: 1e3 * v / frames for k, v in split.items()},
+           **{k: sum(v) / frames for k, v in per.items()},
+           "overflows": r._predictor.overflows - over0}
+    rng = lambda k: f"{min(per[k])}-{max(per[k])}"  # noqa: E731
+    print(f"  {label}: {res['fps']:.3f} frames/s, {res['ms']:.1f} ms/frame (trace "
+          f"{res['trace']:.1f}, TAA {res['taa']:.2f}, display {res['display']:.2f} ms); per frame: "
+          f"steps {res['steps']:.1f} ({rng('steps')}), segments {res['segments']:.1f}, host reads "
+          f"{res['reads']:.1f}, dense closest {rng('closest')}, any {rng('any')}; overflows "
+          f"{res['overflows']} in {frames} frames ({card})")
+    return res
+
+
+# the frame schedules (label, module, attributes set for the run)
+SCHEDULES = (("monolithic (PT_INTERACTIVE_SEG=0)", "session", {"_SEGMENTED": False}),
+             ("count-driven", "wavefront", {"_SEG_PREDICT": False}),
+             ("predicted", "wavefront", {"_SEG_PREDICT": True}))
+
+
+def run_schedule(card, sh, cam, schedule, frames):
+    """One static `session_run` under ``schedule`` (an entry of SCHEDULES);
+    returns its ms per frame."""
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.interactive import session
+
+    label, mod, attrs = schedule
+    with patched({"session": session, "wavefront": wavefront}[mod], **attrs):
+        return session_run(f"  {label}", sh, cam, "static", frames, card)["ms"]
+
+
+def phase_schedule_ab(card, sh, cam, frames, rounds):
+    """The frame schedules of SCHEDULES on one scene, static, in turns:
+    each round runs every schedule (one warm frame, then ``frames`` timed),
+    the order reversed every other round; prints each schedule's ms per
+    frame by round and their median. Not part of the default run: a
+    verdict needs many rounds (frames spread by about 30%)."""
+    print(f"  schedule A/B, static, {rounds} round(s) of {frames} frames each after a warm frame:")
+    ms = {label: [] for label, _, _ in SCHEDULES}
+    for k in range(rounds):
+        for sched in (SCHEDULES if k % 2 == 0 else SCHEDULES[::-1]):
+            ms[sched[0]].append(run_schedule(card, sh, cam, sched, frames))
+    for label, v in ms.items():
+        print(f"    {label}: ms/frame by round {[round(x, 1) for x in v]}, median "
+              f"{float(np.median(v)):.1f} ({card})")
+    return ms
+
+
+def phase_interactive(card):
+    """Phase 24: the interactive frame on the card (24a TAA, 24b segmented,
+    then the sessions, and the monolithic and count-driven schedules on
+    cornell_specular static beside the default's run)."""
+    from path_tracer_tpu_torch import scenes
+    from path_tracer_tpu_torch.integrator import wavefront as wf
+    from path_tracer_tpu_torch.interactive import session
+
+    t0 = time.perf_counter()
+    print(f"interactive frame: TAA stages, card against CPU ({WIDTH}x{HEIGHT}):")
+    phase_taa(card)
+    phase_segmented(card)
+    print(f"InteractiveRenderer {WIDTH}x{HEIGHT}, {MAX_BOUNCES} bounces (PT_INTERACTIVE_SEG "
+          f"{int(session._SEGMENTED)}, PT_SEG_PREDICT {int(wf._SEG_PREDICT)}):")
+    hosts, res = {}, {}
+    for name in FRAME_SCENES:
+        hosts[name] = getattr(scenes, name)(aspect=WIDTH / HEIGHT)
+        for mode in ("static", "moving"):
+            res[name, mode] = session_run(f"{name} {mode}", *hosts[name], mode,
+                                          FRAMES if mode == "static" else MOVING_FRAMES, card)
+    print(f"cornell_specular static, other schedules, {OTHER_FRAMES} frames each (one reading "
+          f"beside the default's {res['cornell_specular', 'static']['ms']:.1f} ms/frame above):")
+    for sched in SCHEDULES[:2]:
+        res[sched[0]] = run_schedule(card, *hosts["cornell_specular"], sched, OTHER_FRAMES)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, nargs="+", default=[],
@@ -2187,6 +2489,7 @@ def main(argv=None) -> int:
     rel = abs(means["vwalk"] - baked) / baked
     print(f"  two-level (vwalk) vs baked on the card: mean rel diff {rel:.5f} (limit {MEAN_TOL})")
     check(rel <= MEAN_TOL, rel)
+    phase_interactive(card)
 
     rows = {
         "closest": dense_t["camera"], "any": dense_t["shadow"],

@@ -7,7 +7,10 @@ path regeneration: a lane whose path ends starts its pixel's next sample
 (pinned lanes) or the tile's next undone (pixel, sample) item (the pooled
 work queue). `render_film` traces the film in tiles and spp batches. The
 bounce loop is a Python ``while`` that reads ``alive.any()`` once per
-bounce (one host sync); ``STEPS`` counts the bounce steps.
+bounce (one host sync); ``STEPS`` counts the bounce steps. The interactive
+frame, `render_sample_segmented`, runs the loop in bounded segments and
+compacts the live lanes between them (JAX ``:791-1197``), its schedule
+count-driven or predicted by a `SegmentPredictor`.
 
 RNG: every draw site has a fixed stream id (``_S_*``, as in the JAX
 package); values depend only on (lane, sample, bounce, site), so both
@@ -50,10 +53,17 @@ _S_SCATTER = 10
 _S_CAMERA = 11
 _S_LENS = 12
 
-# Bounce steps (loop iterations) and `trace_lanes` calls since the last
-# reset; a profiler or the smoke zeroes them before a render and reads them
-# after, as it does the kernels' ``LAUNCHES``.
-STEPS = {"bounce": 0, "calls": 0}
+# Bounce steps (loop iterations), `trace_lanes` calls (a segmented frame
+# makes one per segment) and host reads of a device value that steer the
+# loop (each ``alive.any()``, each segment's alive count, a predicted frame's
+# status) since the last reset; a profiler or the smoke zeroes them before
+# a render and reads them after, as it does the kernels' ``LAUNCHES``.
+STEPS = {"bounce": 0, "calls": 0, "reads": 0}
+
+# The loop carry of `trace_lanes` (``return_state``, ``init_state``); a
+# pooled carry adds ``lane`` and ``next_w``.
+STATE_KEYS = ("o", "d", "throughput", "radiance", "accum", "alive", "last_delta", "vol_stack",
+              "b", "s_idx", "position", "first_id", "rays", "rays_strict")
 
 
 def mis_heuristic(f: torch.Tensor, g: torch.Tensor, power: int = HEURISTIC_POWER) -> torch.Tensor:
@@ -299,6 +309,10 @@ def trace_lanes(
     aperture: float = 0.0,
     focus: float = 0.0,
     cam_basis: torch.Tensor | None = None,
+    init_state: dict | None = None,
+    max_steps: int | None = None,
+    return_state: bool = False,
+    sync: bool = True,
 ):
     """Trace ``spp`` path samples per film lane (lane = y*width + x, y
     bottom-up, int64 ids) with path regeneration: when a lane's path ends
@@ -323,6 +337,16 @@ def trace_lanes(
     position and model id; and per lane the count of traversal queries
     issued (column 0: closest hits + both NEE shadow rays + the lights
     pretest; column 1: without the pretest).
+
+    Segment hooks (JAX ``:347-349``, ``:481-488``, ``:711-725``): the loop
+    carry is the dict of `STATE_KEYS` (plus ``lane`` and ``next_w`` when
+    pooled). ``init_state`` resumes from such a dict instead of fresh
+    camera rays (pinned lanes only); ``max_steps`` bounds the bounce steps
+    of this call; ``return_state`` returns the carry instead of the
+    outputs. The loop reads ``alive.any()`` on the host before each step;
+    ``sync=False`` (with ``max_steps``) skips that read and runs exactly
+    ``max_steps`` steps: a step with no live lane changes nothing, so the
+    outputs are the same bits either way.
     """
     n = lane.shape[0]
     dev = lane.device
@@ -361,32 +385,49 @@ def trace_lanes(
             return o2, d2 / nrm[:, None]
         return o, d
 
-    if pool:
-        lane0 = int(lane[0])
-        if not torch.equal(lane, torch.arange(lane0, lane0 + n, dtype=lane.dtype, device=dev)):
-            raise ValueError("pool mode needs contiguous lane ids")
-        per = max(int(spp), 1)
-        total_work = n * int(spp)
-        w0 = torch.arange(n, dtype=torch.int64, device=dev)
-        lane = lane0 + w0 // per  # the pixel each lane traces now
-        s_idx = base + w0 % per
-        next_w = n  # items 0..n-1 are in flight
+    if not sync and max_steps is None:
+        raise ValueError("sync=False needs max_steps")
+    if init_state is not None:
+        # resume mid-path (JAX :481-488): RNG draws are keyed on (lane,
+        # sample, bounce, site), so the resumed steps are the uninterrupted
+        # loop's
+        if pool:
+            raise ValueError("init_state resumes pinned lanes only")
+        (o, d, throughput, radiance, accum, alive, last_delta, vol_stack, b, s_idx, position,
+         first_id, rays, rays_strict) = (init_state[k] for k in STATE_KEYS)
     else:
-        s_idx = torch.full((n,), base, dtype=torch.int64, device=dev)
-    o, d = camera_rays(s_idx, lane)
-    throughput = torch.ones((n, 3), dtype=f32, device=dev)
-    radiance = torch.zeros((n, 3), dtype=f32, device=dev)  # current sample
-    accum = torch.zeros((n, 3), dtype=f32, device=dev)  # flushed samples
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    last_delta = torch.zeros(n, dtype=torch.bool, device=dev)
-    vol_stack = torch.full((n, VOLUME_STACK_DEPTH), -1, dtype=torch.int32, device=dev)
-    b = torch.zeros(n, dtype=torch.int64, device=dev)
-    position = torch.cat([o + d * 1e5, torch.full((n, 1), 1e5, dtype=f32, device=dev)], dim=1)
-    first_id = torch.full((n,), 0xFF, dtype=torch.int64, device=dev)
-    rays = torch.zeros(n, dtype=f32, device=dev)
-    rays_strict = torch.zeros(n, dtype=f32, device=dev)
+        if pool:
+            lane0 = int(lane[0])
+            if not torch.equal(lane, torch.arange(lane0, lane0 + n, dtype=lane.dtype, device=dev)):
+                raise ValueError("pool mode needs contiguous lane ids")
+            per = max(int(spp), 1)
+            total_work = n * int(spp)
+            w0 = torch.arange(n, dtype=torch.int64, device=dev)
+            lane = lane0 + w0 // per  # the pixel each lane traces now
+            s_idx = base + w0 % per
+            next_w = n  # items 0..n-1 are in flight
+        else:
+            s_idx = torch.full((n,), base, dtype=torch.int64, device=dev)
+        o, d = camera_rays(s_idx, lane)
+        throughput = torch.ones((n, 3), dtype=f32, device=dev)
+        radiance = torch.zeros((n, 3), dtype=f32, device=dev)  # current sample
+        accum = torch.zeros((n, 3), dtype=f32, device=dev)  # flushed samples
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        last_delta = torch.zeros(n, dtype=torch.bool, device=dev)
+        vol_stack = torch.full((n, VOLUME_STACK_DEPTH), -1, dtype=torch.int32, device=dev)
+        b = torch.zeros(n, dtype=torch.int64, device=dev)
+        position = torch.cat([o + d * 1e5, torch.full((n, 1), 1e5, dtype=f32, device=dev)], dim=1)
+        first_id = torch.full((n,), 0xFF, dtype=torch.int64, device=dev)
+        rays = torch.zeros(n, dtype=f32, device=dev)
+        rays_strict = torch.zeros(n, dtype=f32, device=dev)
 
-    while bool(alive.any()):
+    def live():
+        STEPS["reads"] += 1
+        return bool(alive.any())
+
+    steps = 0
+    while (max_steps is None or steps < max_steps) and (not sync or live()):
+        steps += 1
         STEPS["bounce"] += 1
         was_alive = alive
 
@@ -548,6 +589,12 @@ def trace_lanes(
         b = torch.where(regen, 0, b)
         alive = alive | regen
 
+    if return_state:
+        state = dict(zip(STATE_KEYS, (o, d, throughput, radiance, accum, alive, last_delta,
+                                      vol_stack, b, s_idx, position, first_id, rays, rays_strict)))
+        if pool:
+            state.update(lane=lane, next_w=next_w)
+        return state
     rays2 = torch.stack([rays, rays_strict], dim=1)
     if pool:
         return accum, torch.zeros_like(position), torch.zeros_like(first_id), rays2
@@ -581,6 +628,269 @@ def render_sample(
         spp=spp, mtypes=mtypes, any_volumes=any_volumes,
         aperture=aperture, focus=focus, cam_basis=cam_basis,
     )
+
+
+# ---------------------------------------------------------------------------
+# Interactive dead-lane compaction (JAX ``:791-1197``).
+#
+# At 1 spp a frame, pinned, a lane whose path ends has no next sample to
+# start, so it rides the film's bounce loop until the last glass path ends.
+# `render_sample_segmented` runs the loop in bounded segments and between
+# them stable-partitions the live lanes into a smaller buffer, picked from a
+# fixed menu of sizes (`_seg_caps`). The knobs and the schedule are the JAX
+# package's, with its environment names and defaults; see JAX ``:797-861``
+# for how each default was chosen. Not ported: the XLA warm-up (eager torch
+# compiles nothing per shape).
+
+# Both at least 1: a zero-step first segment would return the miss sentinel
+# for position/first_id (read from segment 0 only), and a zero-step
+# continuation would loop forever without retiring lanes.
+_SEG_B0 = max(1, int(os.environ.get("PT_SEG_B0", "1")))
+_SEG_STEPS = max(1, int(os.environ.get("PT_SEG_STEPS", "3")))
+_SEG_BIG_STEPS = max(1, int(os.environ.get("PT_SEG_BIG_STEPS", "1")))
+_SEG_TAIL_AT = int(os.environ.get("PT_SEG_TAIL_AT", "2560"))
+_SEG_TAIL_STEPS = max(1, int(os.environ.get("PT_SEG_TAIL_STEPS", "24")))
+# Temporal schedule prediction (`SegmentPredictor`): a frame runs its whole
+# segment chain from the previous frame's alive counts and reads one status
+# vector at its end instead of a count between segments; an overflow
+# re-renders the sample count-driven. PT_SEG_MARGIN is the headroom on the
+# observed counts when planning the next frame's buffers. The default (on)
+# is the JAX package's: on an NVIDIA H100 80GB HBM3 at 700 W the predicted,
+# count-driven and monolithic schedules differed by less than their frames'
+# spread (PERF.md section 7), so the card did not decide it.
+_SEG_PREDICT = os.environ.get("PT_SEG_PREDICT", "1") != "0"
+_SEG_MARGIN = float(os.environ.get("PT_SEG_MARGIN", "1.05"))
+
+
+def _seg_caps(n: int) -> list:
+    """Static buffer-size menu: a 3n/8 early slot, then quarters of the
+    film, 256-lane aligned, floored at 2048 (JAX ``:864``)."""
+    caps, c = [], n
+    early = -(-((3 * n) // 8) // 256) * 256
+    if 2048 < early < n:
+        caps.append(early)
+    while c > 2048:
+        c = max(2048, -(-(c // 4) // 256) * 256)
+        if not caps or caps[-1] > c:
+            caps.append(c)
+        elif c >= caps[-1]:
+            break
+    return caps
+
+
+def _seg_steps_for(size: int, n: int) -> int:
+    """Bounce steps for a segment at buffer ``size`` of an ``n``-lane film
+    (JAX ``:886``): PT_SEG_BIG_STEPS above n/4, PT_SEG_TAIL_STEPS at sizes
+    up to PT_SEG_TAIL_AT, PT_SEG_STEPS between."""
+    if size <= _SEG_TAIL_AT:
+        return _SEG_TAIL_STEPS
+    if size * 4 > n:
+        return _SEG_BIG_STEPS
+    return _SEG_STEPS
+
+
+def _seg_compact(s: dict, lane: torch.Tensor, cap: int):
+    """Stable-partition the live lanes to the front and keep ``cap`` rows of
+    every carry tensor. The caller guarantees ``cap`` >= the alive count,
+    so no live lane is dropped; the padding rows are real dead lanes, so
+    each row belongs to one film lane and the scatter back writes unique
+    rows. The key is a ``uint8`` (a sort on ``bool`` differs by backend),
+    and nothing is read back to the host."""
+    order = torch.argsort((~s["alive"]).to(torch.uint8), stable=True)[:cap]
+    return {k: v.index_select(0, order) for k, v in s.items()}, lane.index_select(0, order)
+
+
+def _seg_scatter(rad, rays, rays_strict, s, lane):
+    """Write a segment buffer's running per-lane totals back to film rows
+    (new tensors: a predicted frame keeps its inputs for a fallback)."""
+    return (rad.index_copy(0, lane, s["accum"]), rays.index_copy(0, lane, s["rays"]),
+            rays_strict.index_copy(0, lane, s["rays_strict"]))
+
+
+def _seg_count(alive: torch.Tensor) -> torch.Tensor:
+    """Live lanes, as a device scalar."""
+    return alive.sum()
+
+
+def _seg_status(counts: list, final: torch.Tensor, caps: tuple) -> torch.Tensor:
+    """A predicted frame's boundary counts folded into one device vector,
+    ``[counts..., final_alive, overflow]`` (JAX ``:924``): ``overflow`` is
+    1 when a boundary count exceeded its planned cap (a compaction dropped
+    live lanes) or lanes outlived the last planned segment."""
+    cnt = torch.stack(counts)
+    over = (cnt > torch.tensor(caps, dtype=cnt.dtype, device=cnt.device)).any() | (final > 0)
+    return torch.cat([cnt, final.reshape(1), over.to(cnt.dtype).reshape(1)])
+
+
+class SegmentPredictor:
+    """Per-session schedule state for `render_sample_segmented` (JAX
+    ``:937``). ``plan``: the predicted ``(cap, steps)`` sequence of the
+    segments after the first (None: the next frame runs count-driven and
+    seeds it); ``key``: the configuration the plan was built for;
+    ``overflows``: fallback re-renders."""
+
+    __slots__ = ("plan", "key", "overflows")
+
+    def __init__(self):
+        self.plan = None
+        self.key = None
+        self.overflows = 0
+
+
+def _plan_from_counts(counts, n, caps):
+    """Next frame's ``(cap, steps)`` sequence from this frame's boundary
+    counts (JAX ``:962``). ``steps`` comes from the unmargined cap (the one
+    the count-driven schedule picks for the observed count), so the plan
+    runs the observed bounce trajectory. The margin (PT_SEG_MARGIN, 1.05)
+    enlarges the buffer one menu level when the count lies within 5% of a
+    cap (the JAX docstring says 25%; its shipped margin is 1.05, ported
+    here): more work for that segment, the same trajectory, no overflow
+    from frame-to-frame drift. The sequence stops at the first zero count;
+    one guard segment at the last ``(cap, steps)`` absorbs lanes that
+    outlive the last frame's final bounce."""
+    plan = []
+    cur = n
+    for cnt in counts:
+        if cnt <= 0:
+            break
+        want = int(cnt * _SEG_MARGIN)
+        base = cap = cur
+        for c in caps:
+            if cnt <= c < base:
+                base = c
+            if want <= c < cap:
+                cap = c
+        cap = min(cap, cur)
+        plan.append((cap, _seg_steps_for(base, n)))
+        cur = cap
+    if plan:
+        plan.append(plan[-1])
+    return tuple(plan)
+
+
+def _seg_scene_key(scene: dict, prefix: str = "") -> tuple:
+    """Shape and dtype fingerprint of a scene's tensor dict (JAX ``:1003``):
+    a plan is tied to the tables it was measured on."""
+    key = []
+    for name in sorted(scene):
+        v, path = scene[name], f"{prefix}/{name}"
+        if isinstance(v, dict):
+            key.extend(_seg_scene_key(v, path))
+        else:
+            key.append((path, tuple(getattr(v, "shape", ())), str(getattr(v, "dtype", type(v)))))
+    return tuple(key)
+
+
+def _read_counts(t: torch.Tensor) -> list:
+    STEPS["reads"] += 1
+    return t.tolist()
+
+
+def render_sample_segmented(
+    scene: dict,
+    ndc_to_world: torch.Tensor,
+    cam_origin: torch.Tensor,
+    sample_id: int,
+    width: int,
+    height: int,
+    max_bounces: int = MAX_BOUNCES,
+    enable_nee: bool = True,
+    has_lights: bool = True,
+    mtypes: tuple = bsdf_mod.ALL_MTYPES,
+    any_volumes: bool = True,
+    aperture: float = 0.0,
+    focus: float = 0.0,
+    cam_basis=None,
+    predictor: SegmentPredictor | None = None,
+):
+    """`render_sample` (1 spp, pinned) with dead-lane segmented compaction
+    (JAX ``:1023``): the same bits on every output, since RNG draws are
+    keyed on (lane, sample, bounce, site) and compaction only moves whole
+    lane rows. Count-driven, the host reads the alive count between
+    segments to pick the next buffer size from `_seg_caps`.
+
+    With a ``predictor`` (and PT_SEG_PREDICT on), a frame after the first
+    runs the whole segment chain from the previous frame's plan with no
+    count read between segments; one status read at its end accepts the
+    outputs or, on an overflow, re-renders the sample count-driven."""
+    n = width * height
+    lane = torch.arange(n, dtype=torch.int64, device=ndc_to_world.device)
+    common = dict(max_bounces=max_bounces, enable_nee=enable_nee, has_lights=has_lights, spp=1,
+                  mtypes=mtypes, any_volumes=any_volumes, aperture=aperture, focus=focus,
+                  cam_basis=cam_basis, return_state=True)
+
+    def segment(s, ln, cur, steps):
+        # Only a tail segment (<= PT_SEG_TAIL_AT lanes) reads ``alive.any()``
+        # before each step: its PT_SEG_TAIL_STEPS steps would otherwise all
+        # run after the last lane died, where the JAX loop tests its
+        # condition on the device for free. The bits are the same either way.
+        return trace_lanes(scene, ndc_to_world, cam_origin, sample_id, ln, width, height,
+                           init_state=s, max_steps=steps, sync=cur <= _SEG_TAIL_AT, **common)
+
+    s = trace_lanes(scene, ndc_to_world, cam_origin, sample_id, lane, width, height,
+                    max_steps=_SEG_B0, **common)
+    rad, position, first_id = s["accum"], s["position"], s["first_id"]
+    rays, rays_strict = s["rays"], s["rays_strict"]
+    caps = _seg_caps(n)
+
+    def exact_loop(s, lane, rad, rays, rays_strict):
+        """Count-driven schedule: one count read per segment. Returns the
+        outputs and the boundary counts (the plan's seed)."""
+        counts = []
+        cur = n
+        while True:
+            (cnt,) = _read_counts(_seg_count(s["alive"]).reshape(1))
+            counts.append(cnt)
+            if cnt == 0:
+                break
+            cap = cur
+            for c in caps:
+                if cnt <= c < cap:
+                    cap = c
+            if cap < cur:
+                s, lane = _seg_compact(s, lane, cap)
+                cur = cap
+            s = segment(s, lane, cur, _seg_steps_for(cur, n))
+            rad, rays, rays_strict = _seg_scatter(rad, rays, rays_strict, s, lane)
+        return rad, rays, rays_strict, counts
+
+    # every input that shapes the schedule or the segments (JAX :1074-1079)
+    key = (_seg_scene_key(scene), width, height, tuple(caps), _SEG_B0, _SEG_STEPS,
+           _SEG_BIG_STEPS, _SEG_TAIL_AT, _SEG_TAIL_STEPS, _SEG_MARGIN, mtypes,
+           max_bounces, enable_nee, has_lights, any_volumes, aperture, focus,
+           None if cam_basis is None else tuple(cam_basis.shape))
+    use_predict = predictor is not None and _SEG_PREDICT
+    plan = predictor.plan if use_predict and predictor.key == key else None
+    if plan:
+        counts = []
+        cur = n
+        ps, plane = s, lane
+        prad, prays, pstrict = rad, rays, rays_strict
+        for cap, steps in plan:
+            counts.append(_seg_count(ps["alive"]))
+            cap = min(cap, cur)
+            if cap < cur:
+                ps, plane = _seg_compact(ps, plane, cap)
+                cur = cap
+            ps = segment(ps, plane, cur, steps)
+            prad, prays, pstrict = _seg_scatter(prad, prays, pstrict, ps, plane)
+        st = _read_counts(_seg_status(counts, _seg_count(ps["alive"]),
+                                      tuple(min(c, n) for c, _ in plan)))
+        if st[-1] == 0:
+            rad, rays, rays_strict = prad, prays, pstrict
+            predictor.plan = _plan_from_counts(st[:-2], n, caps)
+        else:
+            # a boundary overflowed its cap or lanes outlived the plan: the
+            # predicted outputs may miss live lanes; render the sample again
+            predictor.overflows += 1
+            rad, rays, rays_strict, counts = exact_loop(s, lane, rad, rays, rays_strict)
+            predictor.plan = _plan_from_counts(counts, n, caps)
+    else:
+        rad, rays, rays_strict, counts = exact_loop(s, lane, rad, rays, rays_strict)
+        if use_predict:
+            predictor.plan = _plan_from_counts(counts, n, caps)
+            predictor.key = key
+    return rad, position, first_id, torch.stack([rays, rays_strict], dim=1)
 
 
 # `render_film`'s defaults: film lanes per `trace_lanes` call (None: the

@@ -179,15 +179,9 @@ def empty_cuda(dev) -> None:
 def other_probe(lib: ctypes.CDLL, csrc: Path) -> SimpleNamespace:
     """Wrappers ``row(table, idx)`` and ``tile(x, idx, axis, reps)`` of
     another tree's probe kernels: ``lib``, its ``gather_probe.cu`` built
-    from ``csrc``. Their launches are not counted. A tree whose
-    ``tile_gather`` still takes its tables per block (``tb``; before the
-    kernel split each table's entries over blocks) gets the launch its own
-    wrapper made."""
-    decl = (csrc / "gather_probe.cu").read_text().split('extern "C" int tile_gather(')[1]
-    takes_tb = "int tb" in decl.split(")")[0]
+    from ``csrc``. Their launches are not counted."""
     lib.row_gather.argtypes, lib.row_gather.restype = _ROW_ARGS, ctypes.c_int
-    lib.tile_gather.argtypes = [_I, _P, _P, *[_I] * 6, _P, _P] if takes_tb else _TILE_ARGS
-    lib.tile_gather.restype = ctypes.c_int
+    lib.tile_gather.argtypes, lib.tile_gather.restype = _TILE_ARGS, ctypes.c_int
 
     def tile(x, idx, axis: int, reps: int = 1) -> torch.Tensor:
         dev = _tile_check(x, idx, axis, reps)
@@ -195,15 +189,8 @@ def other_probe(lib: ctypes.CDLL, csrc: Path) -> SimpleNamespace:
         out = torch.empty_like(x)
         if out.numel() == 0:
             return out
-        if takes_tb:
-            n_tables, length = (cols, rows) if axis == 0 else (rows, cols)
-            st, se = (1, cols) if axis == 0 else (cols, 1)
-            tb = max(1, min(n_tables, MAX_LEN // length))
-            args = (n_tables, length, st, se, tb, reps)
-        else:
-            args = (rows, cols, axis, reps)
-        _raise_on(lib.tile_gather(dev.index, x.data_ptr(), idx.data_ptr(), *args, out.data_ptr(),
-                                  _stream(dev)), "other tile_gather")
+        _raise_on(lib.tile_gather(dev.index, x.data_ptr(), idx.data_ptr(), rows, cols, axis, reps,
+                                  out.data_ptr(), _stream(dev)), "other tile_gather")
         return out
 
     def row(table, idx) -> torch.Tensor:
