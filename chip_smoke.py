@@ -111,7 +111,7 @@ Phases (any failure raises and the script exits non-zero without the final
     bounces (stream launches > 0, walk 0), then the same render through the
     walk in process (sample 0, the same seeds): image means within 1%;
 19. ``dragon_scene(nu=96, nv=64, env_h=64)`` with ``engine="stream"`` at
-    32x32, 2 spp, 16 bounces on the CPU and on the card: image means within
+    32x32, 1 spp, 16 bounces on the CPU and on the card: image means within
     1%;
 20. the gather probes (``python -m path_tracer_tpu_torch.probes.gather``):
     row gather and in-tile gather kernels equal to their plain and library
@@ -166,8 +166,26 @@ Phases (any failure raises and the script exits non-zero without the final
     frame, monolithic (``PT_INTERACTIVE_SEG=0``) and count-driven beside
     the default's run (one reading, not an A/B: `phase_schedule_ab` runs
     the three schedules in alternating rounds, called on its own).
+25. multi-card rendering (``path_tracer_tpu_torch/parallel/mesh.py``):
+    one-process references on the card (``render_sample``); ``cli
+    --multichip`` at 1024x576, 1 spp on mesh_scene (a rank per visible
+    card) against them; (a) a group of one over NCCL in this process:
+    tile-sharded mesh_scene 1 spp and spp-sharded 2 spp against one and
+    two sequential samples; (b) two spawned ranks on this card over gloo
+    (NCCL refuses two ranks on one card): mesh_scene tile 1 spp and spp
+    2 x 1 spp, ``many_instance_scene --two-level`` tile at 1920x1080 (config
+    5's film, vwalk), 2 sharded frames of ``cornell_specular`` (the
+    second predicted) and a 2-frame ``InteractiveRenderer(group=...)``
+    session on it (a camera move on rank 0 alone before the second frame)
+    against one process's session; tile, frames and the session's
+    accumulation within rtol 1e-5, atol 1e-6 (the lanes or pixels that
+    differ at all printed; ids equal), spp within rtol 1e-6;
+    each rank's trace seconds, all_gather and all_reduce ms, the rank skew
+    and the launches (each > 0) beside the one-process seconds of the same
+    samples; (c) with two cards or more, (b) over NCCL with a rank on every
+    card, else a line says it did not run.
 
-Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24.
+Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24, 25.
 Each render's launch counts
 (and the probes', and each frame's) are set to 0 just before it and read
 just after. The
@@ -2351,6 +2369,326 @@ def phase_interactive(card):
     return res
 
 
+# --- multi-card rendering (phase 25) ---
+
+SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6  # tile-sharded and sharded frames against one process
+SPP_RTOL = 1e-6  # spp-sharded sums against the sequential samples
+# (case, scene) of the sharded runs: (a) runs the first two in a group of one
+SHARD_CASES = (("tile", "mesh_scene"), ("spp", "mesh_scene"), ("tile", "many_instance_scene"),
+               ("frames", "cornell_specular"), ("session", "cornell_specular"))
+SHARD_FILMS = {"mesh_scene": (WIDTH, HEIGHT), "many_instance_scene": (MANY_W, MANY_H),
+               "cornell_specular": (WIDTH, HEIGHT)}
+SHARD_KERNELS = {"mesh_scene": ("closest", "any"), "cornell_specular": ("closest", "any"),
+                 "many_instance_scene": ("vwalk_closest", "vwalk_any")}
+SHARD_FRAMES = 2  # sharded frames of one predictor: count-driven, then predicted
+
+
+def shard_hosts():
+    """Phase 25's host scenes by name (many_instance_scene two-level)."""
+    from path_tracer_tpu_torch import scenes
+
+    return {name: getattr(scenes, name)(aspect=w / h, two_level=name == "many_instance_scene")
+            for name, (w, h) in SHARD_FILMS.items()}
+
+
+@contextlib.contextmanager
+def timed_collectives(times):
+    """Time every ``all_gather``, ``all_reduce`` and ``broadcast`` (host
+    clock between synchronizations of this rank's card) into
+    ``times[name]`` (ms)."""
+    import torch.distributed as dist
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    with patched(dist, all_gather=wrap("all_gather", dist.all_gather),
+                 all_reduce=wrap("all_reduce", dist.all_reduce),
+                 broadcast=wrap("broadcast", dist.broadcast)):
+        yield
+
+
+def warm_up(hosts, dev, scenes_on, render, gather=None):
+    """An untimed mesh_scene render at 64x32, 4 bounces (and a gather of
+    it): the kernels' libraries, the allocator and a group's first
+    collective (NCCL sets its communicator up there) start before any
+    timing. Uploads mesh_scene into ``scenes_on``."""
+    sh, cam = hosts["mesh_scene"]
+    scenes_on["mesh_scene"] = scene = sh.device(dev)
+    out = render(scene, torch.as_tensor(cam.view_proj_inverse(), device=dev),
+                 torch.as_tensor(cam.origin, device=dev), 0, 64, 32, max_bounces=4,
+                 mtypes=sh.active_mtypes, any_volumes=sh.has_volumes)[0]
+    if gather is not None:
+        gather(out)
+    torch.cuda.synchronize()
+
+
+def session_moves(r, lead):
+    """Phase 25's session input: a static frame, then (``lead``: the rank
+    or process that takes the input) a mouse move and a step forward and a
+    frame on the TAA path. Returns (accumulation, ids)."""
+    r.frame()
+    if lead:
+        r.mouse(2e-4, 1e-4, 1.0 / 60.0)
+        r.key("w", 6e-6)
+    r.frame()
+    return r.accumulation, r.ids
+
+
+def shard_run(hosts, dev, cases):
+    """Phase 25's ``cases`` as one rank of the default group on ``dev``:
+    per case this rank's trace seconds (its collectives' time taken out),
+    the ms of each all_gather, all_reduce and broadcast, the launches of the case's
+    kernels (zeroed just before, read just after; each must be > 0), and
+    on rank 0 the gathered outputs on the host: tile (radiance, rays),
+    spp (the all-reduced sum), frames (radiance and first ids of each),
+    session (rank 0's accumulation and ids after `session_moves`)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from path_tracer_tpu_torch.interactive.session import InteractiveRenderer
+
+    from path_tracer_tpu_torch.integrator import wavefront as wf
+    from path_tracer_tpu_torch.parallel import mesh
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    scenes_on = {}
+    res = {}
+    warm_up(hosts, dev, scenes_on, mesh.render_sample_sharded, mesh.gather_lanes)
+    for case, name in cases:
+        sh, cam = hosts[name]
+        if name not in scenes_on:
+            scenes_on[name] = sh.device(dev)
+        scene = scenes_on[name]
+        w, h = SHARD_FILMS[name]
+        ndc = torch.as_tensor(cam.view_proj_inverse(), device=dev)
+        org = torch.as_tensor(cam.origin, device=dev)
+        kw = dict(max_bounces=MAX_BOUNCES, has_lights="light" in scene, mtypes=sh.active_mtypes,
+                  any_volumes=sh.has_volumes)
+        if case == "session":
+            sess = InteractiveRenderer(sh, copy.deepcopy(cam), w, h, max_bounces=MAX_BOUNCES,
+                                       device=dev, group=dist.group.WORLD)
+        times = {"all_gather": [], "all_reduce": [], "broadcast": []}
+        LAUNCHES = zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_collectives(times):
+            if case == "tile":
+                rad, rays = mesh.render_sample_sharded(scene, ndc, org, 0, w, h, **kw)
+                out = mesh.gather_lanes(torch.cat([rad, rays], dim=1))
+                out = (out[:, :3], out[:, 3:])
+            elif case == "spp":
+                out = (mesh.render_spp_sharded(scene, ndc, org, 0, w, h, spp=2 // world or 1,
+                                               **kw),)
+            elif case == "session":
+                out = session_moves(sess, rank == 0)
+            else:
+                pred = wf.SegmentPredictor()
+                out = ()
+                for sid in range(SHARD_FRAMES):
+                    rad, _, fid, _ = mesh.frame_segmented_sharded(scene, ndc, org, sid, w, h,
+                                                                  predictor=pred, **kw)
+                    out += (rad, fid)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in SHARD_KERNELS[name]}
+        check(all(v > 0 for v in launches.values()),
+              f"rank {rank} {case} {name}: no kernel launch {launches}")
+        res[case, name] = {
+            "trace_s": seconds - 1e-3 * sum(sum(v) for v in times.values()),
+            **times, "launches": launches,
+            "out": tuple(x.cpu() for x in out) if rank == 0 else None,
+        }
+        del out
+    return res
+
+
+def shard_rank(i, world, store, out_dir, backend, same_card, hosts, cases):
+    """A spawned rank of phase 25 (b) / (c): join the group through the
+    FileStore at ``store`` (rank ``i`` on cuda:0 with ``same_card``, else
+    on cuda:i), run ``cases``, save its results to ``out_dir``."""
+    import torch.distributed as dist
+
+    from path_tracer_tpu_torch.parallel.mesh import make_group
+
+    dev = make_group(f"cuda:{0 if same_card else i}", backend=backend,
+                     store=dist.FileStore(store, world), rank=i, world_size=world)
+    try:
+        res = shard_run(hosts, dev, cases)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, Path(out_dir) / f"rank{i}.pt")
+
+
+def hold_sharded(label, res, refs, world):
+    """Hold rank 0's gathered outputs of each case against the
+    single-process ``refs``, and print every rank's numbers beside the
+    one-process seconds."""
+    for key, r0 in res[0].items():
+        case, name = key
+        got = r0["out"]
+        samples = {"tile": 1, "spp": world * (2 // world or 1), "frames": SHARD_FRAMES,
+                   "session": 0}[case]
+        if case == "tile":
+            want = refs["sample", name, 0]
+            diff = int((got[0] != want[0]).any(dim=1).sum())
+            err = (got[0] - want[0]).abs().max().item()
+            ok = torch.allclose(got[0], want[0], rtol=SHARD_RTOL, atol=SHARD_ATOL)
+            what = (f"{diff} of {want[0].shape[0]} lanes differ at all, max |diff| {err:.3g}, "
+                    f"rays {got[1][:, 0].sum().item():.0f} against "
+                    f"{want[1][:, 0].sum().item():.0f}")
+        elif case == "spp":
+            per = 2 // world or 1
+            want = torch.zeros_like(got[0])
+            for s in range(samples):
+                want[:, :3] += refs["sample", name, s][0]
+            want[:, 3] = samples
+            err = ((got[0] - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+            ok = torch.allclose(got[0], want, rtol=SPP_RTOL, atol=0.0)
+            what = (f"{world} rank(s) x {per} spp against {samples} sequential samples: "
+                    f"max rel diff {err:.3g}")
+        elif case == "session":
+            acc, ids = refs["session"][:2]
+            diff = int((got[0] != acc).any(dim=-1).sum())
+            ok = (torch.allclose(got[0], acc, rtol=SHARD_RTOL, atol=SHARD_ATOL)
+                  and torch.equal(got[1], ids))
+            what = (f"2 frames (the second moved, input on rank 0 only): {diff} pixels of the "
+                    f"accumulation differ, ids {'equal' if torch.equal(got[1], ids) else 'DIFFER'}"
+                    f" (against one process's session)")
+        else:
+            oks, what = [], []
+            for f in range(SHARD_FRAMES):
+                want = refs["sample", name, f]
+                rad, fid = got[2 * f], got[2 * f + 1]
+                diff = int((rad != want[0]).any(dim=1).sum())
+                oks.append(torch.allclose(rad, want[0], rtol=SHARD_RTOL, atol=SHARD_ATOL)
+                           and torch.equal(fid, want[2]))
+                what.append(f"frame {f} ({'predicted' if f else 'count-driven'}): {diff} lanes "
+                            f"differ, ids {'equal' if torch.equal(fid, want[2]) else 'DIFFER'}")
+            ok, what = all(oks), "; ".join(what)
+        w, h = SHARD_FILMS[name]
+        one = (refs["session"][2] if case == "session"
+               else sum(refs["seconds", name, k] for k in range(samples)))
+        ranks = ", ".join(
+            f"rank {k}: trace {r[key]['trace_s']:.3f} s, all_gather "
+            f"{[round(x, 2) for x in r[key]['all_gather']]} ms, all_reduce "
+            f"{[round(x, 2) for x in r[key]['all_reduce']]} ms, "
+            + (f"broadcast {[round(x, 2) for x in r[key]['broadcast']]} ms, "
+               if r[key]["broadcast"] else "")
+            + f"launches {r[key]['launches']}"
+            for k, r in enumerate(res))
+        skew = max(r[key]["trace_s"] for r in res) - min(r[key]["trace_s"] for r in res)
+        print(f"  {label} {case} {name} {w}x{h}: {what}; {ranks}; rank skew {skew:.3f} s; one "
+              f"process, the same work: {one:.3f} s")
+        check(ok, f"phase 25 {label} {case} {name}: sharded against one process")
+
+
+def phase_sharded(card):
+    """Phase 25: multi-card rendering (``parallel/mesh.py``). First
+    ``cli --multichip`` (a rank on each visible card) against
+    ``render_sample``; (a) a group of one over NCCL in this process:
+    tile-sharded mesh_scene 1 spp against ``render_sample``, spp-sharded 2
+    spp against the sum of two sequential samples; (b) two ranks on this
+    card over gloo (NCCL refuses two ranks on one card; chosen here, not a
+    fallback): tile and spp (2 x 1 spp) mesh_scene, tile-sharded
+    many_instance_scene --two-level at 1920x1080 (config 5's film, vwalk),
+    2 sharded frames of cornell_specular (the second predicted) and a
+    2-frame sharded session on it (`session_moves`: rank 0 alone takes the
+    input, the others get it by the frame's broadcast), each against this
+    process's single-process result on the same card; (c) with two cards
+    or more, (b) over NCCL with a rank on each card."""
+    import copy
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from path_tracer_tpu_torch import cli
+    from path_tracer_tpu_torch.interactive.session import InteractiveRenderer
+    from path_tracer_tpu_torch.integrator import wavefront as wf
+    from path_tracer_tpu_torch.parallel.mesh import make_group
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    hosts = shard_hosts()
+    refs, scenes_on = {}, {}
+    warm_up(hosts, DEVICE, scenes_on, wf.render_sample)
+    for name, (sh, cam) in hosts.items():
+        w, h = SHARD_FILMS[name]
+        scene = scenes_on.pop(name, None) or sh.device(DEVICE)
+        ndc = torch.as_tensor(cam.view_proj_inverse(), device=DEVICE)
+        org = torch.as_tensor(cam.origin, device=DEVICE)
+        samples = {"mesh_scene": max(2, n_cards), "cornell_specular": SHARD_FRAMES}.get(name, 1)
+        for s in range(samples):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rad, _, fid, rays = wf.render_sample(
+                scene, ndc, org, s, w, h, max_bounces=MAX_BOUNCES, has_lights="light" in scene,
+                mtypes=sh.active_mtypes, any_volumes=sh.has_volumes)
+            torch.cuda.synchronize()
+            refs["seconds", name, s] = time.perf_counter() - t0
+            refs["sample", name, s] = (rad.cpu(), rays.cpu(), fid.cpu())
+        del scene
+    sh, cam = hosts["cornell_specular"]
+    r = InteractiveRenderer(sh, copy.deepcopy(cam), *SHARD_FILMS["cornell_specular"],
+                            max_bounces=MAX_BOUNCES, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, ids = session_moves(r, True)
+    torch.cuda.synchronize()
+    refs["session"] = (acc.cpu(), ids.cpu(), time.perf_counter() - t0)
+    del r
+    print(f"multi-card rendering: one-process references {time.perf_counter() - t_phase:.1f} s "
+          f"({n_cards} card(s))")
+
+    LAUNCHES = zero_launches()
+    t0 = time.perf_counter()
+    res = cli.main(["--scene", "mesh_scene", "--width", str(WIDTH), "--height", str(HEIGHT),
+                    "--spp", "1", "--max-bounces", str(MAX_BOUNCES), "--device", DEVICE,
+                    "--out", str(OUT_DIR / "smoke_multichip.png"), "--multichip"])
+    seconds = time.perf_counter() - t0
+    want = refs["sample", "mesh_scene", 0][0]
+    got = res["film"][..., :3].reshape(-1, 3).cpu()
+    diff = int((got != want).any(dim=1).sum())
+    print(f"  cli --multichip mesh_scene {WIDTH}x{HEIGHT} 1 spp, {res['ranks']} rank(s): "
+          f"{seconds:.2f} s end to end, trace {res['trace_s']:.3f} s, {diff} lanes differ from "
+          f"render_sample, rank 0 launches closest / any {LAUNCHES['closest']} / {LAUNCHES['any']}")
+    check(res["ranks"] == n_cards and LAUNCHES["closest"] > 0 and LAUNCHES["any"] > 0,
+          f"cli --multichip: {res['ranks']} ranks, launches {dict(LAUNCHES)}")
+    check(torch.allclose(got, want, rtol=SHARD_RTOL, atol=SHARD_ATOL), "cli --multichip film")
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        dev = make_group(DEVICE, store=dist.FileStore(f"{tmp}/a", 1), rank=0, world_size=1)
+        try:
+            res_a = shard_run(hosts, dev, SHARD_CASES[:2])
+        finally:
+            dist.destroy_process_group()
+    hold_sharded("(a) NCCL, 1 rank", [res_a], refs, 1)
+    torch.cuda.empty_cache()
+
+    runs = [("(b) gloo, 2 ranks on cuda:0", 2, "gloo", True)]
+    if n_cards >= 2:
+        runs.append((f"(c) NCCL, {n_cards} ranks on {n_cards} cards", n_cards, "nccl", False))
+    for label, world, backend, same in runs:
+        with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+            t0 = time.perf_counter()
+            mp.start_processes(shard_rank, args=(world, f"{tmp}/store", tmp, backend, same, hosts,
+                                                 SHARD_CASES), nprocs=world, start_method="spawn")
+            res_b = [torch.load(Path(tmp) / f"rank{k}.pt") for k in range(world)]
+        print(f"  {label}: {time.perf_counter() - t0:.1f} s with the processes' start")
+        hold_sharded(label, res_b, refs, world)
+    if n_cards < 2:
+        print(f"  (c) not run: {n_cards} card visible")
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, nargs="+", default=[],
@@ -2439,9 +2777,9 @@ def main(argv=None) -> int:
     del scene
     print("dragon_scene(nu=96, nv=64, env_h=64), engine stream:")
     # 16 bounces (64 until iwalk ran at the two-level dragon's full render
-    # shapes) and 2 spp (4 until phases 22-23 came): its CPU half, the
-    # stream's plain version, is the smoke's longest step
-    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 2, engine="stream",
+    # shapes) and 1 spp (4 until phases 22-23 came, 2 until phase 25 came):
+    # its CPU half, the stream's plain version, is the smoke's longest step
+    cross_backend(lambda: scenes.dragon_scene(nu=96, nv=64, env_h=64), 32, 32, 1, engine="stream",
                   max_bounces=16)
     probe_t = phase_probes(card, others)
     t0 = time.perf_counter()
@@ -2490,6 +2828,7 @@ def main(argv=None) -> int:
     print(f"  two-level (vwalk) vs baked on the card: mean rel diff {rel:.5f} (limit {MEAN_TOL})")
     check(rel <= MEAN_TOL, rel)
     phase_interactive(card)
+    phase_sharded(card)
 
     rows = {
         "closest": dense_t["camera"], "any": dense_t["shadow"],

@@ -12,6 +12,10 @@ the walk off as in the JAX package: a baked soup above 16,384 triangles
 then goes through the streamed dense kernels (``trace/dense_stream.py``);
 ``PT_VWALK=0`` sends a two-level scene through iwalk instead of vwalk, and
 ``PT_IWALK=0`` through the gather engine. The world engine is printed.
+``--multichip`` renders the film tile-sharded across every visible card,
+one process each (`parallel.mesh`): this process builds the host scene and
+the CUDA libraries, then spawns a rank for each further card; with
+``--device cpu`` it is a group of one gloo rank.
 """
 
 from __future__ import annotations
@@ -19,10 +23,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
+# the render path's CUDA sources, built before any rank of --multichip starts
+RENDER_LIBS = ("dense_hit", "walk_hit", "iwalk_hit", "dense_stream")
 SCENES = ("cornell_diffuse", "cornell_specular", "cornell_volume", "mesh_scene",
           "many_instance_scene", "dragon_scene")
 
@@ -46,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep shared object-space tables + instance transforms (two-level "
                         "traversal) instead of baking instances to world")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--multichip", action="store_true",
+                   help="tile the film across every visible card, one process each (rank r on "
+                        "cuda:r; with --device cpu one gloo rank)")
     return p
 
 
@@ -61,11 +72,7 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
 
     from path_tracer_tpu_torch import scenes
-    from path_tracer_tpu_torch.film import load_checkpoint, save_checkpoint, save_png
-    from path_tracer_tpu_torch.integrator.wavefront import render_sample
-    from path_tracer_tpu_torch.scene.scene import env_engine, world_engine
-    from path_tracer_tpu_torch.trace import dense_stream, iwalk
-    from path_tracer_tpu_torch.trace.traversal import engine_name
+    from path_tracer_tpu_torch.film import load_checkpoint
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -77,6 +84,69 @@ def main(argv=None) -> dict:
                                                   two_level=args.two_level)
     phases["scene build"] = time.perf_counter() - t0
 
+    start, film = 0, None
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        film, start = load_checkpoint(args.checkpoint, "cpu")
+        print(f"resumed at sample {start}")
+    if not args.multichip:
+        return _render(args, scene_host, cam, device, phases, film, start)
+
+    from path_tracer_tpu_torch.trace import cuda_lib
+
+    world = 1
+    if device.type == "cuda":
+        cuda_lib.build(*RENDER_LIBS)
+        world, device = torch.cuda.device_count(), torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        ctx = None
+        if world > 1:
+            import torch.multiprocessing as mp
+
+            ctx = mp.start_processes(_spawned_rank,
+                                     args=(world, store, args, scene_host, cam, start),
+                                     nprocs=world - 1, join=False, start_method="spawn")
+        try:
+            res = _rank(0, world, store, args, scene_host, cam, device, phases, film, start)
+        except BaseException:
+            for proc in ctx.processes if ctx is not None else ():
+                proc.terminate()
+            raise
+        while ctx is not None and not ctx.join():  # raises if a rank failed
+            pass
+        return res
+
+
+def _spawned_rank(i, world, store, args, scene_host, cam, start) -> None:
+    """Rank ``i + 1`` of ``--multichip``, a spawned process on ``cuda:i+1``."""
+    _rank(i + 1, world, store, args, scene_host, cam, torch.device("cuda", i + 1), {}, None, start)
+
+
+def _rank(rank, world, store, args, scene_host, cam, device, phases, film, start):
+    """One rank of ``--multichip``: join the group through the ``FileStore``
+    at ``store``, render, leave the group."""
+    from path_tracer_tpu_torch.parallel.mesh import make_group
+
+    make_group(device, store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        return _render(args, scene_host, cam, device, phases, film, start, sharded=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _render(args, scene_host, cam, device, phases, film, start, sharded=False):
+    """Upload, trace samples ``start`` to ``--spp`` into ``film`` in
+    batches, write the PNG (and checkpoints); ``sharded``: as one rank of
+    the default group, each batch traced over this rank's slab and
+    gathered, and only rank 0 prints and writes (the others return None)."""
+    from path_tracer_tpu_torch.film import save_checkpoint, save_png
+    from path_tracer_tpu_torch.integrator.wavefront import render_sample
+    from path_tracer_tpu_torch.parallel.mesh import gather_lanes, render_sample_sharded
+    from path_tracer_tpu_torch.scene.scene import env_engine, world_engine
+    from path_tracer_tpu_torch.trace import dense_stream, iwalk
+    from path_tracer_tpu_torch.trace.traversal import engine_name
+
+    lead = not sharded or dist.get_rank() == 0
     t0 = time.perf_counter()
     engine = env_engine(scene_host.num_world_tris, args.two_level)
     scene = scene_host.device(device, engine)
@@ -84,13 +154,16 @@ def main(argv=None) -> dict:
     org = torch.as_tensor(cam.origin, device=device)
     _sync(device)
     phases["upload"] = time.perf_counter() - t0
+    if sharded:
+        # every rank has started and uploaded before the trace clock runs
+        dist.all_reduce(torch.zeros(1, device=device))
     if "twolevel" in scene:
         engine = engine_name(scene)
         eng = scene["twolevel"].get("iwalk") or scene["twolevel"]["gather"]
         what = (f"{eng['gates']} gate entries" if "iwalk" in scene["twolevel"]
                 else f"{eng['inst_rows'].shape[0]} instances")
-        print(f"two-level engine: {engine} ({what}, "
-              f"{iwalk.table_bytes(eng) / 2**20:.1f} MiB of tables)")
+        line = (f"two-level engine: {engine} ({what}, "
+                f"{iwalk.table_bytes(eng) / 2**20:.1f} MiB of tables)")
     else:
         engine = world_engine(scene_host.num_world_tris, engine)
         extra = ""
@@ -98,18 +171,20 @@ def main(argv=None) -> dict:
             eng = scene["tri"]["stream"]
             extra = (f" ({dense_stream.num_parts(eng)} parts, {eng['cab'].shape[0]} chunks, "
                      f"{dense_stream.table_bytes(eng) / 2**20:.1f} MiB of tables)")
-        print(f"world engine: {engine}{extra}")
+        line = f"world engine: {engine}{extra}"
+    if lead:
+        print(line)
 
-    start = 0
-    film = torch.zeros((args.height, args.width, 4), dtype=torch.float32, device=device)
-    if args.checkpoint and os.path.exists(args.checkpoint):
-        film, start = load_checkpoint(args.checkpoint, device)
-        print(f"resumed at sample {start}")
-
+    if film is None:
+        film = torch.zeros((args.height, args.width, 4), dtype=torch.float32, device=device)
+    film = film.to(device)
     aperture = args.aperture if args.aperture > 0 else cam.aperture
     focus = args.focus or cam.focus_distance
     lens = dict(aperture=aperture, focus=focus,
                 cam_basis=torch.as_tensor(cam.matrix[:, :3], device=device)) if aperture > 0 else {}
+    kw = dict(max_bounces=args.max_bounces, enable_nee=not args.no_nee,
+              has_lights="light" in scene, mtypes=scene_host.active_mtypes,
+              any_volumes=scene_host.has_volumes, **lens)
     batch = max(1, min(32, args.checkpoint_every or 32))
 
     rays_total = 0.0
@@ -119,12 +194,14 @@ def main(argv=None) -> dict:
     while s < args.spp:
         cur = min(batch, args.spp - s)
         t0 = time.perf_counter()
-        rad, _, _, rays = render_sample(
-            scene, ndc, org, s, args.width, args.height,
-            max_bounces=args.max_bounces, enable_nee=not args.no_nee,
-            has_lights="light" in scene, spp=cur, mtypes=scene_host.active_mtypes,
-            any_volumes=scene_host.has_volumes, **lens,
-        )
+        if sharded:
+            rad, rays = render_sample_sharded(scene, ndc, org, s, args.width, args.height,
+                                              spp=cur, **kw)
+            rows = gather_lanes(torch.cat([rad, rays], dim=1))
+            rad, rays = rows[:, :3], rows[:, 3:]
+        else:
+            rad, _, _, rays = render_sample(scene, ndc, org, s, args.width, args.height,
+                                            spp=cur, **kw)
         _sync(device)
         trace_s += time.perf_counter() - t0
         rays_total += float(rays[:, 0].sum())  # col 0 = all-queries count
@@ -132,15 +209,18 @@ def main(argv=None) -> dict:
         frame = torch.cat([rad, torch.full((rad.shape[0], 1), float(cur), device=device)], dim=1)
         film = film + frame.reshape(args.height, args.width, 4)
         s += cur
-        if args.checkpoint and args.checkpoint_every:
+        if lead and args.checkpoint and args.checkpoint_every:
             save_checkpoint(args.checkpoint, film, s)
     phases["trace"] = trace_s
+    if not lead:
+        return None
 
     if args.checkpoint:
         save_checkpoint(args.checkpoint, film, args.spp)
     save_png(args.out, film)
     summary = {
         "out": args.out, "spp": args.spp, "device": str(device), "engine": engine,
+        "ranks": dist.get_world_size() if sharded else 1,
         "mrays_per_s": rays_total / trace_s / 1e6 if trace_s > 0 else 0.0,
         "spp_per_s": samples / trace_s if trace_s > 0 else 0.0,
         "trace_s": trace_s,

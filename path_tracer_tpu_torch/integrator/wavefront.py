@@ -700,11 +700,12 @@ def _seg_compact(s: dict, lane: torch.Tensor, cap: int):
     return {k: v.index_select(0, order) for k, v in s.items()}, lane.index_select(0, order)
 
 
-def _seg_scatter(rad, rays, rays_strict, s, lane):
-    """Write a segment buffer's running per-lane totals back to film rows
-    (new tensors: a predicted frame keeps its inputs for a fallback)."""
-    return (rad.index_copy(0, lane, s["accum"]), rays.index_copy(0, lane, s["rays"]),
-            rays_strict.index_copy(0, lane, s["rays_strict"]))
+def _seg_scatter(rad, rays, rays_strict, s, rows):
+    """Write a segment buffer's running per-lane totals back to their output
+    ``rows`` (new tensors: a predicted frame keeps its inputs for a
+    fallback)."""
+    return (rad.index_copy(0, rows, s["accum"]), rays.index_copy(0, rows, s["rays"]),
+            rays_strict.index_copy(0, rows, s["rays_strict"]))
 
 
 def _seg_count(alive: torch.Tensor) -> torch.Tensor:
@@ -802,6 +803,7 @@ def render_sample_segmented(
     focus: float = 0.0,
     cam_basis=None,
     predictor: SegmentPredictor | None = None,
+    lane: torch.Tensor | None = None,
 ):
     """`render_sample` (1 spp, pinned) with dead-lane segmented compaction
     (JAX ``:1023``): the same bits on every output, since RNG draws are
@@ -812,9 +814,20 @@ def render_sample_segmented(
     With a ``predictor`` (and PT_SEG_PREDICT on), a frame after the first
     runs the whole segment chain from the previous frame's plan with no
     count read between segments; one status read at its end accepts the
-    outputs or, on an overflow, re-renders the sample count-driven."""
-    n = width * height
-    lane = torch.arange(n, dtype=torch.int64, device=ndc_to_world.device)
+    outputs or, on an overflow, re-renders the sample count-driven.
+
+    ``lane``: a contiguous slab of film lanes (int64) to trace instead of
+    the whole film, as one rank of `parallel.mesh.frame_segmented_sharded`
+    does; the outputs are the slab's rows, the buffer sizes come from the
+    slab's size and the plan is keyed on its offset and size."""
+    if lane is None:
+        lane0, n = 0, width * height
+        lane = torch.arange(n, dtype=torch.int64, device=ndc_to_world.device)
+    else:
+        lane0, n = int(lane[0]), lane.shape[0]
+        if not torch.equal(lane, torch.arange(lane0, lane0 + n, dtype=lane.dtype,
+                                              device=lane.device)):
+            raise ValueError("render_sample_segmented needs contiguous lane ids")
     common = dict(max_bounces=max_bounces, enable_nee=enable_nee, has_lights=has_lights, spp=1,
                   mtypes=mtypes, any_volumes=any_volumes, aperture=aperture, focus=focus,
                   cam_basis=cam_basis, return_state=True)
@@ -851,11 +864,11 @@ def render_sample_segmented(
                 s, lane = _seg_compact(s, lane, cap)
                 cur = cap
             s = segment(s, lane, cur, _seg_steps_for(cur, n))
-            rad, rays, rays_strict = _seg_scatter(rad, rays, rays_strict, s, lane)
+            rad, rays, rays_strict = _seg_scatter(rad, rays, rays_strict, s, lane - lane0)
         return rad, rays, rays_strict, counts
 
     # every input that shapes the schedule or the segments (JAX :1074-1079)
-    key = (_seg_scene_key(scene), width, height, tuple(caps), _SEG_B0, _SEG_STEPS,
+    key = (_seg_scene_key(scene), width, height, lane0, n, tuple(caps), _SEG_B0, _SEG_STEPS,
            _SEG_BIG_STEPS, _SEG_TAIL_AT, _SEG_TAIL_STEPS, _SEG_MARGIN, mtypes,
            max_bounces, enable_nee, has_lights, any_volumes, aperture, focus,
            None if cam_basis is None else tuple(cam_basis.shape))
@@ -873,7 +886,7 @@ def render_sample_segmented(
                 ps, plane = _seg_compact(ps, plane, cap)
                 cur = cap
             ps = segment(ps, plane, cur, steps)
-            prad, prays, pstrict = _seg_scatter(prad, prays, pstrict, ps, plane)
+            prad, prays, pstrict = _seg_scatter(prad, prays, pstrict, ps, plane - lane0)
         st = _read_counts(_seg_status(counts, _seg_count(ps["alive"]),
                                       tuple(min(c, n) for c, _ in plan)))
         if st[-1] == 0:

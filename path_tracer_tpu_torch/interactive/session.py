@@ -13,8 +13,9 @@ and `InteractiveRenderer.display` returns the tonemapped frame
 (``shader.wgsl``). WASD and mouse input map to ``Camera.update_origin`` /
 ``update_rotation`` (``camera.rs:33-92``). There is no OS window: callers
 get frames as arrays (save them, stream them with `interactive.stream`, or
-wire them to any UI). Frames trace on one device; the JAX package's
-multi-chip frame (its ``mesh`` argument) is not ported.
+wire them to any UI). With a process ``group`` (the JAX package's
+``mesh``), every rank's session traces its slab of each frame
+(`parallel.mesh.frame_segmented_sharded`) on its own card.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from path_tracer_tpu_torch.camera import Camera
 from path_tracer_tpu_torch.integrator import bsdf
@@ -33,6 +35,7 @@ from path_tracer_tpu_torch.integrator.wavefront import (
     render_sample_segmented,
 )
 from path_tracer_tpu_torch.interactive import taa
+from path_tracer_tpu_torch.parallel.mesh import frame_segmented_sharded
 
 # Dead-lane segmented compaction (`render_sample_segmented`): the same bits
 # as `render_sample`; PT_INTERACTIVE_SEG=0 takes the monolithic frame.
@@ -49,10 +52,22 @@ class InteractiveRenderer:
         max_bounces: int = 64,
         enable_nee: bool = True,
         device="cuda",
+        group=None,
     ):
         """``scene_host``: a host `Scene` (uploaded to ``device``) or a
         scene tensor dict already there. ``device`` defaults to the card; a
-        CUDA device with no card raises."""
+        CUDA device with no card raises.
+
+        ``group``: a ``torch.distributed`` process group
+        (``torch.distributed.group.WORLD`` for the default one); None
+        traces every frame in this process. With a group, every rank
+        builds its own session on its own ``device`` and calls `frame` in
+        lockstep; rank 0 takes the input (`key`, `mouse`, `resize`) and
+        sends its camera, film size and sample count to the others at the
+        start of each frame (one broadcast); each rank traces its slab of
+        the frame, and every rank runs accumulation, TAA and display on
+        the gathered film (two film-sized ``all_gather`` calls a frame),
+        so `display` works on any rank."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("InteractiveRenderer: device 'cuda' but torch.cuda.is_available() "
@@ -68,6 +83,7 @@ class InteractiveRenderer:
         self.height = height
         self.max_bounces = max_bounces
         self.enable_nee = enable_nee
+        self.group = group
         self._reset_history()
         # temporal segment-schedule prediction (PT_SEG_PREDICT)
         self._predictor = SegmentPredictor()
@@ -95,9 +111,40 @@ class InteractiveRenderer:
 
     # -- frame loop (main.rs:179-218, state.rs:557-586) --
 
+    def _sync_input(self) -> None:
+        """Rank 0's film size, sample count, camera, moved flag and last
+        clip transform, sent to every rank at the start of a frame; a rank
+        whose size or sample count differs (rank 0 resized) drops its
+        history as rank 0 did."""
+        c = self.camera
+        state = np.concatenate([
+            [self.width, self.height, self.sample, float(self._camera_moved), c.pitch, c.yaw],
+            c.matrix.ravel(), c.projection.ravel(), c.inv_projection.ravel(),
+            self.last_world_to_clip.ravel()])
+        buf = torch.as_tensor(state, dtype=torch.float64, device=self.device)
+        dist.broadcast(buf, src=dist.get_global_rank(self.group, 0), group=self.group)
+        if dist.get_rank(self.group) == 0:
+            return
+        v = buf.cpu().numpy()
+        size_sample = (int(v[0]), int(v[1]), int(v[2]))
+        if size_sample != (self.width, self.height, self.sample):
+            self.width, self.height = size_sample[:2]
+            self._reset_history()
+            self.sample = size_sample[2]
+        self._camera_moved = bool(v[3])
+        c.pitch, c.yaw = float(v[4]), float(v[5])
+        c.matrix = v[6:18].reshape(3, 4).astype(np.float32)
+        c.projection = v[18:34].reshape(4, 4)
+        c.inv_projection = v[34:50].reshape(4, 4)
+        self.last_world_to_clip = v[50:66].reshape(4, 4).astype(np.float32)
+
     def frame(self) -> None:
+        if self.group is not None:
+            self._sync_input()
         h, w = self.height, self.width
-        if _SEGMENTED:
+        if self.group is not None:
+            entry = partial(frame_segmented_sharded, group=self.group, predictor=self._predictor)
+        elif _SEGMENTED:
             entry = partial(render_sample_segmented, predictor=self._predictor)
         else:
             entry = render_sample
