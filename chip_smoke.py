@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits non-zero without the final
 1. environment: torch, CUDA, the card's name and power limit;
 2. build every kernel source (``dense_hit.cu``, ``walk_hit.cu``, and those
    of phases 10 and 16) from ``path_tracer_tpu_torch/csrc``, one nvcc
-   each, started together; print ptxas registers and spills;
+   each, started together, and beside them the native host builder
+   (``csrc/pt_native.cpp``, g++), which must build: every host scene
+   build of the smoke takes it; print ptxas registers and spills;
 3. dense kernels against their plain torch versions on ``mesh_scene``'s
    world table (5,132 rows, 41 chunks; 65,536 camera + 65,536 random rays,
    with inf / 0 / NaN lanes), plus a float64 run of the plain closest hit
@@ -185,7 +187,22 @@ Phases (any failure raises and the script exits non-zero without the final
     samples; (c) with two cards or more, (b) over NCCL with a rank on every
     card, else a line says it did not run.
 
-Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24, 25.
+26. the scene inputs and the host runtime: ``native.available()`` (the
+    native host builder, built with g++ at its first use); the JSON scene
+    ``assets/asset_scene.json`` (the Cornell walls and light, two instances
+    of ``assets/knot.obj``, ``assets/sky.png``; 13,832 world tris, the dense
+    kernels) and ``env_sphere_scene`` (1,280 tris, no lights: no any-hit
+    launch) through the CLI at 1024x576, 8 spp, with their launch counts;
+    phase 3's checks on the asset scene's world table (13,832 rows, 109
+    chunks: the chunk mask's words 2-3 run), every ray set, edge case and
+    render shape, kernel against plain, timed; both scenes at 32x32, 2 spp
+    on the CPU and on the card, image means within 1%; the host build
+    (``Scene``) of the asset scene with the native builder and with the
+    NumPy one, and of ``dragon_scene`` with the native one; the disk cache's miss (generate and write) against
+    its hit for the dragon's knot and sky; and ``--profile-dir`` on a 64x64
+    render: the trace's events and kernels.
+
+Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24, 25, 26.
 Each render's launch counts
 (and the probes', and each frame's) are set to 0 just before it and read
 just after. The
@@ -236,6 +253,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -645,7 +663,7 @@ def render_cli(scene_name, spp, card, keys, width=WIDTH, height=HEIGHT, two_leve
     res = cli.main([
         "--scene", scene_name, "--width", str(width), "--height", str(height),
         "--spp", str(spp), "--max-bounces", str(MAX_BOUNCES),
-        "--out", str(OUT_DIR / f"smoke_{scene_name}{tag}.png"), "--device", DEVICE,
+        "--out", str(OUT_DIR / f"smoke_{Path(scene_name).stem}{tag}.png"), "--device", DEVICE,
         *(["--two-level"] if two_level else []),
     ])
     torch.cuda.synchronize()
@@ -682,6 +700,108 @@ def cross_backend(make, width, height, spp, engine=None, max_bounces=MAX_BOUNCES
     print(f"  cross-backend mean rel diff {rel:.5f} (limit {MEAN_TOL})")
     check(rel <= MEAN_TOL, rel)
     return means[DEVICE]
+
+
+# --- the scene inputs and the host runtime (phase 26) ---
+
+ASSET_SCENE = "assets/asset_scene.json"  # paths inside are relative to the repo root
+
+
+def host_build_s(models, env, use_native: bool) -> float:
+    """Seconds of one baked host scene build (``Scene(...)``: the world and
+    light SAH builds, the triangle tables) with the native builder or the
+    NumPy one."""
+    from path_tracer_tpu_torch import native
+    from path_tracer_tpu_torch.scene.scene import Scene
+
+    with patched(native, **({} if use_native else {"available": lambda: False})):
+        t0 = time.perf_counter()
+        Scene(models, env=env)
+        return time.perf_counter() - t0
+
+
+def phase_inputs(dc, walk, dev, card):
+    """Phase 26: JSON scenes with OBJ models and PNG skies, env_sphere_scene,
+    the dense kernels against their plain versions on the asset scene's
+    world table, the native builder and the disk cache on the card's
+    machine, and the CLI's ``--profile-dir``."""
+    import tempfile
+
+    from path_tracer_tpu_torch import cli, native, scenes
+    from path_tracer_tpu_torch.scene import procedural
+    from path_tracer_tpu_torch.utils import config, disk_cache, profiling
+
+    check(native.available(), "the native builder is not available (g++)")
+    launches = {}
+    with contextlib.chdir(ROOT):
+        launches["asset"], res = render_cli(ASSET_SCENE, SPP, card, ("closest", "any"))
+        print(f"  asset scene: {res['phases']['scene build']:.2f} s scene build (JSON, OBJ "
+              "through the native parser, sky.png through the port's PNG decoder, native SAH)")
+        # phase 3's comparison on this table: above 64 chunks, so the high
+        # words of the kernels' chunk mask run
+        asset = config.load_scene_json(ASSET_SCENE)
+        asset_dev = asset.device(DEVICE)
+        check(asset_dev["tri"]["dense"]["cab"].shape[0] > 64, "the asset table has <= 64 chunks")
+        print("asset_scene.json world table (phase 3's checks):")
+        asset_cam = config.load_camera_json(ASSET_SCENE, WIDTH / HEIGHT)
+        _, asset_t = phase_dense(dc, walk, asset_dev, asset_cam, dev, card)
+        print("  asset scene kernel ms: " + ", ".join(
+            f"{k} {r['ms']:.3f} (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f})"
+            for k, r in asset_t.items()) + f" ({card})")
+        del asset_dev
+        # no lights: no shadow rays, so no any-hit launch
+        launches["env_sphere"], _ = render_cli("env_sphere_scene", SPP, card, ("closest",),
+                                               absent=("any",))
+        print("asset_scene.json:")
+        cross_backend(lambda: (config.load_scene_json(ASSET_SCENE),
+                               config.load_camera_json(ASSET_SCENE, 1.0)), 32, 32, 2)
+        print("env_sphere_scene:")
+        cross_backend(scenes.env_sphere_scene, 32, 32, 2)
+
+        # host builds: native against NumPy on the asset scene; the dragon
+        # native only (its NumPy build, 75.7-82.2 s on the H100's host, is
+        # in PERF.md §5)
+        t_asset = {w: host_build_s(asset.models, asset.env, w) for w in (True, False)}
+        sh, _ = scenes.dragon_scene(aspect=WIDTH / HEIGHT)
+        t_dragon = host_build_s(sh.models, sh.env, True)
+        print(f"  host build, native / NumPy: asset scene ({asset.num_world_tris} tris) "
+              f"{t_asset[True]:.2f} / {t_asset[False]:.2f} s; native: dragon_scene "
+              f"({sh.num_world_tris} tris) {t_dragon:.2f} s (its NumPy build: 58-100 s in the "
+              "smoke before the native builder, PERF.md §5)")
+        del sh
+
+        # the disk cache: a miss (generate and write) against a hit (read)
+        old = os.environ.get("PT_HOST_CACHE")
+        with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+            os.environ["PT_HOST_CACHE"] = tmp
+            try:
+                for label, fn, kw in (("knot", procedural.knot, {"scale": 42.0, "nu": 768, "nv": 288}),
+                                      ("sky", scenes.procedural_sky, {"h": 2048})):
+                    t = []
+                    for _ in range(2):
+                        t0 = time.perf_counter()
+                        disk_cache.cached_arrays(fn, **kw)
+                        t.append(time.perf_counter() - t0)
+                    print(f"  disk cache, dragon {label}: miss {t[0]:.2f} s, hit {t[1]:.3f} s")
+            finally:
+                if old is None:
+                    os.environ.pop("PT_HOST_CACHE")
+                else:
+                    os.environ["PT_HOST_CACHE"] = old
+
+        # --profile-dir: a trace of a small render
+        prof = OUT_DIR / "prof26"
+        cli.main(["--scene", "env_sphere_scene", "--width", "64", "--height", "64", "--spp", "1",
+                  "--max-bounces", "8", "--device", DEVICE, "--out", str(OUT_DIR / "prof26.png"),
+                  "--profile-dir", str(prof)])
+        events = json.loads((prof / profiling.TRACE_FILE).read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        ours = sum("closest" in e.get("name", "") for e in kernels)
+        print(f"  --profile-dir: {len(events)} trace events, {len(kernels)} kernels on the card "
+              f"({ours} dense closest-hit)")
+    for k, v in launches.items():
+        print(f"  phase 26 launches, {k}: closest {v['closest']}, any {v['any']}")
+    return launches
 
 
 # --- the walk kernels (dragon_scene) ---
@@ -2705,7 +2825,7 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     t_start = time.perf_counter()
 
-    from path_tracer_tpu_torch import scenes
+    from path_tracer_tpu_torch import native, scenes
     from path_tracer_tpu_torch.trace import cuda_lib
     from path_tracer_tpu_torch.trace import dense_cuda as dc
     from path_tracer_tpu_torch.trace import dense_stream as ds
@@ -2713,8 +2833,13 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     finish_others = start_other_builds(args.parent)
+    host = threading.Thread(target=native.available)  # g++, beside the nvcc builds
+    host.start()
     libs = cuda_lib.build("dense_hit", "walk_hit", "iwalk_hit", "dense_stream", "gather_probe")
-    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in libs)})")
+    host.join()
+    check(native.available(), "the native host builder did not build (g++)")
+    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(p.name for p in libs)}, "
+          f"{native.lib_path().name})")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if ptxas_line(line):
@@ -2829,6 +2954,9 @@ def main(argv=None) -> int:
     check(rel <= MEAN_TOL, rel)
     phase_interactive(card)
     phase_sharded(card)
+    t0 = time.perf_counter()
+    phase_inputs(dc, walk, dev, card)
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
 
     rows = {
         "closest": dense_t["camera"], "any": dense_t["shadow"],

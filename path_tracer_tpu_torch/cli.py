@@ -1,21 +1,37 @@
 """Command-line renderer: ``python -m path_tracer_tpu_torch.cli [...]``.
 
-Port of ``path_tracer_tpu/cli.py``: a named scene, progressive rendering in
-batches of up to 32 samples with optional checkpoints, resumable renders,
-and a tonemapped PNG. ``--device`` picks the torch device (default ``cuda``;
-with no card it raises rather than falling back to the CPU). ``--two-level``
-keeps shared object-space tables plus instance transforms instead of baking
-instances to world space, and traces through the two-level kernels (vwalk,
-or iwalk above vwalk's cap), or above iwalk's caps through the gather
-engine (``trace/twolevel.py``). ``PT_WALK=0`` in the environment switches
-the walk off as in the JAX package: a baked soup above 16,384 triangles
-then goes through the streamed dense kernels (``trace/dense_stream.py``);
+Port of ``path_tracer_tpu/cli.py``: a named scene or a JSON scene file
+(`utils.config.load_scene_json`: OBJ models, a PNG sky, paths relative to
+the working directory; its camera, or the Cornell view at ``--fov`` if it
+has none), progressive rendering in batches of up to 32 samples with
+optional checkpoints, resumable renders, and a tonemapped PNG. ``--device``
+picks the torch device (default ``cuda``; with no card it raises rather
+than falling back to the CPU). ``--two-level`` keeps shared object-space
+tables plus instance transforms instead of baking instances to world space,
+and traces through the two-level kernels (vwalk, or iwalk above vwalk's
+cap), or above iwalk's caps through the gather engine
+(``trace/twolevel.py``). ``PT_WALK=0`` in the environment switches the walk
+off as in the JAX package: a baked soup above 16,384 triangles then goes
+through the streamed dense kernels (``trace/dense_stream.py``);
 ``PT_VWALK=0`` sends a two-level scene through iwalk instead of vwalk, and
 ``PT_IWALK=0`` through the gather engine. The world engine is printed.
 ``--multichip`` renders the film tile-sharded across every visible card,
 one process each (`parallel.mesh`): this process builds the host scene and
 the CUDA libraries, then spawns a rank for each further card; with
 ``--device cpu`` it is a group of one gloo rank.
+
+``--profile-dir`` records a ``torch.profiler`` trace of the render into
+that directory (`utils.profiling.device_trace`). ``--retries`` retries a
+batch that raised, after a backoff, up to that many times, saving the
+checkpoint (with ``--checkpoint``) before each retry and before it gives
+up; samples are pure functions of (lane, sample id), so a retried batch
+adds what the failed one would have. The checkpoint comes from a host copy
+of the film taken after each batch: after a sticky CUDA error (an illegal
+address) the context is lost, the film on the card cannot be read and
+every retry in this process would fail again, so the CLI saves that copy
+and re-raises at once; ``--checkpoint`` in a new process resumes. With
+``--multichip`` a rank's error raises (the group's collectives cannot
+replay one rank's batch alone).
 """
 
 from __future__ import annotations
@@ -32,17 +48,21 @@ import torch.distributed as dist
 # the render path's CUDA sources, built before any rank of --multichip starts
 RENDER_LIBS = ("dense_hit", "walk_hit", "iwalk_hit", "dense_stream")
 SCENES = ("cornell_diffuse", "cornell_specular", "cornell_volume", "mesh_scene",
-          "many_instance_scene", "dragon_scene")
+          "many_instance_scene", "dragon_scene", "env_sphere_scene")
+RETRY_BACKOFF_S = 30.0  # seconds before retry n, times n
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="PyTorch + CUDA path tracer")
-    p.add_argument("--scene", default="cornell_diffuse", choices=SCENES, help="named scene")
+    p.add_argument("--scene", default="cornell_diffuse",
+                   help=f"named scene ({', '.join(SCENES)}) or a .json scene file")
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=576)
     p.add_argument("--spp", type=int, default=64)
     p.add_argument("--max-bounces", type=int, default=64)
     p.add_argument("--no-nee", action="store_true", help="disable next-event estimation")
+    p.add_argument("--fov", type=float, default=40.0,
+                   help="field of view in degrees of a JSON scene without a camera")
     p.add_argument("--aperture", type=float, default=0.0,
                    help="thin-lens diameter in world units (0 = pinhole)")
     p.add_argument("--focus", type=float, default=0.0,
@@ -57,7 +77,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multichip", action="store_true",
                    help="tile the film across every visible card, one process each (rank r on "
                         "cuda:r; with --device cpu one gloo rank)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the render (trace.json) into this directory")
+    p.add_argument("--retries", type=int, default=2,
+                   help="retries of a batch that raised (checkpoint + backoff); a lost CUDA "
+                        "context is not retried")
     return p
+
+
+def load_scene(args):
+    """``(host scene, camera)`` of ``--scene``: a named scene, or a JSON
+    scene file with its camera (or the Cornell view at ``--fov``)."""
+    from path_tracer_tpu_torch import scenes
+
+    aspect = args.width / args.height
+    if not args.scene.endswith(".json"):
+        return getattr(scenes, args.scene)(aspect=aspect, two_level=args.two_level)
+    from path_tracer_tpu_torch.camera import Camera
+    from path_tracer_tpu_torch.utils.config import load_camera_json, load_scene_json
+
+    scene_host = load_scene_json(args.scene, two_level=args.two_level)
+    cam = load_camera_json(args.scene, aspect) or Camera(
+        (0.0, 277.5, 1300.0), (0.0, 277.5, 0.0), fov=args.fov, aspect_ratio=aspect)
+    return scene_host, cam
 
 
 def _sync(device: torch.device) -> None:
@@ -65,31 +107,45 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _context_lost(device: torch.device) -> bool:
+    """Whether the CUDA context of ``device`` is lost (a sticky error: every
+    later call fails as well)."""
+    if device.type != "cuda":
+        return False
+    try:
+        torch.cuda.synchronize(device)
+    except RuntimeError:
+        return True
+    return False
+
+
 def main(argv=None) -> dict:
     """Render; prints and returns a summary dict (``film`` is the final
     ``[H, W, 4]`` tensor, ``phases`` the host seconds of scene build,
     upload and trace, the rest are the printed numbers)."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.scene.endswith(".json") and args.scene not in SCENES:
+        parser.error(f"--scene {args.scene!r}: not a named scene ({', '.join(SCENES)}) "
+                     "or a .json file")
 
-    from path_tracer_tpu_torch import scenes
     from path_tracer_tpu_torch.film import load_checkpoint
+    from path_tracer_tpu_torch.utils.profiling import PhaseTimer
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False")
 
-    phases = {}
-    t0 = time.perf_counter()
-    scene_host, cam = getattr(scenes, args.scene)(aspect=args.width / args.height,
-                                                  two_level=args.two_level)
-    phases["scene build"] = time.perf_counter() - t0
+    timers = PhaseTimer()
+    with timers.phase("scene build"):
+        scene_host, cam = load_scene(args)
 
     start, film = 0, None
     if args.checkpoint and os.path.exists(args.checkpoint):
         film, start = load_checkpoint(args.checkpoint, "cpu")
         print(f"resumed at sample {start}")
     if not args.multichip:
-        return _render(args, scene_host, cam, device, phases, film, start)
+        return _render(args, scene_host, cam, device, timers, film, start)
 
     from path_tracer_tpu_torch.trace import cuda_lib
 
@@ -107,7 +163,7 @@ def main(argv=None) -> dict:
                                      args=(world, store, args, scene_host, cam, start),
                                      nprocs=world - 1, join=False, start_method="spawn")
         try:
-            res = _rank(0, world, store, args, scene_host, cam, device, phases, film, start)
+            res = _rank(0, world, store, args, scene_host, cam, device, timers, film, start)
         except BaseException:
             for proc in ctx.processes if ctx is not None else ():
                 proc.terminate()
@@ -119,41 +175,45 @@ def main(argv=None) -> dict:
 
 def _spawned_rank(i, world, store, args, scene_host, cam, start) -> None:
     """Rank ``i + 1`` of ``--multichip``, a spawned process on ``cuda:i+1``."""
-    _rank(i + 1, world, store, args, scene_host, cam, torch.device("cuda", i + 1), {}, None, start)
+    from path_tracer_tpu_torch.utils.profiling import PhaseTimer
+
+    _rank(i + 1, world, store, args, scene_host, cam, torch.device("cuda", i + 1), PhaseTimer(),
+          None, start)
 
 
-def _rank(rank, world, store, args, scene_host, cam, device, phases, film, start):
+def _rank(rank, world, store, args, scene_host, cam, device, timers, film, start):
     """One rank of ``--multichip``: join the group through the ``FileStore``
     at ``store``, render, leave the group."""
     from path_tracer_tpu_torch.parallel.mesh import make_group
 
     make_group(device, store=dist.FileStore(store, world), rank=rank, world_size=world)
     try:
-        return _render(args, scene_host, cam, device, phases, film, start, sharded=True)
+        return _render(args, scene_host, cam, device, timers, film, start, sharded=True)
     finally:
         dist.destroy_process_group()
 
 
-def _render(args, scene_host, cam, device, phases, film, start, sharded=False):
+def _render(args, scene_host, cam, device, timers, film, start, sharded=False):
     """Upload, trace samples ``start`` to ``--spp`` into ``film`` in
-    batches, write the PNG (and checkpoints); ``sharded``: as one rank of
-    the default group, each batch traced over this rank's slab and
-    gathered, and only rank 0 prints and writes (the others return None)."""
+    batches (each retried as ``--retries`` says), write the PNG (and
+    checkpoints); ``sharded``: as one rank of the default group, each batch
+    traced over this rank's slab and gathered, and only rank 0 prints and
+    writes (the others return None)."""
     from path_tracer_tpu_torch.film import save_checkpoint, save_png
     from path_tracer_tpu_torch.integrator.wavefront import render_sample
     from path_tracer_tpu_torch.parallel.mesh import gather_lanes, render_sample_sharded
     from path_tracer_tpu_torch.scene.scene import env_engine, world_engine
     from path_tracer_tpu_torch.trace import dense_stream, iwalk
     from path_tracer_tpu_torch.trace.traversal import engine_name
+    from path_tracer_tpu_torch.utils.profiling import RayRateMeter, device_trace
 
     lead = not sharded or dist.get_rank() == 0
-    t0 = time.perf_counter()
-    engine = env_engine(scene_host.num_world_tris, args.two_level)
-    scene = scene_host.device(device, engine)
-    ndc = torch.as_tensor(cam.view_proj_inverse(), device=device)
-    org = torch.as_tensor(cam.origin, device=device)
-    _sync(device)
-    phases["upload"] = time.perf_counter() - t0
+    with timers.phase("upload"):
+        engine = env_engine(scene_host.num_world_tris, args.two_level)
+        scene = scene_host.device(device, engine)
+        ndc = torch.as_tensor(cam.view_proj_inverse(), device=device)
+        org = torch.as_tensor(cam.origin, device=device)
+        _sync(device)
     if sharded:
         # every rank has started and uploaded before the trace clock runs
         dist.all_reduce(torch.zeros(1, device=device))
@@ -178,6 +238,8 @@ def _render(args, scene_host, cam, device, phases, film, start, sharded=False):
     if film is None:
         film = torch.zeros((args.height, args.width, 4), dtype=torch.float32, device=device)
     film = film.to(device)
+    # the checkpoint's film, on the host: it survives a lost CUDA context
+    saved = film.cpu() if lead and args.checkpoint else None
     aperture = args.aperture if args.aperture > 0 else cam.aperture
     focus = args.focus or cam.focus_distance
     lens = dict(aperture=aperture, focus=focus,
@@ -187,13 +249,7 @@ def _render(args, scene_host, cam, device, phases, film, start, sharded=False):
               any_volumes=scene_host.has_volumes, **lens)
     batch = max(1, min(32, args.checkpoint_every or 32))
 
-    rays_total = 0.0
-    samples = 0
-    trace_s = 0.0
-    s = start
-    while s < args.spp:
-        cur = min(batch, args.spp - s)
-        t0 = time.perf_counter()
+    def trace_batch(s, cur):
         if sharded:
             rad, rays = render_sample_sharded(scene, ndc, org, s, args.width, args.height,
                                               spp=cur, **kw)
@@ -203,31 +259,57 @@ def _render(args, scene_host, cam, device, phases, film, start, sharded=False):
             rad, _, _, rays = render_sample(scene, ndc, org, s, args.width, args.height,
                                             spp=cur, **kw)
         _sync(device)
-        trace_s += time.perf_counter() - t0
-        rays_total += float(rays[:, 0].sum())  # col 0 = all-queries count
-        samples += cur
-        frame = torch.cat([rad, torch.full((rad.shape[0], 1), float(cur), device=device)], dim=1)
-        film = film + frame.reshape(args.height, args.width, 4)
-        s += cur
-        if lead and args.checkpoint and args.checkpoint_every:
-            save_checkpoint(args.checkpoint, film, s)
-    phases["trace"] = trace_s
+        return rad, rays
+
+    meter = RayRateMeter()
+    with device_trace(args.profile_dir if lead else None):
+        s = start
+        while s < args.spp:
+            cur = min(batch, args.spp - s)
+            attempt = 0
+            while True:
+                try:
+                    with meter.measure(0.0, 0):  # rays and samples added below
+                        rad, rays = trace_batch(s, cur)
+                    break
+                except Exception as e:
+                    attempt += 1
+                    lost = _context_lost(device)
+                    if sharded or lost or attempt > args.retries:
+                        if saved is not None:
+                            save_checkpoint(args.checkpoint, saved, s)
+                            why = "the CUDA context is lost" if lost else f"{attempt} attempts"
+                            print(f"device error after {why}; progress saved at sample {s}")
+                        raise
+                    if saved is not None:
+                        save_checkpoint(args.checkpoint, saved, s)
+                    print(f"device error ({type(e).__name__}), retry {attempt}/{args.retries}...")
+                    time.sleep(RETRY_BACKOFF_S * attempt)
+            meter.rays += float(rays[:, 0].sum())  # col 0 = all-queries count
+            meter.samples += cur
+            frame = torch.cat([rad, torch.full((rad.shape[0], 1), float(cur), device=device)], dim=1)
+            film = film + frame.reshape(args.height, args.width, 4)
+            s += cur
+            if saved is not None:
+                saved = film.cpu()
+                if args.checkpoint_every:
+                    save_checkpoint(args.checkpoint, saved, s)
+    timers.phases["trace"] = meter.seconds
     if not lead:
         return None
 
     if args.checkpoint:
-        save_checkpoint(args.checkpoint, film, args.spp)
+        save_checkpoint(args.checkpoint, saved, args.spp)
     save_png(args.out, film)
     summary = {
         "out": args.out, "spp": args.spp, "device": str(device), "engine": engine,
         "ranks": dist.get_world_size() if sharded else 1,
-        "mrays_per_s": rays_total / trace_s / 1e6 if trace_s > 0 else 0.0,
-        "spp_per_s": samples / trace_s if trace_s > 0 else 0.0,
-        "trace_s": trace_s,
+        "mrays_per_s": meter.mrays_per_s, "spp_per_s": meter.spp_per_s,
+        "trace_s": meter.seconds,
     }
     print(json.dumps(summary))
-    print("  ".join(f"{k}: {v:.3f} s" for k, v in phases.items()))
-    return {**summary, "phases": phases, "film": film}
+    print(timers.report())
+    return {**summary, "phases": timers.phases, "film": film}
 
 
 if __name__ == "__main__":

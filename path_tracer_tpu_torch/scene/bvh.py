@@ -19,6 +19,9 @@ soup into chunks with `chunk_partition` and builds a tree over the chunk
 boxes with `build_sah_tree`. The stack BVH engine (``trace/bvh_stack.py``,
 light tables above 16,384 triangles and world soups above 2,000,000) walks
 the tree itself, flattened by `flatten` into dual-child records (`build_bvh`).
+The native C++ builder (`path_tracer_tpu_torch.native`) gives the same
+output contract; `chunk_partition` and the scene's SAH build
+(`scene.scene._sah_tree`) take it when g++ is there.
 
 Flat node record i (arrays of length M):
   ``c0_min/c0_max/c1_min/c1_max`` [M,3]  child AABBs
@@ -143,6 +146,18 @@ def build_sah_tree(aabb_min: np.ndarray, aabb_max: np.ndarray, max_leaf: int = 4
 
 
 def chunk_partition(aabb_min: np.ndarray, aabb_max: np.ndarray, chunk: int):
+    """`chunk_partition_py`'s partition, through the native builder when it
+    is available (`path_tracer_tpu_torch.native`; bit-identical output,
+    ``tests/test_torch_native.py``), as the JAX package's ``chunk_partition``
+    dispatches."""
+    from path_tracer_tpu_torch import native
+
+    if native.available():
+        return native.chunk_partition(aabb_min, aabb_max, chunk)
+    return chunk_partition_py(aabb_min, aabb_max, chunk)
+
+
+def chunk_partition_py(aabb_min: np.ndarray, aabb_max: np.ndarray, chunk: int):
     """Partition primitives into spatial chunks of <= ``chunk`` prims with the
     same binned-SAH splitter as ``build_sah_tree`` but NO leaf collapse: every
     node splits until its span fits one chunk. Used by the walk engine

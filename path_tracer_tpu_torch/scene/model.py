@@ -3,10 +3,11 @@
 Host copy of ``path_tracer_tpu/scene/model.py``, which mirrors
 ``Model::new`` (``src/tlas/tlas_bvh/blas/primitive/model.rs:27-52``): one
 material per model, a list of rigid instance matrices (scale is rejected,
-matching the reference's assert at ``model.rs:43``). The mesh is passed as
-triangle-soup arrays; OBJ loading waits for the port of JSON/OBJ scenes.
-`rigid_transform` and `rotation_y` build the instance matrices of the
-dragon scene.
+matching the reference's assert at ``model.rs:43``). The mesh comes from an
+OBJ path (parsed by the native builder when it is available, else by
+`scene.objio.load_obj`; the same output) or is passed as triangle-soup
+arrays (procedural scenes). `rigid_transform` and `rotation_y` build
+instance matrices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from path_tracer_tpu_torch.scene.materials import Material
+from path_tracer_tpu_torch.scene.objio import load_obj
 
 IDENTITY = np.eye(3, 4, dtype=np.float32)
 
@@ -47,12 +49,20 @@ class Model:
     matrices: list = field(default_factory=lambda: [IDENTITY])
     positions: np.ndarray | None = None  # [T,3,3]
     normals: np.ndarray | None = None  # [T,3,3]
+    file_path: str | None = None  # an OBJ file, read when positions is None
 
     def __post_init__(self):
         for m in self.matrices:
             _check_rigid(np.asarray(m, np.float32))
         if self.positions is None:
-            raise ValueError("Model needs triangle arrays (positions)")
+            if self.file_path is None:
+                raise ValueError("Model needs file_path or triangle arrays")
+            from path_tracer_tpu_torch import native
+
+            if native.available():
+                self.positions, self.normals = native.load_obj(self.file_path)
+            else:
+                self.positions, self.normals = load_obj(self.file_path)
         self.positions = np.asarray(self.positions, np.float32)
         if self.normals is None:
             # face-normal fallback for procedurally passed geometry

@@ -2,7 +2,8 @@
 
 Port of ``path_tracer_tpu/scene/scene.py``. The host build is the JAX
 package's, carried over: instances are baked to world space, the soup is
-reordered by the SAH builder's permutation (``bvh.build_sah_tree``), the
+reordered by the SAH builder's permutation (`_sah_tree`: the native C++
+builder, `path_tracer_tpu_torch.native`, or without g++ the NumPy one), the
 emissive triangles form a light table with a power-weighted CDF
 (``src/scene.rs:21-35``, ``src/scene/light_sampler.rs``), and a scene with no
 environment image gets a 1x1 constant-0.006 one.
@@ -63,9 +64,10 @@ import os
 import numpy as np
 import torch
 
+from path_tracer_tpu_torch import native
 from path_tracer_tpu_torch.core.constants import DEFAULT_BACKGROUND
 from path_tracer_tpu_torch.scene import triangle as tri_mod
-from path_tracer_tpu_torch.scene.bvh import build_sah_tree, flatten, tree_depth
+from path_tracer_tpu_torch.scene.bvh import build_bvh
 from path_tracer_tpu_torch.scene.materials import pack_material_rows, pack_materials
 from path_tracer_tpu_torch.scene.model import Model
 from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry, upload_gather
@@ -107,16 +109,20 @@ def env_engine(num_world_tris: int, two_level: bool = False) -> str | None:
 
 
 def _sah_tree(positions: np.ndarray):
-    """The SAH tree over the triangles: ``(nodes, perm, root)``."""
+    """The flattened SAH tree over the triangles: ``(flat, perm, depth)``,
+    from the native builder when it is available, else the NumPy one (the
+    same contract; the JAX package's ``_build_bvh``)."""
     bmin, bmax = tri_mod.aabbs(positions)
-    return build_sah_tree(bmin, bmax, max_leaf=bvh_stack.MAX_LEAF)
+    if native.available():
+        return native.build_bvh(bmin, bmax, bvh_stack.MAX_LEAF)
+    return build_bvh(bmin, bmax, max_leaf=bvh_stack.MAX_LEAF)
 
 
 def _stack_tables(tree, tab: dict) -> dict:
-    """The stack BVH's tables for the SAH tree ``(nodes, perm, root)`` of
+    """The stack BVH's tables for the SAH tree ``(flat, perm, depth)`` of
     the (already permuted) triangle table ``tab``."""
-    nodes, _, root = tree
-    return bvh_stack.pack(flatten(nodes, root), tree_depth(nodes, root), tab)
+    flat, _, depth = tree
+    return bvh_stack.pack(flat, depth, tab)
 
 
 def _pack_tris(positions: np.ndarray, normals: np.ndarray) -> dict[str, np.ndarray]:
@@ -158,12 +164,13 @@ class Scene:
 
         if two_level:
             self.twolevel = TwoLevelGeometry(models)
-            self.tri = self.world_bvh = None
+            self.tri = self.world_bvh = self.bvh = None
             self.num_world_tris = sum(m.positions.shape[0] * len(m.matrices) for m in models)
         else:
             world_pos = np.concatenate(world_pos)
             tree = _sah_tree(world_pos)
-            self.perm = perm = tree[1]
+            self.bvh, self.perm, self.bvh_depth = tree  # flat tree: utils.debug checks it
+            perm = self.perm
             world_model = np.concatenate(world_model)[perm]
             self.tri = _pack_tris(world_pos[perm], np.concatenate(world_nrm)[perm])
             # one material per model: material id == model id

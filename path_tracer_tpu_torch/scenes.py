@@ -1,9 +1,9 @@
 """Standard scenes for tests and benchmarks, mirroring BASELINE.json configs.
 
-Host copy of the scenes of ``path_tracer_tpu/scenes.py`` that the port
-renders: the four Cornell-family scenes and many_instance_scene (dense
-engine), and dragon_scene (walk engine). env_sphere_scene waits for its
-port (ROADMAP.md). Every constructor takes ``two_level``: with True the
+Host copy of ``path_tracer_tpu/scenes.py``: the four Cornell-family
+scenes, many_instance_scene and env_sphere_scene (dense engine), and
+dragon_scene (walk engine), whose knot and sky are memoized on disk
+(`utils.disk_cache`). Every constructor takes ``two_level``: with True the
 scene keeps shared object-space tables plus instance transforms (the
 two-level engines) instead of baking instances to world space; the JAX
 CLI rebuilds a baked scene for that, the port builds it so from the start
@@ -35,6 +35,7 @@ from path_tracer_tpu_torch.scene.materials import (
 )
 from path_tracer_tpu_torch.scene.model import Model, rigid_transform, rotation_y
 from path_tracer_tpu_torch.scene.scene import Scene
+from path_tracer_tpu_torch.utils.disk_cache import cached_arrays
 
 # Reference Cornell palette (main.rs:82-92)
 GRAY = (0.73, 0.73, 0.73)
@@ -166,10 +167,31 @@ def dragon_scene(nu: int = 768, nv: int = 288, env_h: int = 2048,
     models = _cornell_shell()
     vol = Volume(absorption=(0.4, 0.62, 0.7), k=0.1, c=1.0 / 200.0, g=0.6)
     glass = GGXDielectric((0.95, 0.95, 0.95), 0.2, 1.5, vol)
-    p, n = procedural.knot(scale=42.0, nu=nu, nv=nv)
+    # the knot and the sky cost seconds each at this scale and are pure
+    # functions of their arguments: memoized on disk, keyed by their source
+    p, n = cached_arrays(procedural.knot, scale=42.0, nu=nu, nv=nv)
     mats = [
         rigid_transform(rotation_y(0.7), (-120.0, 160.0, -20.0)),
         rigid_transform(rotation_y(2.3), (130.0, 390.0, 40.0)),
     ]
     models.append(Model(glass, matrices=mats, positions=p, normals=n))
-    return Scene(models, env=procedural_sky(env_h), two_level=two_level), cornell_camera(aspect)
+    env = cached_arrays(procedural_sky, env_h)
+    return Scene(models, env=env, two_level=two_level), cornell_camera(aspect)
+
+
+def env_sphere_scene(env_size: int = 64, aspect: float = 1.0,
+                     two_level: bool = False) -> tuple[Scene, Camera]:
+    """Mirror sphere under a synthetic gradient environment map: exercises
+    the equirect miss shader (integrator.rs:256-266). No lights: every path
+    ends in the environment."""
+    p, n = procedural.icosphere((0.0, 0.0, 0.0), 1.0, 3)
+    models = [Model(Specular((1.0, 1.0, 1.0)), positions=p, normals=n)]
+    h, w = env_size, env_size * 2
+    yy = np.linspace(0, 1, h)[:, None]
+    xx = np.linspace(0, 1, w)[None, :]
+    env = np.stack(
+        [0.2 + 0.8 * xx * np.ones_like(yy), 0.1 + 0.6 * yy * np.ones_like(xx), 0.3 * np.ones((h, w))],
+        axis=-1,
+    ).astype(np.float32)
+    cam = Camera((0.0, 0.0, 4.0), (0.0, 0.0, 0.0), fov=45.0, aspect_ratio=aspect)
+    return Scene(models, env=env, two_level=two_level), cam

@@ -5,9 +5,10 @@ traversal.py``, plain XLA), and the routes into it: light tables above
 ``PT_VWALK=0``, which sends a two-level scene through iwalk.
 
 Both packages build their trees with the NumPy SAH builder
-(``native.available`` patched to False), so the flat tables are compared
-bit for bit. Both sides evaluate the same expressions in the same order;
-XLA may fuse a product and a sum into a multiply-add, so a ray through a
+(``native.available`` patched to False in both, ``tests/torch_builders.py``),
+so the flat tables are compared bit for bit. Both sides evaluate the same
+expressions in the same order; XLA may fuse a product and a sum into a
+multiply-add, so a ray through a
 shared triangle edge may resolve to the other triangle: winners are held
 equal on at least 99.9% of rays and t at rtol 2e-4 where they agree. A
 render of the 20,482-light-triangle scene is held as the other render
@@ -23,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.integrator.wavefront import render_sample as jrender
 from path_tracer_tpu.scene import bvh as jbvh
@@ -44,15 +44,11 @@ from path_tracer_tpu_torch.scene import triangle as ttri
 from path_tracer_tpu_torch.scene.model import Model as TModel
 from path_tracer_tpu_torch.trace import bvh_stack, dense_stream
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-4
 AGREE = 0.999
-
-
-@pytest.fixture(autouse=True)
-def _numpy_builder(monkeypatch):
-    monkeypatch.setattr(native, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")

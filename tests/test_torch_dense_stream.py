@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.integrator.wavefront import render_sample as jrender
 from path_tracer_tpu.scene import procedural as jproc
@@ -37,6 +36,7 @@ from path_tracer_tpu_torch.scene import triangle as ttri
 from path_tracer_tpu_torch.trace import dense_stream as tds
 from path_tracer_tpu_torch.trace import walk as twalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 2e-4, 5e-6
@@ -199,9 +199,7 @@ def test_render_sample_stream_matches_jax():
     by hand: its ``Scene.device()`` packs it only on a TPU), 16x16, 2 spp,
     8 bounces; compared as the other whole-slice tests compare
     (``tests/test_torch_render.py``)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        sh, cam = jscenes.dragon_scene(**DRAGON_KW)
+    sh, cam = jscenes.dragon_scene(**DRAGON_KW)
     jd = sh.device()
     t = sh.num_world_tris
     tables = jds.pack_dense_stream(sh.tri, sh.tri["normals"].reshape(t, 9), sh.tri["model"],

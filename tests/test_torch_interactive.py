@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.interactive import session as jsession
 from path_tracer_tpu.interactive import taa as jtaa
@@ -34,6 +33,7 @@ from path_tracer_tpu_torch.interactive import session as session_mod
 from path_tracer_tpu_torch.interactive import taa
 from path_tracer_tpu_torch.interactive.session import InteractiveRenderer
 from path_tracer_tpu_torch.interactive.stream import make_server
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H = W = 16
@@ -376,9 +376,7 @@ def test_session_matches_jax(monkeypatch):
     ``tests/test_interactive.py``; it compiles once), the port its
     segmented default."""
     monkeypatch.setattr(jsession, "_SEGMENTED", False)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)  # the port's NumPy builder
-        jsh, jcam = jscenes.cornell_diffuse()
+    jsh, jcam = jscenes.cornell_diffuse()
     jr = jsession.InteractiveRenderer(jsh, jcam, W, H, max_bounces=4)
     tr = _renderer("cornell_diffuse", W, H)
     assert session_mod._SEGMENTED

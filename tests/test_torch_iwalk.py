@@ -5,8 +5,8 @@ instances of a 3,200-triangle bumpy sphere and two of a box. Host tables bit
 for bit, the public queries of both engines (the port's CPU path runs the
 plain versions of the kernels), and the engine rule.
 
-The JAX tables are built with its NumPy chunk partition (``native.available``
-patched to False), the one the port carries over; at this size both JAX
+Both packages build with their NumPy chunk partitions (``native.available``
+patched to False in both, ``tests/torch_builders.py``); at this size both JAX
 packers give one part. Both sides transform the rays and compute the
 candidate t in the same order with one rounding per op; the tolerances
 (rtol 2e-4, and a ray through a shared edge may resolve differently) are
@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu import native
 from path_tracer_tpu.scene import procedural as jproc
 from path_tracer_tpu.scene.model import Model as JModel
 from path_tracer_tpu.trace import iwalk as jiwalk
@@ -31,6 +30,7 @@ from path_tracer_tpu_torch.scene.model import rigid_transform, rotation_y
 from path_tracer_tpu_torch.scene.twolevel_scene import TwoLevelGeometry
 from path_tracer_tpu_torch.trace import iwalk as tiwalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-4
@@ -61,10 +61,8 @@ def _models(Model, procedural):
 @pytest.fixture(scope="module")
 def tables():
     """{engine: (JAX tables, port tables)} over the same models."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jm = _models(JModel, jproc)
-        j = {"vwalk": jiwalk.pack_vwalk(jm), "iwalk": jiwalk.pack_iwalk(jm)}
+    jm = _models(JModel, jproc)
+    j = {"vwalk": jiwalk.pack_vwalk(jm), "iwalk": jiwalk.pack_iwalk(jm)}
     tm = _models(TModel, tproc)
     return {e: (j[e], getattr(tiwalk, f"pack_{e}")(tm)) for e in ENGINES}
 

@@ -12,6 +12,8 @@ The kernels are built with ``-fmad=false`` and evaluate the plain versions'
 expressions in the same order, so the comparisons are exact.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -158,6 +160,65 @@ def test_dense_closest_ties_equal_plain(cuda):
     tl = torch.full((o.shape[0],), 3.0e38, device=cuda)
     k, p = dc.closest_cuda(eng, o, d, tl), dc.closest_plain(eng["aux"], o, d, tl)
     assert torch.equal(k, p) and bool((k[:, 1] == dc.TIE_ROWS[0]).all())
+
+
+@pytest.fixture(params=["asset_scene", "full_table"])
+def wide_case(cuda, request, monkeypatch):
+    """Dense tables above 64 chunks, where the kernels' chunk mask uses its
+    words 2 and 3: ``assets/asset_scene.json``'s world table (13,832 rows,
+    109 chunks) and a full table of 16,384 random triangles sorted along x
+    (128 chunks); 4,096 rays from inside the box with inf / 0 / finite
+    limits and NaN origins and directions: ``(table, origin, direction,
+    t_limit)``."""
+    from path_tracer_tpu_torch.utils import config
+
+    rng = np.random.default_rng(11)
+    if request.param == "asset_scene":
+        monkeypatch.chdir(Path(__file__).resolve().parent.parent)  # the scene's paths
+        eng = config.load_scene_json("assets/asset_scene.json").device(cuda)["tri"]["dense"]
+        lo, hi = (-278, 0, -278), (278, 555, 278)
+    else:
+        t = dc.DENSE_MAX_TRIS
+        v0 = rng.uniform(-1, 1, (t, 3)).astype(np.float32)
+        v0 = v0[np.argsort(v0[:, 0])]
+        pos = np.stack([v0, v0 + rng.uniform(-0.05, 0.05, (t, 3)),
+                        v0 + rng.uniform(-0.05, 0.05, (t, 3))], 1).astype(np.float32)
+        aux = dc.pack_dense_aux(tri_mod.precompute(pos), rng.normal(size=(t, 9)),
+                                rng.integers(0, 5, t))
+        eng = {"aux": torch.from_numpy(aux).to(cuda),
+               "cab": torch.from_numpy(dc.pack_dense_cab(pos)).to(cuda)}
+        lo, hi = (-1.2, -1.2, -1.2), (1.2, 1.2, 1.2)
+    assert eng["cab"].shape[0] > 64
+    n = 4096
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tl = np.full(n, 3.0e38, np.float32)
+    tl[:256] = 0.0
+    tl[256:512] = rng.uniform(0.0, 2.0 * max(hi), 256)
+    o[512:544] = np.nan
+    d[544:576] = np.nan
+    return eng, *(torch.from_numpy(x).to(cuda) for x in (o, d, tl))
+
+
+def test_wide_table_kernels_equal_plain(wide_case):
+    """Above 64 chunks, both kernels equal the plain versions on every ray
+    (closest: every column of the rays with finite inputs) and on the cull's
+    edge cases, which start rays on the faces of every chunk's box."""
+    eng, o, d, tl = wide_case
+    aux = eng["aux"]
+    k, p = dc.closest_cuda(eng, o, d, tl), dc.closest_plain(aux, o, d, tl)
+    finite = (torch.isfinite(o).all(1) & torch.isfinite(d).all(1))
+    assert (p[:, 1] >= 0).sum() > 1000 and (p[finite, 1] >= 64 * dc.CH).sum() > 50
+    assert torch.equal(k[finite], p[finite]) and (k[~finite, 1] == -1).all()
+    ka = dc.any_cuda(eng, o, d, tl)
+    assert torch.equal(ka, dc.any_plain(aux, o, d, tl)) and not ka[:256].any()
+    lo, hi = eng["cab"][:, 0:3], eng["cab"][:, 3:6]
+    root = {"root_lo": lo.amin(0), "root_hi": hi.amax(0)}
+    ks = torch.where(finite & (tl > 0), k[:, 1], -1.0).long()
+    eo, ed, et = _edge_rays(root, lo, hi, k[:, 0], ks, o, d, tl, 29)
+    assert torch.equal(dc.any_cuda(eng, eo, ed, et), dc.any_plain(aux, eo, ed, et))
+    assert torch.equal(dc.closest_cuda(eng, eo, ed, et), dc.closest_plain(aux, eo, ed, et))
 
 
 def test_dense_stats_counts(mesh_case):

@@ -20,7 +20,6 @@ import torch
 import torch.multiprocessing as mp
 
 import torch_mesh_ranks as ranks
-from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.parallel.mesh import make_mesh
 from path_tracer_tpu.parallel.mesh import render_sample_sharded as jtile
@@ -30,6 +29,7 @@ from path_tracer_tpu_torch.integrator import wavefront as wf
 from path_tracer_tpu_torch.interactive.session import InteractiveRenderer
 from path_tracer_tpu_torch.parallel.mesh import make_group, render_sharded, shard_lanes
 from test_torch_render import _jax_scene_with_dense_pl
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 WORLD = 4
@@ -229,9 +229,7 @@ def jax_cornell():
     """The JAX dict with the Pallas dense engine (interpret mode), tables
     from the NumPy builder as the port's, and a mesh of 4 of the 8 virtual
     devices."""
-    with pytest.MonkeyPatch.context() as m:
-        m.setattr(native, "available", lambda: False)
-        sh, cam = jscenes.cornell_diffuse()
+    sh, cam = jscenes.cornell_diffuse()
     kw = dict(max_bounces=ranks.BOUNCES, mtypes=sh.active_mtypes, any_volumes=sh.has_volumes)
     return (_jax_scene_with_dense_pl(sh), jnp.asarray(cam.view_proj_inverse()),
             jnp.asarray(cam.origin), make_mesh(WORLD), kw)

@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.integrator.wavefront import render_sample as jrender
 from path_tracer_tpu.scene.scene import Scene as JScene
@@ -31,6 +30,7 @@ from path_tracer_tpu_torch.camera import ray_directions
 from path_tracer_tpu_torch.integrator import wavefront as tw
 from path_tracer_tpu_torch.scene.scene import from_jax_scene
 from path_tracer_tpu_torch.trace import iwalk as tiwalk
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 W = H = 16
@@ -120,10 +120,8 @@ def test_render_sample_volume_matches_jax():
 def test_render_sample_walk_matches_jax():
     """dragon_scene's world queries through the walk engine on both sides:
     GGX glass with an absorbing, scattering medium under an equirect sky.
-    The JAX tables come from its NumPy chunk partition, the port's."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        j, t = _render_both("dragon_scene", engine=_jax_scene_with_walk, **DRAGON_KW)
+    Both sides' tables come from their NumPy chunk partitions."""
+    j, t = _render_both("dragon_scene", engine=_jax_scene_with_walk, **DRAGON_KW)
     _assert_slice_agrees(j, t)
 
 
@@ -131,9 +129,7 @@ def test_from_jax_scene_walk_tables():
     """A >16K-triangle scene builds walk tables instead of raising, and
     ``from_jax_scene`` of the JAX dict gives the same tensors, bit for bit,
     as the port's own ``Scene.device``."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jsh, _ = jscenes.dragon_scene(**DRAGON_KW)
+    jsh, _ = jscenes.dragon_scene(**DRAGON_KW)
     tsh, _ = tscenes.dragon_scene(**DRAGON_KW)
     assert tsh.num_world_tris == jsh.num_world_tris == 24588
     port = tsh.device("cpu")
@@ -153,9 +149,7 @@ def test_render_sample_two_level_matches_jax(packer):
     """many_instance_scene two-level: every world query through a two-level
     engine on both sides (the shade dict's world normal, rotated by the
     instance's forward rotation, and its model id)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        j, t = _render_both("many_instance_scene", engine=_jax_two_level(packer), **MANY_KW)
+    j, t = _render_both("many_instance_scene", engine=_jax_two_level(packer), **MANY_KW)
     _assert_slice_agrees(j, t)
 
 
@@ -163,11 +157,9 @@ def test_from_jax_scene_two_level_tables():
     """``from_jax_scene`` of a JAX two-level dict gives the port's own
     two-level ``Scene.device`` tables bit for bit (both engines), an empty
     ``tri``, and the same light tables; a multi-part engine raises."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jsh, _ = jscenes.many_instance_scene(**MANY_KW)
-        jd = _jax_two_level(jiwalk.pack_vwalk)(jsh)
-        parts = jiwalk.pack_vwalk(jsh.models, split_vch=4)
+    jsh, _ = jscenes.many_instance_scene(**MANY_KW)
+    jd = _jax_two_level(jiwalk.pack_vwalk)(jsh)
+    parts = jiwalk.pack_vwalk(jsh.models, split_vch=4)
     tsh, _ = tscenes.many_instance_scene(**MANY_KW, two_level=True)
     assert tsh.num_world_tris == jsh.num_world_tris == 732  # 12 shell + 9 x 80
     ported = from_jax_scene(jax.tree_util.tree_map(np.asarray, jd), "cpu")

@@ -9,7 +9,6 @@ import torch
 from PIL import Image
 
 from path_tracer_tpu import film as jfilm
-from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.scene import bvh as jbvh
 from path_tracer_tpu.scene import envmap as jenv
@@ -20,21 +19,19 @@ from path_tracer_tpu_torch import scenes as tscenes
 from path_tracer_tpu_torch.scene import envmap as tenv
 from path_tracer_tpu_torch.scene.scene import from_jax_scene
 from path_tracer_tpu_torch.trace.dense_cuda import pack_dense_aux
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 
 SCENES = ["cornell_diffuse", "cornell_specular", "cornell_volume", "mesh_scene"]
 
 
 @pytest.fixture(scope="module", params=SCENES)
 def both(request):
-    """(JAX host scene, port host scene). The JAX side is built with its
-    NumPy SAH builder, the one the port carries over: the native C++
-    builder orders 38 of cornell_specular's triangles differently (a
-    near-tie in the SAH cost), so its tables are a different, equally valid
-    order."""
+    """(JAX host scene, port host scene), both built with their NumPy SAH
+    builders (``tests/torch_builders.py``): the JAX package's native
+    library orders 38 of cornell_specular's triangles differently (a
+    near-tie in the SAH cost), a different, equally valid order."""
     kw = {"aspect": 16 / 9}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jsh, _ = getattr(jscenes, request.param)(**kw)
+    jsh, _ = getattr(jscenes, request.param)(**kw)
     tsh, _ = getattr(tscenes, request.param)(**kw)
     return jsh, tsh
 

@@ -5,12 +5,13 @@ routes into it: a two-level scene over iwalk's caps, ``engine="gather"``,
 ``PT_IWALK=0`` and the JAX package's gather dict through ``from_jax_scene``.
 
 Both packages build their BLASes with the NumPy SAH builder
-(``native.available`` patched to False), so the tables are compared bit for
-bit. Both sides evaluate the same expressions in the same order, but XLA
-may contract a product and a sum into one multiply-add where torch rounds
-each: moving a ray to a leaf's entry t then differs by an ulp of the scene's
-coordinates (6e-5 at the Cornell box's 555 units), so t is held to rtol
-1e-6 plus atol 1e-4, and a different winner is allowed only at the same t.
+(``native.available`` patched to False in both, ``tests/torch_builders.py``),
+so the tables are compared bit for bit. Both sides evaluate the same
+expressions in the same order, but XLA may contract a product and a sum
+into one multiply-add where torch rounds each: moving a ray to a leaf's
+entry t then differs by an ulp of the scene's coordinates (6e-5 at the
+Cornell box's 555 units), so t is held to rtol 1e-6 plus atol 1e-4, and a
+different winner is allowed only at the same t.
 The render is held at ``tests/test_torch_render.py``'s slice tolerances.
 """
 
@@ -22,7 +23,6 @@ import pytest
 import torch
 from test_torch_render import MANY_KW, _assert_slice_agrees, _render_both
 
-from path_tracer_tpu import native
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.scene import tlas as jtlas
 from path_tracer_tpu.scene.scene import Scene as JScene
@@ -36,14 +36,10 @@ from path_tracer_tpu_torch.scene.scene import from_jax_scene
 from path_tracer_tpu_torch.trace import iwalk as tiwalk
 from path_tracer_tpu_torch.trace import twolevel as ttl
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N_RAYS = 1024
-
-
-@pytest.fixture(autouse=True)
-def _numpy_builder(monkeypatch):
-    monkeypatch.setattr(native, "available", lambda: False)
 
 
 def _jax_gather(sh):
@@ -59,10 +55,8 @@ def many():
     """many_instance_scene cut to 9 icospheres in the Cornell shell: both
     packages' gather tables and 1,024 seeded rays from inside the box (an
     eighth with a zero limit, a quarter with a finite one)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jsh, _ = jscenes.many_instance_scene(**MANY_KW)
-        jd = _jax_gather(jsh)
+    jsh, _ = jscenes.many_instance_scene(**MANY_KW)
+    jd = _jax_gather(jsh)
     tsh, _ = tscenes.many_instance_scene(**MANY_KW, two_level=True)
     tab = tts.gather_tables(tsh.models)
     rng = np.random.default_rng(11)
@@ -178,7 +172,5 @@ def test_render_matches_jax():
     gather engine on both sides (the JAX CPU render's engine): the hit's
     normal interpolated in object space and rotated by its instance, the
     model id from the instance row."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        j, t = _render_both("many_instance_scene", engine=_jax_gather, **MANY_KW)
+    j, t = _render_both("many_instance_scene", engine=_jax_gather, **MANY_KW)
     _assert_slice_agrees(j, t)

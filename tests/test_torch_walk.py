@@ -4,8 +4,8 @@ run in interpret mode) on one 9,248-triangle bumpy sphere: host tables bit
 for bit, the coherence sort and the exit clamp, and the public queries (the
 port's CPU path runs the plain versions of the kernels).
 
-The JAX tables are built with its NumPy chunk partition (``native.available``
-patched to False), the one the port carries over. Both sides compute the
+Both packages build with their NumPy chunk partitions (``native.available``
+patched to False in both, ``tests/torch_builders.py``). Both sides compute the
 candidate t in the same order with one rounding per op, so winners and
 shading values agree exactly here; the tolerances below (rtol 2e-4, the
 bound set for the dense engine against XLA's fused multiply-adds) allow for
@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from path_tracer_tpu import native
 from path_tracer_tpu.scene import procedural as jproc
 from path_tracer_tpu.scene import triangle as jtri
 from path_tracer_tpu.trace import walk as jwalk
@@ -25,6 +24,7 @@ from path_tracer_tpu_torch.scene import procedural as tproc
 from path_tracer_tpu_torch.scene import triangle as ttri
 from path_tracer_tpu_torch.trace import walk as twalk
 from path_tracer_tpu_torch.trace.cuda_lib import LAUNCHES
+from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-4
@@ -37,9 +37,7 @@ def engines():
     tpos, tnrm = tproc.bumpy_sphere(nu=68, nv=68)
     assert np.array_equal(pos, tpos) and np.array_equal(nrm, tnrm)
     model = (np.arange(pos.shape[0]) % 5).astype(np.int64)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jnp_tables = jwalk.pack_walk(jtri.precompute(pos), nrm.reshape(-1, 9), model, pos)
+    jnp_tables = jwalk.pack_walk(jtri.precompute(pos), nrm.reshape(-1, 9), model, pos)
     t_tables = twalk.pack_walk(ttri.precompute(tpos), tnrm.reshape(-1, 9), model.astype(np.float32), tpos)
     return jnp_tables, t_tables
 
