@@ -199,8 +199,18 @@ Phases (any failure raises and the script exits non-zero without the final
     on the CPU and on the card, image means within 1%; the host build
     (``Scene``) of the asset scene with the native builder and with the
     NumPy one, and of ``dragon_scene`` with the native one; the disk cache's miss (generate and write) against
-    its hit for the dragon's knot and sky; and ``--profile-dir`` on a 64x64
-    render: the trace's events and kernels.
+    its hit for the dragon's knot and sky; the image codecs (no Pillow on
+    the card's machine): ``assets/sky.jpg`` (baseline 4:2:0) and
+    ``assets/sky_progressive.jpg`` (progressive 4:4:4, restart intervals)
+    decoded through the native library to the SHA-256 digests of Pillow's
+    decode in ``assets/jpeg_digests.json``, ``assets/asset_scene_jpeg.json``
+    (the asset scene under ``sky.jpg``) through the CLI at 1024x576, 8 spp
+    to a ``.jpg`` (dense closest and any launched; bounce steps, trace
+    seconds, launches), that file decoded against the film's tonemapped
+    bytes (PSNR >= 30 dB), the scene at 32x32, 2 spp on the CPU and on the
+    card, and the dragon's 2048x4096 sky encoded at quality 90 and decoded
+    (seconds, the decode under 5 s, PSNR); and
+    ``--profile-dir`` on a 64x64 render: the trace's events and kernels.
 
 Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24, 25, 26.
 Each render's launch counts
@@ -650,10 +660,10 @@ def check_film(film, width, height, spp) -> float:
 
 
 def render_cli(scene_name, spp, card, keys, width=WIDTH, height=HEIGHT, two_level=False,
-               absent=()):
-    """One offline render through the CLI, launch counts zeroed just before
-    and read just after; checks the film, that ``keys`` launched and that
-    ``absent`` did not."""
+               absent=(), ext=".png"):
+    """One offline render through the CLI to ``smoke_<scene><ext>``, launch
+    counts zeroed just before and read just after; checks the film, that
+    ``keys`` launched and that ``absent`` did not."""
     from path_tracer_tpu_torch import cli
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -663,7 +673,7 @@ def render_cli(scene_name, spp, card, keys, width=WIDTH, height=HEIGHT, two_leve
     res = cli.main([
         "--scene", scene_name, "--width", str(width), "--height", str(height),
         "--spp", str(spp), "--max-bounces", str(MAX_BOUNCES),
-        "--out", str(OUT_DIR / f"smoke_{Path(scene_name).stem}{tag}.png"), "--device", DEVICE,
+        "--out", str(OUT_DIR / f"smoke_{Path(scene_name).stem}{tag}{ext}"), "--device", DEVICE,
         *(["--two-level"] if two_level else []),
     ])
     torch.cuda.synchronize()
@@ -705,6 +715,70 @@ def cross_backend(make, width, height, spp, engine=None, max_bounces=MAX_BOUNCES
 # --- the scene inputs and the host runtime (phase 26) ---
 
 ASSET_SCENE = "assets/asset_scene.json"  # paths inside are relative to the repo root
+JPEG_SCENE = "assets/asset_scene_jpeg.json"  # asset_scene.json under assets/sky.jpg
+JPEG_DIGESTS = "assets/jpeg_digests.json"  # SHA-256 of Pillow's decode of each committed JPEG
+JPEG_PSNR_MIN = 30.0  # dB: a decoded JPEG (quality 75 or 90) against the bytes it encoded
+JPEG_DECODE_LIMIT_S = 5.0  # the 2048x4096 sky's decode on the card's host
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """Peak signal-to-noise ratio of two uint8 images, in dB."""
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
+
+
+def phase_jpeg(sky, card):
+    """Phase 26's image codecs (``utils/imageio.py``, no Pillow here): the
+    committed JPEGs decoded through the native library to Pillow's digests;
+    the JPEG-sky asset scene through the CLI to a ``.jpg`` (rows 1-2
+    launched), the file decoded against the film's tonemapped bytes; the
+    scene CPU against card; the 2048x4096 sky ``sky`` encoded at quality 90
+    and decoded, timed."""
+    import hashlib
+
+    from path_tracer_tpu_torch import native
+    from path_tracer_tpu_torch.film import film_to_srgb
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.utils import config, imageio
+
+    check(native.available(), "the native library is not available (g++)")
+    for path, want in json.loads(Path(JPEG_DIGESTS).read_text()).items():
+        t0 = time.perf_counter()
+        rgb = imageio.decode_image(Path(path).read_bytes(), path)
+        seconds = time.perf_counter() - t0
+        same = list(rgb.shape) == want["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"]
+        print(f"  {path}: {rgb.shape[1]}x{rgb.shape[0]} decoded in {seconds * 1e3:.1f} ms (native), "
+              f"{'equal to' if same else 'NOT equal to'} Pillow's digest")
+        check(same, path)
+    wavefront.STEPS.update(bounce=0, calls=0, reads=0)
+    launches, res = render_cli(JPEG_SCENE, SPP, card, ("closest", "any"), ext=".jpg")
+    print(f"  {JPEG_SCENE}: {wavefront.STEPS['bounce']} bounce steps, trace {res['trace_s']:.2f} s, "
+          f"scene build {res['phases']['scene build']:.3f} s (sky.jpg through the port's JPEG "
+          f"decoder), launches of PERF.md §6 rows 1-2: closest {launches['closest']}, "
+          f"any {launches['any']} ({card})")
+    data = Path(res["out"]).read_bytes()
+    check(data[:3] == b"\xff\xd8\xff", f"{res['out']} is not a JPEG file")
+    film8 = np.clip(film_to_srgb(res["film"]).cpu().numpy() * 255.0, 0, 255).astype(np.uint8)[::-1]
+    db = psnr(imageio.decode_image(data, res["out"]), film8)
+    print(f"  {Path(res['out']).name}: {len(data)} bytes, its decode against the film's tonemapped "
+          f"bytes (the PNG's) PSNR {db:.2f} dB (limit {JPEG_PSNR_MIN})")
+    check(db >= JPEG_PSNR_MIN, db)
+    print(f"{JPEG_SCENE}:")
+    cross_backend(lambda: (config.load_scene_json(JPEG_SCENE),
+                           config.load_camera_json(JPEG_SCENE, 1.0)), 32, 32, 2)
+    rgb8 = np.clip(np.power(np.maximum(sky, 0.0), 1 / 2.2) * 255.0, 0, 255).astype(np.uint8)
+    t0 = time.perf_counter()
+    data = imageio.encode_jpeg(rgb8, 90)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = imageio.decode_jpeg(data, "procedural_sky.jpg")
+    t_dec = time.perf_counter() - t0
+    db = psnr(back, rgb8)
+    print(f"  procedural_sky(h=2048) {rgb8.shape[1]}x{rgb8.shape[0]} at quality 90: {len(data)} bytes, "
+          f"encode {t_enc:.3f} s, decode {t_dec:.3f} s (limit {JPEG_DECODE_LIMIT_S} s), "
+          f"PSNR {db:.2f} dB (native entropy coder and DCTs, the card's host; {card})")
+    check(t_dec < JPEG_DECODE_LIMIT_S and db >= JPEG_PSNR_MIN, (t_dec, db))
+    return launches
 
 
 def host_build_s(models, env, use_native: bool) -> float:
@@ -721,10 +795,11 @@ def host_build_s(models, env, use_native: bool) -> float:
 
 
 def phase_inputs(dc, walk, dev, card):
-    """Phase 26: JSON scenes with OBJ models and PNG skies, env_sphere_scene,
-    the dense kernels against their plain versions on the asset scene's
-    world table, the native builder and the disk cache on the card's
-    machine, and the CLI's ``--profile-dir``."""
+    """Phase 26: JSON scenes with OBJ models and PNG and JPEG skies,
+    env_sphere_scene, the dense kernels against their plain versions on the
+    asset scene's world table, the native builder and the disk cache on the
+    card's machine, the image codecs (`phase_jpeg`) and the CLI's
+    ``--profile-dir``."""
     import tempfile
 
     from path_tracer_tpu_torch import cli, native, scenes
@@ -771,7 +846,7 @@ def phase_inputs(dc, walk, dev, card):
         del sh
 
         # the disk cache: a miss (generate and write) against a hit (read)
-        old = os.environ.get("PT_HOST_CACHE")
+        old, made = os.environ.get("PT_HOST_CACHE"), {}
         with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
             os.environ["PT_HOST_CACHE"] = tmp
             try:
@@ -780,7 +855,7 @@ def phase_inputs(dc, walk, dev, card):
                     t = []
                     for _ in range(2):
                         t0 = time.perf_counter()
-                        disk_cache.cached_arrays(fn, **kw)
+                        made[label] = disk_cache.cached_arrays(fn, **kw)
                         t.append(time.perf_counter() - t0)
                     print(f"  disk cache, dragon {label}: miss {t[0]:.2f} s, hit {t[1]:.3f} s")
             finally:
@@ -788,6 +863,7 @@ def phase_inputs(dc, walk, dev, card):
                     os.environ.pop("PT_HOST_CACHE")
                 else:
                     os.environ["PT_HOST_CACHE"] = old
+        launches["asset_jpeg"] = phase_jpeg(made["sky"], card)
 
         # --profile-dir: a trace of a small render
         prof = OUT_DIR / "prof26"

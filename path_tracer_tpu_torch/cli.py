@@ -1,10 +1,13 @@
 """Command-line renderer: ``python -m path_tracer_tpu_torch.cli [...]``.
 
 Port of ``path_tracer_tpu/cli.py``: a named scene or a JSON scene file
-(`utils.config.load_scene_json`: OBJ models, a PNG sky, paths relative to
-the working directory; its camera, or the Cornell view at ``--fov`` if it
-has none), progressive rendering in batches of up to 32 samples with
-optional checkpoints, resumable renders, and a tonemapped PNG. ``--device``
+(`utils.config.load_scene_json`: OBJ models, a PNG or JPEG sky, paths
+relative to the working directory; its camera, or the Cornell view at
+``--fov`` if it has none), progressive rendering in batches of up to 32
+samples with optional checkpoints, resumable renders, and the tonemapped
+image, PNG or JPEG by the extension of ``--out`` (checked before the scene
+is built: any other extension raises the JAX package's ``ValueError``, but
+before the render rather than after it). ``--device``
 picks the torch device (default ``cuda``; with no card it raises rather
 than falling back to the CPU). ``--two-level`` keeps shared object-space
 tables plus instance transforms instead of baking instances to world space,
@@ -130,7 +133,10 @@ def main(argv=None) -> dict:
                      "or a .json file")
 
     from path_tracer_tpu_torch.film import load_checkpoint
+    from path_tracer_tpu_torch.utils.imageio import image_format
     from path_tracer_tpu_torch.utils.profiling import PhaseTimer
+
+    image_format(args.out)  # raises for an extension save_png cannot write
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

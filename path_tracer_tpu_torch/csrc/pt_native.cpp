@@ -675,4 +675,349 @@ int64_t chunk_build(const float *bbmin, const float *bbmax, int64_t n,
   return k;
 }
 
+// ------------------------------------------------------ JPEG entropy coder
+//
+// The Huffman decode of one scan into int16 coefficient blocks (natural
+// order) and the Huffman encode of quantized blocks: the loops of
+// path_tracer_tpu_torch/utils/imageio.py's _decode_scan_py and
+// _encode_scan_py (libjpeg's jdhuff.c, jdphuff.c and jchuff.c), with the
+// same output; tests/test_torch_images.py holds them to each other. A
+// Python loop takes minutes on a 2048x4096 sky.
+
+static const int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};  // guards, as jdhuff.c
+
+struct BitReader {
+  const uint8_t *d;
+  int64_t pos;  // in bits
+  // the 32 bits from pos on, left-aligned (pos & 7 bits of the window dropped)
+  inline uint32_t window() const {
+    const uint8_t *p = d + (pos >> 3);
+    uint32_t w = (uint32_t)p[0] << 24 | (uint32_t)p[1] << 16 | (uint32_t)p[2] << 8 | p[3];
+    return w << (pos & 7);
+  }
+  inline uint32_t get(int n) {  // 1 <= n <= 16
+    uint32_t v = window() >> (32 - n);
+    pos += n;
+    return v;
+  }
+  // the next Huffman symbol through a 16-bit lookahead table, or -1
+  inline int symbol(const uint16_t *lut) {
+    uint16_t e = lut[window() >> 16];
+    if (!e) return -1;
+    pos += e >> 8;
+    return e & 255;
+  }
+};
+
+static inline int extend(uint32_t x, int s) {
+  return x < (1u << (s - 1)) ? (int)x - ((1 << s) - 1) : (int)x;
+}
+
+// One scan. data: the scan's bytes without stuffing, restart interval i at
+// [starts[i], starts[i + 1]), followed by >= 1024 zero bytes. Per scan
+// component c: coefs[c] int16 [rows, cols[c], 64], hs/vs its blocks per MCU,
+// its lookahead tables. Returns 0, -1 (bad code), -2 (a block read past its
+// interval) or -3 (the intervals do not match the restart interval).
+int64_t jpeg_decode_scan(const uint8_t *data, const int64_t *starts, int64_t n_starts,
+                         int64_t n_comps, int16_t *const *coefs, const int64_t *cols,
+                         const int64_t *hs, const int64_t *vs, const uint16_t *const *dc_luts,
+                         const uint16_t *const *ac_luts, int64_t mcus_x, int64_t mcus_y,
+                         int64_t ss, int64_t se, int64_t ah, int64_t al, int64_t restart) {
+  const int64_t n_mcu = mcus_x * mcus_y;
+  const int64_t interval = restart ? restart : n_mcu;
+  if (n_starts - 1 != (n_mcu + interval - 1) / interval) return -3;
+  std::vector<int64_t> bc, boff;
+  for (int64_t c = 0; c < n_comps; c++)
+    for (int64_t y = 0; y < vs[c]; y++)
+      for (int64_t x = 0; x < hs[c]; x++) {
+        bc.push_back(c);
+        boff.push_back((y * cols[c] + x) * 64);
+      }
+  const bool sequential = ss == 0 && se == 63 && ah == 0 && al == 0;
+  const int p1 = 1 << al, m1 = -p1;
+  std::vector<int64_t> pred((size_t)n_comps);
+  for (int64_t it = 0; it + 1 < n_starts; it++) {
+    BitReader br{data, starts[it] * 8};
+    const int64_t end = starts[it + 1] * 8;
+    std::fill(pred.begin(), pred.end(), 0);
+    int64_t eobrun = 0;
+    const int64_t m_end = std::min(n_mcu, (it + 1) * interval);
+    for (int64_t m = it * interval; m < m_end; m++) {
+      const int64_t my = m / mcus_x, mx = m % mcus_x;
+      for (size_t b = 0; b < bc.size(); b++) {
+        const int64_t c = bc[b];
+        int16_t *blk = coefs[c] + my * vs[c] * cols[c] * 64 + mx * hs[c] * 64 + boff[b];
+        const uint16_t *act = ac_luts[c];
+        if (ss == 0 && ah == 0) {  // DC (sequential, or the first stage)
+          int s = br.symbol(dc_luts[c]);
+          if (s < 0 || s > 16) return -1;
+          if (s) pred[c] += extend(br.get(s), s);
+          blk[0] = (int16_t)(pred[c] * p1);
+        } else if (ss == 0) {  // DC refinement
+          if (br.get(1)) blk[0] = (int16_t)(blk[0] | p1);
+        }
+        if (sequential) {
+          for (int k = 1; k < 64; k++) {
+            int rs = br.symbol(act);
+            if (rs < 0) return -1;
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              k += r;
+              blk[kNatural[k]] = (int16_t)extend(br.get(s), s);
+            } else if (r != 15) {
+              break;
+            } else {
+              k += 15;
+            }
+          }
+        } else if (ss && !ah) {  // AC, first stage
+          if (eobrun) {
+            eobrun--;
+            continue;
+          }
+          for (int k = (int)ss; k <= se; k++) {
+            int rs = br.symbol(act);
+            if (rs < 0) return -1;
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              k += r;
+              blk[kNatural[k]] = (int16_t)(extend(br.get(s), s) * p1);
+            } else if (r == 15) {
+              k += 15;
+            } else {
+              eobrun = 1 << r;
+              if (r) eobrun += br.get(r);
+              eobrun--;
+              break;
+            }
+          }
+        } else if (ss) {  // AC refinement
+          int k = (int)ss;
+          if (!eobrun) {
+            for (; k <= se; k++) {
+              int rs = br.symbol(act);
+              if (rs < 0) return -1;
+              int r = rs >> 4, s = rs & 15;
+              if (s) {  // a newly nonzero coefficient: its sign bit
+                s = br.get(1) ? p1 : m1;
+              } else if (r != 15) {
+                eobrun = 1 << r;
+                if (r) eobrun += br.get(r);
+                break;
+              }
+              for (; k <= se; k++) {  // correction bits of nonzeros, r zeros skipped
+                int16_t *t = blk + kNatural[k];
+                if (*t) {
+                  if (br.get(1) && !(*t & p1)) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+                } else if (--r < 0) {
+                  break;
+                }
+              }
+              if (s) blk[kNatural[k]] = (int16_t)s;
+            }
+          }
+          if (eobrun) {
+            for (; k <= se; k++) {
+              int16_t *t = blk + kNatural[k];
+              if (*t && br.get(1) && !(*t & p1)) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+            }
+            eobrun--;
+          }
+        }
+        if (br.pos > end) return -2;
+      }
+    }
+  }
+  return 0;
+}
+
+// The integer DCTs of libjpeg(-turbo), as imageio.py's NumPy
+// _idct_islow_np and _fdct_quantize_np compute them.
+static const int64_t kFix0298 = 2446, kFix0390 = 3196, kFix0541 = 4433, kFix0765 = 6270,
+                     kFix0899 = 7373, kFix1175 = 9633, kFix1501 = 12299, kFix1847 = 15137,
+                     kFix1961 = 16069, kFix2053 = 16819, kFix2562 = 20995, kFix3072 = 25172;
+
+// jidctint.c's sums of one 1-D pass before the DESCALE; in[i * step]
+static inline void idct_sums(const int64_t *in, int step, int64_t *o) {
+  int64_t z2 = in[2 * step], z3 = in[6 * step];
+  int64_t z1 = (z2 + z3) * kFix0541;
+  int64_t tmp2 = z1 - z3 * kFix1847, tmp3 = z1 + z2 * kFix0765;
+  int64_t tmp0 = (in[0] + in[4 * step]) * 8192, tmp1 = (in[0] - in[4 * step]) * 8192;
+  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  int64_t t0 = in[7 * step], t1 = in[5 * step], t2 = in[3 * step], t3 = in[1 * step];
+  z1 = t0 + t3;
+  z2 = t1 + t2;
+  z3 = t0 + t2;
+  int64_t z4 = t1 + t3, z5 = (z3 + z4) * kFix1175;
+  t0 *= kFix0298;
+  t1 *= kFix2053;
+  t2 *= kFix3072;
+  t3 *= kFix1501;
+  z1 *= -kFix0899;
+  z2 *= -kFix2562;
+  z3 = z3 * -kFix1961 + z5;
+  z4 = z4 * -kFix0390 + z5;
+  t0 += z1 + z3;
+  t1 += z2 + z4;
+  t2 += z2 + z3;
+  t3 += z1 + z4;
+  o[0] = tmp10 + t3;
+  o[7] = tmp10 - t3;
+  o[1] = tmp11 + t2;
+  o[6] = tmp11 - t2;
+  o[2] = tmp12 + t1;
+  o[5] = tmp12 - t1;
+  o[3] = tmp13 + t0;
+  o[4] = tmp13 - t0;
+}
+
+static inline int64_t descale(int64_t v, int n) { return (v + ((int64_t)1 << (n - 1))) >> n; }
+
+// Dequantize and inverse-DCT n blocks (jpeg_idct_islow): coef [n, 64] int16
+// natural order, q [64] int16 -> out [n, 64] uint8 row-major.
+void jpeg_idct_islow(const int16_t *coef, int64_t n, const int16_t *q, uint8_t *out) {
+  uint8_t limit[1024];
+  for (int v = 0; v < 1024; v++)
+    limit[v] = (uint8_t)(v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896);
+  for (int64_t b = 0; b < n; b++) {
+    const int16_t *c = coef + b * 64;
+    int64_t x[64], o[8];
+    int ws[64];  // C int, as jidctint.c's workspace
+    for (int i = 0; i < 64; i++) x[i] = (int64_t)((int)c[i] * (int)q[i]);
+    for (int col = 0; col < 8; col++) {
+      idct_sums(x + col, 8, o);
+      for (int r = 0; r < 8; r++) ws[r * 8 + col] = (int)descale(o[r], 11);
+    }
+    uint8_t *dst = out + b * 64;
+    for (int r = 0; r < 8; r++) {
+      int64_t w[8];
+      for (int i = 0; i < 8; i++) w[i] = ws[r * 8 + i];
+      idct_sums(w, 1, o);
+      for (int i = 0; i < 8; i++) dst[r * 8 + i] = limit[descale(o[i], 18) & 1023];
+    }
+  }
+}
+
+// jfdctint.c's sums of one 1-D pass before the DESCALE; outputs 0 and 4
+// scaled by 1 << 13 so that every output takes the pass's descale
+static inline void fdct_sums(const int64_t *in, int step, int64_t *o) {
+  int64_t tmp0 = in[0] + in[7 * step], tmp7 = in[0] - in[7 * step];
+  int64_t tmp1 = in[step] + in[6 * step], tmp6 = in[step] - in[6 * step];
+  int64_t tmp2 = in[2 * step] + in[5 * step], tmp5 = in[2 * step] - in[5 * step];
+  int64_t tmp3 = in[3 * step] + in[4 * step], tmp4 = in[3 * step] - in[4 * step];
+  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  o[0] = (tmp10 + tmp11) * 8192;
+  o[4] = (tmp10 - tmp11) * 8192;
+  int64_t z1 = (tmp12 + tmp13) * kFix0541;
+  o[2] = z1 + tmp13 * kFix0765;
+  o[6] = z1 - tmp12 * kFix1847;
+  z1 = tmp4 + tmp7;
+  int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+  int64_t z5 = (z3 + z4) * kFix1175;
+  z1 *= -kFix0899;
+  z2 *= -kFix2562;
+  z3 = z3 * -kFix1961 + z5;
+  z4 = z4 * -kFix0390 + z5;
+  o[7] = tmp4 * kFix0298 + z1 + z3;
+  o[5] = tmp5 * kFix2053 + z2 + z4;
+  o[3] = tmp6 * kFix3072 + z2 + z3;
+  o[1] = tmp7 * kFix1501 + z1 + z4;
+}
+
+// Level-shift, forward-DCT (jpeg_fdct_islow: rows, then columns) and
+// quantize n blocks: samples [n, 64] uint8 row-major -> out [n, 64] int16
+// natural order; recip/corr/shift [64] are jcdctmgr.c's divisors.
+void jpeg_fdct_quantize(const uint8_t *samples, int64_t n, const int64_t *recip,
+                        const int64_t *corr, const int64_t *shift, int16_t *out) {
+  for (int64_t b = 0; b < n; b++) {
+    const uint8_t *s = samples + b * 64;
+    int64_t x[64], ws[64], o[8];
+    for (int i = 0; i < 64; i++) x[i] = (int64_t)s[i] - 128;
+    for (int r = 0; r < 8; r++) {
+      fdct_sums(x + r * 8, 1, o);
+      for (int i = 0; i < 8; i++) ws[r * 8 + i] = descale(o[i], 11);
+    }
+    int16_t *dst = out + b * 64;
+    for (int col = 0; col < 8; col++) {
+      fdct_sums(ws + col, 8, o);
+      for (int r = 0; r < 8; r++) {
+        const int i = r * 8 + col;
+        const int64_t d = descale(o[r], 15), a = d < 0 ? -d : d;
+        const int64_t qv = ((a + corr[i]) * recip[i]) >> shift[i];
+        dst[i] = (int16_t)(d < 0 ? -qv : qv);
+      }
+    }
+  }
+}
+
+// Huffman-encode blocks [n, 64] int16 (natural order, scan order); sel[i]
+// is block i's component: its DC predictor, its tables codes/sizes[2 sel]
+// (DC) and [2 sel + 1] (AC). Writes the stuffed bytes, the last padded with
+// 1-bits, to a malloc'd *out; returns their count or -1.
+int64_t jpeg_encode_scan(const int16_t *blocks, const int32_t *sel, int64_t n,
+                         const uint32_t *const *codes, const uint8_t *const *sizes,
+                         uint8_t **out) {
+  int32_t n_sel = 0;
+  for (int64_t i = 0; i < n; i++) n_sel = std::max(n_sel, sel[i] + 1);
+  std::vector<int64_t> pred((size_t)n_sel);
+  uint8_t *buf = (uint8_t *)std::malloc((size_t)n * 512 + 16);  // 64 codes of <= 32 bits, stuffed
+  if (!buf) return -1;
+  int64_t len = 0;
+  uint64_t acc = 0;
+  int nacc = 0;
+  auto emit = [&](uint32_t code, int size) {
+    acc = (acc << size) | code;
+    nacc += size;
+    while (nacc >= 8) {
+      nacc -= 8;
+      uint8_t byte = (uint8_t)(acc >> nacc);
+      buf[len++] = byte;
+      if (byte == 0xFF) buf[len++] = 0;
+    }
+    acc &= (1ull << nacc) - 1;
+  };
+  auto nbits = [](int v) {
+    unsigned a = (unsigned)(v < 0 ? -v : v);
+    int b = 0;
+    while (a) {
+      b++;
+      a >>= 1;
+    }
+    return b;
+  };
+  for (int64_t i = 0; i < n; i++) {
+    const int16_t *blk = blocks + i * 64;
+    const int c = sel[i];
+    const uint32_t *dcc = codes[2 * c], *acc_t = codes[2 * c + 1];
+    const uint8_t *dcs = sizes[2 * c], *acs = sizes[2 * c + 1];
+    int t = (int)(blk[0] - pred[(size_t)c]);
+    pred[(size_t)c] = blk[0];
+    int nb = nbits(t);
+    emit(dcc[nb], dcs[nb]);
+    if (nb) emit((uint32_t)(t < 0 ? t - 1 : t) & ((1u << nb) - 1), nb);
+    int r = 0;
+    for (int k = 1; k < 64; k++) {
+      t = blk[kNatural[k]];
+      if (!t) {
+        r++;
+        continue;
+      }
+      for (; r > 15; r -= 16) emit(acc_t[0xF0], acs[0xF0]);
+      nb = nbits(t);
+      emit(acc_t[(r << 4) + nb], acs[(r << 4) + nb]);
+      emit((uint32_t)(t < 0 ? t - 1 : t) & ((1u << nb) - 1), nb);
+      r = 0;
+    }
+    if (r) emit(acc_t[0], acs[0]);
+  }
+  if (nacc) emit((1u << (8 - nacc)) - 1, 8 - nacc);
+  *out = buf;
+  return len;
+}
+
 }  // extern "C"

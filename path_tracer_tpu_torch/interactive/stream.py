@@ -6,18 +6,19 @@ Serves the interactive session as a ``multipart/x-mixed-replace`` stream
 any browser shows, with camera input over HTTP:
 
 * ``GET /``            minimal HTML page: the stream + key/mouse capture
-* ``GET /stream``      each part the next progressively accumulated (or
-                       TAA-reprojected) frame
+* ``GET /stream``      MJPEG: each part the next progressively accumulated
+                       (or TAA-reprojected) frame, a JPEG at quality 88
 * ``GET /key?k=w&dt=`` WASD camera move (`InteractiveRenderer.key`)
 * ``GET /mouse?dx=&dy=&dt=`` look around (`InteractiveRenderer.mouse`)
 * ``GET /resize?w=&h=`` surface resize (`InteractiveRenderer.resize`)
 * ``GET /frame.png``   the current frame as PNG
 
-The stream's parts are PNG (``Content-Type: image/png``), where the JAX
-package sends JPEG: its encoder is Pillow's, which the card's machine does
-not have, and the port writes PNGs with the standard library
-(`film._png_bytes`). Each frame is quantized to uint8 on the device
-(`InteractiveRenderer.display(as_uint8=True)`), as a swapchain takes it.
+The stream's parts are JPEG at quality 88 (``Content-Type: image/jpeg``),
+as the JAX package sends them: the port's encoder (`utils.imageio`) writes
+the file Pillow writes for the same pixels (the card's machine has no
+Pillow). Each frame is quantized to uint8 on the device
+(`InteractiveRenderer.display(as_uint8=True)`), as a swapchain takes it,
+and encoded from those bytes; ``/frame.png`` encodes them as PNG.
 
 The render loop runs in the request thread that holds ``/stream`` (one
 renderer, one lock: input events only change the host camera, which the
@@ -36,7 +37,9 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from path_tracer_tpu_torch.film.film import _png_bytes
+from path_tracer_tpu_torch.utils.imageio import encode_jpeg, encode_png
+
+STREAM_QUALITY = 88  # the JAX package's MJPEG quality
 
 _PAGE = b"""<!doctype html><html><body style="margin:0;background:#111">
 <img id="v" src="/stream" style="display:block;margin:auto">
@@ -55,8 +58,8 @@ window.addEventListener('mousemove',e=>{
 </script></body></html>"""
 
 
-def _png(renderer) -> bytes:
-    return _png_bytes(np.ascontiguousarray(renderer.display(as_uint8=True)))
+def _frame(renderer) -> np.ndarray:
+    return np.ascontiguousarray(renderer.display(as_uint8=True))
 
 
 def make_server(renderer, host: str = "127.0.0.1", port: int = 8642,
@@ -99,7 +102,7 @@ def make_server(renderer, host: str = "127.0.0.1", port: int = 8642,
                 self._ok("text/plain", b"ok")
             elif u.path == "/frame.png":
                 with lock:
-                    png = _png(renderer)
+                    png = encode_png(_frame(renderer))
                 self._ok("image/png", png)
             elif u.path == "/stream":
                 self.send_response(200)
@@ -109,11 +112,11 @@ def make_server(renderer, host: str = "127.0.0.1", port: int = 8642,
                 while max_frames is None or n < max_frames:
                     with lock:
                         renderer.frame()
-                        png = _png(renderer)
+                        jpg = encode_jpeg(_frame(renderer), STREAM_QUALITY)
                     try:
-                        self.wfile.write(b"--frame\r\nContent-Type: image/png\r\n"
-                                         + f"Content-Length: {len(png)}\r\n\r\n".encode())
-                        self.wfile.write(png)
+                        self.wfile.write(b"--frame\r\nContent-Type: image/jpeg\r\n"
+                                         + f"Content-Length: {len(jpg)}\r\n\r\n".encode())
+                        self.wfile.write(jpg)
                         self.wfile.write(b"\r\n")
                     except (BrokenPipeError, ConnectionResetError):
                         return

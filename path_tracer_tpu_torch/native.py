@@ -1,13 +1,15 @@
-"""ctypes binding of the port's host builder (``csrc/pt_native.cpp``): OBJ
-parsing, the binned-SAH BVH build and the walk engine's chunk partition.
+"""ctypes binding of the port's host library (``csrc/pt_native.cpp``): OBJ
+parsing, the binned-SAH BVH build, the walk engine's chunk partition and
+the JPEG entropy coder and integer DCTs.
 
 The library is host C++ with a plain C interface, compiled at first use
 with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` into ``_build/`` beside
 this package (tagged by the source and the flags, written to a temporary
 file and moved into place, so concurrent processes may build it at once).
 Without g++ (or if the build fails) `available` is False and the callers
-(`scene.model`, `scene.bvh.chunk_partition`, `scene.scene`) run the NumPy
-builders, which give the same output contract.
+(`scene.model`, `scene.bvh.chunk_partition`, `scene.scene`,
+`utils.imageio`) run the NumPy builders and the Python entropy coder, which
+give the same output contract.
 
 A port of the JAX package's ``native.py``: each function's output equals
 its NumPy twin's; the SAH build and the chunk partition equal the JAX
@@ -93,6 +95,21 @@ def _load():
             ctypes.POINTER(_I64P), ctypes.POINTER(_I64P), ctypes.POINTER(_I64P),
         ]
         lib.chunk_build.restype = ctypes.c_int64
+        _VPP = ctypes.POINTER(ctypes.c_void_p)
+        lib.jpeg_decode_scan.argtypes = [
+            ctypes.c_void_p, _I64P, ctypes.c_int64, ctypes.c_int64, _VPP, _I64P, _I64P, _I64P,
+            _VPP, _VPP, *[ctypes.c_int64] * 7,
+        ]
+        lib.jpeg_decode_scan.restype = ctypes.c_int64
+        lib.jpeg_encode_scan.argtypes = [
+            ctypes.c_void_p, _I32P, ctypes.c_int64, _VPP, _VPP, ctypes.POINTER(ctypes.c_void_p),
+        ]
+        lib.jpeg_encode_scan.restype = ctypes.c_int64
+        lib.jpeg_idct_islow.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+        lib.jpeg_idct_islow.restype = None
+        lib.jpeg_fdct_quantize.argtypes = [ctypes.c_void_p, ctypes.c_int64, _I64P, _I64P, _I64P,
+                                           ctypes.c_void_p]
+        lib.jpeg_fdct_quantize.restype = None
         _lib = lib
         return _lib
 
@@ -175,3 +192,91 @@ def chunk_partition(aabb_min: np.ndarray, aabb_max: np.ndarray, chunk: int):
         raise ValueError("chunk_build failed")
     return (_take(lib, perm_p, n, np.int64, (n,)), _take(lib, starts_p, k, np.int64, (k,)),
             _take(lib, spans_p, k, np.int64, (k,)))
+
+
+def _pointers(arrays) -> ctypes.Array:
+    return (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
+
+
+def jpeg_decode_scan(data: bytes, starts, coefs, geom, luts, mcus_x: int, mcus_y: int,
+                     ss: int, se: int, ah: int, al: int, restart: int) -> int:
+    """Native Huffman decode of one JPEG scan, in place; the arguments and
+    the return code of `utils.imageio._decode_scan_py`."""
+    from path_tracer_tpu_torch.utils.imageio import _SCAN_PAD
+
+    lib = _load()
+    assert lib is not None
+    st = np.ascontiguousarray(starts, np.int64)
+    if len(data) < int(st[-1]) + _SCAN_PAD:
+        raise ValueError("jpeg_decode_scan: the scan data lacks its zero padding")
+    for c, (h, v) in zip(coefs, geom):
+        if c.dtype != np.int16 or not c.flags.c_contiguous or c.ndim != 3 or c.shape[2] != 64:
+            raise ValueError("jpeg_decode_scan: coefficients must be C-contiguous int16 [rows, cols, 64]")
+        if c.shape[0] < mcus_y * v or c.shape[1] < mcus_x * h:
+            raise ValueError("jpeg_decode_scan: coefficient array smaller than the scan's MCUs")
+    tables = [np.ascontiguousarray(t, np.uint16) for pair in luts for t in pair]
+    if any(t.shape != (1 << 16,) for t in tables):
+        raise ValueError("jpeg_decode_scan: lookahead tables must have 65536 entries")
+    buf = np.frombuffer(data, np.uint8)
+    cols = np.array([c.shape[1] for c in coefs], np.int64)
+    hs = np.array([g[0] for g in geom], np.int64)
+    vs = np.array([g[1] for g in geom], np.int64)
+    return int(lib.jpeg_decode_scan(
+        buf.ctypes.data, st.ctypes.data_as(_I64P), st.size, len(coefs), _pointers(coefs),
+        cols.ctypes.data_as(_I64P), hs.ctypes.data_as(_I64P), vs.ctypes.data_as(_I64P),
+        _pointers(tables[0::2]), _pointers(tables[1::2]), mcus_x, mcus_y, ss, se, ah, al, restart))
+
+
+def jpeg_encode_scan(blocks: np.ndarray, sel: np.ndarray, codes, sizes) -> bytes:
+    """Native Huffman encode of quantized blocks; the arguments and the
+    output of `utils.imageio._encode_scan_py`."""
+    lib = _load()
+    assert lib is not None
+    blk = np.ascontiguousarray(blocks, np.int16)
+    sl = np.ascontiguousarray(sel, np.int32)
+    if blk.ndim != 2 or blk.shape[1] != 64 or sl.shape != (blk.shape[0],):
+        raise ValueError("jpeg_encode_scan: blocks must be [n, 64] with one selector each")
+    cs = [np.ascontiguousarray(c, np.uint32) for c in codes]
+    zs = [np.ascontiguousarray(z, np.uint8) for z in sizes]
+    if sl.size and (sl.min() < 0 or 2 * int(sl.max()) + 1 >= min(len(cs), len(zs))):
+        raise ValueError("jpeg_encode_scan: a selector has no tables")
+    if any(t.shape != (256,) for t in cs + zs):
+        raise ValueError("jpeg_encode_scan: tables must have 256 entries")
+    out = ctypes.c_void_p()
+    n = lib.jpeg_encode_scan(blk.ctypes.data, sl.ctypes.data_as(_I32P), blk.shape[0],
+                             _pointers(cs), _pointers(zs), ctypes.byref(out))
+    if n < 0:
+        raise MemoryError("jpeg_encode_scan: out of memory")
+    data = ctypes.string_at(out.value, n)
+    lib.pt_free(out)
+    return data
+
+
+def jpeg_idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Native dequantize and inverse DCT; the output of
+    `utils.imageio._idct_islow_np`."""
+    lib = _load()
+    assert lib is not None
+    c = np.ascontiguousarray(coef, np.int16).reshape(-1, 64)
+    qs = np.ascontiguousarray(np.asarray(q).astype(np.int16))
+    if qs.shape != (64,):
+        raise ValueError("jpeg_idct_islow: the quantization table must have 64 entries")
+    out = np.empty((c.shape[0], 64), np.uint8)
+    lib.jpeg_idct_islow(c.ctypes.data, c.shape[0], qs.ctypes.data, out.ctypes.data)
+    return out
+
+
+def jpeg_fdct_quantize(samples: np.ndarray, recip: np.ndarray, corr: np.ndarray,
+                       shift: np.ndarray) -> np.ndarray:
+    """Native forward DCT and quantizer; the output of
+    `utils.imageio._fdct_quantize_np` with the divisors of its table."""
+    lib = _load()
+    assert lib is not None
+    s = np.ascontiguousarray(samples, np.uint8).reshape(-1, 64)
+    tabs = [np.ascontiguousarray(t, np.int64) for t in (recip, corr, shift)]
+    if any(t.shape != (64,) for t in tabs):
+        raise ValueError("jpeg_fdct_quantize: the divisor tables must have 64 entries")
+    out = np.empty((s.shape[0], 64), np.int16)
+    lib.jpeg_fdct_quantize(s.ctypes.data, s.shape[0], *[t.ctypes.data_as(_I64P) for t in tabs],
+                           out.ctypes.data)
+    return out

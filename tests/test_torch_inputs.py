@@ -8,7 +8,8 @@ renders of both against the JAX render, the CLI's ``.json`` scenes,
 Both packages build with their NumPy builders (``tests/torch_builders.py``),
 so host tables are compared bit for bit. The PNG decoder is held to Pillow
 (the JAX package's loader) byte for byte on every colour type and filter
-type. Renders are held to ``tests/test_torch_render.py``'s slice checks.
+type (``tests/test_torch_images.py`` holds the rest of the image codecs).
+Renders are held to ``tests/test_torch_render.py``'s slice checks.
 """
 
 import dataclasses
@@ -163,19 +164,24 @@ def test_save_image_round_trip(tmp_path):
     np.testing.assert_array_equal(tenv.load_image(tmp_path / "t.png"), jenv.load_image(tmp_path / "j.png"))
 
 
-@pytest.mark.parametrize("case", ["jpeg", "16-bit", "interlaced"])
+@pytest.mark.parametrize("case", ["cmyk-jpeg", "arithmetic-jpeg", "gif"])
 def test_unsupported_images_raise(tmp_path, case):
+    """What the port does not read raises, naming the file: a CMYK JPEG, an
+    arithmetic-coded one (its SOF0 marker patched to SOF9) and a GIF.
+    (JPEG, 16-bit and Adam7 PNG load: ``tests/test_torch_images.py``.)"""
     path = tmp_path / f"{case}.img"
     px = np.zeros((4, 4, 3), np.uint8)
-    if case == "jpeg":
-        Image.fromarray(px).save(path, "JPEG")
-        what = "not a PNG"
-    elif case == "16-bit":
-        path.write_bytes(_png(px, 2, depth=16))
-        what = "16-bit"
+    if case == "cmyk-jpeg":
+        Image.fromarray(np.zeros((4, 4, 4), np.uint8), "CMYK").save(path, "JPEG")
+        what = "4-component"
+    elif case == "arithmetic-jpeg":
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, "JPEG")
+        path.write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
+        what = "arithmetic-coded"
     else:
-        path.write_bytes(_png(px, 2, interlace=1))
-        what = "interlaced"
+        Image.fromarray(px).save(path, "GIF")
+        what = "not a PNG or JPEG"
     with pytest.raises(ValueError, match=what) as err:
         tenv.load_image(path)
     assert str(path) in str(err.value)

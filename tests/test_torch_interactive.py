@@ -14,6 +14,7 @@ on the accumulation (at least 95% of pixels within rtol 1e-3, atol 1e-4,
 means within 1%) and ids equal on at least 99% of pixels.
 """
 
+import io
 import threading
 import urllib.request
 import zlib
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from path_tracer_tpu import scenes as jscenes
 from path_tracer_tpu.interactive import session as jsession
@@ -125,7 +127,7 @@ def test_display_letterboxed():
 
 
 def _png_shape(data: bytes):
-    """(height, width, rgb rows) of a PNG from `film._png_bytes` (8-bit
+    """(height, width, rgb rows) of a PNG from `imageio.encode_png` (8-bit
     RGB, filter 0 on every row)."""
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
     w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
@@ -136,8 +138,10 @@ def _png_shape(data: bytes):
 
 
 def test_http_live_view_stream_and_input():
-    """The live view over loopback: PNG parts of the stream, key, mouse and
-    resize input, a PNG still."""
+    """The live view over loopback: JPEG parts of the stream (Pillow's
+    decode of the last equal to Pillow's quality-88 round trip of the
+    frame, as the JAX package sends it), key, mouse and resize input, a PNG
+    still."""
     r = _renderer("cornell_diffuse", 32, 32)
     srv = make_server(r, "127.0.0.1", 0, max_frames=2)  # ephemeral port
     port = srv.server_address[1]
@@ -153,13 +157,15 @@ def test_http_live_view_stream_and_input():
         urllib.request.urlopen(f"{base}/key?k=w&dt=1e-6", timeout=30).read()
         assert not np.array_equal(r.camera.origin, origin0)
         raw = urllib.request.urlopen(f"{base}/stream", timeout=300).read()
-        parts = [p for p in raw.split(b"--frame") if b"Content-Type: image/png" in p]
+        parts = [p for p in raw.split(b"--frame") if b"Content-Type: image/jpeg" in p]
         assert len(parts) == 2
-        png = parts[-1].split(b"\r\n\r\n", 1)[1].rstrip(b"\r\n")
-        h, w, rgb = _png_shape(png)
-        assert (h, w) == (32, 32)
+        jpg = parts[-1].split(b"\r\n\r\n", 1)[1].rstrip(b"\r\n")
+        rgb = np.asarray(Image.open(io.BytesIO(jpg)).convert("RGB"))
+        assert rgb.shape == (32, 32, 3)
         assert r.sample >= 2  # the stream drove the render loop
-        np.testing.assert_array_equal(rgb, r.display(as_uint8=True))
+        buf = io.BytesIO()
+        Image.fromarray(r.display(as_uint8=True), "RGB").save(buf, "JPEG", quality=88)
+        np.testing.assert_array_equal(rgb, np.asarray(Image.open(buf).convert("RGB")))
         urllib.request.urlopen(f"{base}/resize?w=24&h=16", timeout=30).read()
         assert (r.width, r.height, r.sample) == (24, 16, 0)
         h, w, _ = _png_shape(urllib.request.urlopen(f"{base}/frame.png", timeout=60).read())
