@@ -209,7 +209,18 @@ Phases (any failure raises and the script exits non-zero without the final
     seconds, launches), that file decoded against the film's tonemapped
     bytes (PSNR >= 30 dB), the scene at 32x32, 2 spp on the CPU and on the
     card, and the dragon's 2048x4096 sky encoded at quality 90 and decoded
-    (seconds, the decode under 5 s, PSNR); and
+    (seconds, the decode under 5 s, PSNR); the other raster formats: the
+    committed TIFF (LZW with predictor; 16-bit tiled), GIF, run-length TGA
+    and BMP, ASCII PPM and CMYK and 4:1:1 JPEG files decoded to the digests
+    of Pillow's decode in ``assets/format_digests.json``,
+    ``assets/asset_scene_tiff.json`` (the asset scene under ``sky.tif``,
+    ``sky.png``'s pixels) and ``asset_scene.json`` through the CLI at
+    1024x576, 2 spp (bounce steps, trace seconds, launches), 0 pixels of
+    their films differing, the TIFF-sky film written to ``.tif``, ``.bmp``,
+    ``.dib``, ``.ppm``, ``.tga``, ``.gif`` and ``.apng`` and decoded back
+    (the lossless ones equal to its tonemapped bytes, the GIF's PSNR held to
+    ``GIF_PSNR_MIN``), and the 2048x4096 sky through the GIF, TIFF and BMP
+    writers and readers (seconds, each decode under 5 s); and
     ``--profile-dir`` on a 64x64 render: the trace's events and kernels.
 
 Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24, 25, 26.
@@ -781,6 +792,92 @@ def phase_jpeg(sky, card):
     return launches
 
 
+TIFF_SCENE = "assets/asset_scene_tiff.json"  # asset_scene.json under assets/sky.tif (sky.png's pixels)
+FORMAT_DIGESTS = "assets/format_digests.json"  # SHA-256 of Pillow's decode of each committed format file
+FORMAT_SPP = 2  # the TIFF-sky and PNG-sky renders of phase_formats
+FORMAT_OUTS = (".tif", ".bmp", ".dib", ".ppm", ".tga", ".gif", ".apng")
+GIF_PSNR_MIN = 30.0  # dB, the film's GIF against its tonemapped bytes (a CPU render of the scene at 128x72, 2 spp: 40.76)
+
+
+def phase_formats(sky, card):
+    """Phase 26's other raster formats (``utils/{tiff,gif,bmp,netpbm,
+    tga}.py``, no Pillow here): (a) the committed files decoded through the
+    native library to Pillow's digests; (b) the TIFF-sky asset scene and
+    the PNG-sky one through the CLI at 1024x576, 2 spp (rows 1-2
+    launched), their films equal pixel for pixel; (c) the TIFF-sky film
+    through ``film.save_png`` to each new extension and decoded back:
+    lossless ones equal to the tonemapped bytes, the GIF's PSNR held to
+    ``GIF_PSNR_MIN``; (d) the 2048x4096 sky ``sky`` through the GIF, TIFF
+    and BMP writers and readers, timed, the decodes under
+    ``JPEG_DECODE_LIMIT_S``."""
+    import hashlib
+
+    from path_tracer_tpu_torch import native
+    from path_tracer_tpu_torch.film import film_to_srgb, save_png
+    from path_tracer_tpu_torch.integrator import wavefront
+    from path_tracer_tpu_torch.utils import imageio
+
+    t_phase = time.perf_counter()
+    check(native.available(), "the native library is not available (g++)")
+    for path, want in json.loads(Path(FORMAT_DIGESTS).read_text()).items():
+        data = Path(path).read_bytes()
+        t0 = time.perf_counter()
+        rgb = imageio.decode_image(data, path)
+        seconds = time.perf_counter() - t0
+        same = list(rgb.shape) == want["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"]
+        print(f"  {path}: {len(data)} bytes, {rgb.shape[1]}x{rgb.shape[0]} decoded in {seconds * 1e3:.1f} ms "
+              f"(native), {'equal to' if same else 'NOT equal to'} Pillow's digest")
+        check(same, path)
+    films, launches = {}, {}
+    for scene in (TIFF_SCENE, ASSET_SCENE):
+        wavefront.STEPS.update(bounce=0, calls=0, reads=0)
+        launches[scene], res = render_cli(scene, FORMAT_SPP, card, ("closest", "any"))
+        films[scene] = res["film"]
+        print(f"  {scene}: {wavefront.STEPS['bounce']} bounce steps, trace {res['trace_s']:.2f} s, "
+              f"scene build {res['phases']['scene build']:.3f} s, launches of PERF.md §6 rows 1-2: "
+              f"closest {launches[scene]['closest']}, any {launches[scene]['any']} ({card})")
+    differ = int((films[TIFF_SCENE] != films[ASSET_SCENE]).any(dim=-1).sum())
+    print(f"  TIFF-sky against PNG-sky film: {differ} of {WIDTH * HEIGHT} pixels differ (limit 0)")
+    check(differ == 0, differ)
+    film8 = np.clip(film_to_srgb(films[TIFF_SCENE]).cpu().numpy() * 255.0, 0, 255).astype(np.uint8)[::-1]
+    for ext in FORMAT_OUTS:
+        out = OUT_DIR / f"smoke_film{ext}"
+        t0 = time.perf_counter()
+        save_png(out, films[TIFF_SCENE])
+        t_write = time.perf_counter() - t0
+        data = out.read_bytes()
+        t0 = time.perf_counter()
+        back = imageio.decode_image(data, str(out))
+        t_read = time.perf_counter() - t0
+        if ext == ".gif":
+            db = psnr(back, film8)
+            print(f"  {out.name}: {len(data)} bytes, write {t_write:.3f} s, read {t_read:.3f} s, "
+                  f"PSNR against the film's tonemapped bytes {db:.2f} dB (limit {GIF_PSNR_MIN})")
+            check(db >= GIF_PSNR_MIN, db)
+        else:
+            same = back.shape == film8.shape and bool((back == film8).all())
+            print(f"  {out.name}: {len(data)} bytes, write {t_write:.3f} s, read {t_read:.3f} s, "
+                  f"{'equal to' if same else 'NOT equal to'} the film's tonemapped bytes")
+            check(same, out.name)
+    rgb8 = np.clip(np.power(np.maximum(sky, 0.0), 1 / 2.2) * 255.0, 0, 255).astype(np.uint8)
+    for fmt in ("gif", "tiff", "bmp"):
+        t0 = time.perf_counter()
+        data = imageio._ENCODERS[fmt](rgb8)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = imageio.decode_image(data, f"procedural_sky.{fmt}")
+        t_dec = time.perf_counter() - t0
+        quality = (f"PSNR {psnr(back, rgb8):.2f} dB" if fmt == "gif"
+                   else f"{'equal' if bool((back == rgb8).all()) else 'NOT equal'} to the pixels")
+        print(f"  procedural_sky(h=2048) {rgb8.shape[1]}x{rgb8.shape[0]} as {fmt.upper()}: {len(data)} bytes, "
+              f"write {t_enc:.3f} s, read {t_dec:.3f} s (limit {JPEG_DECODE_LIMIT_S} s), {quality} "
+              f"(native loops, the card's host; {card})")
+        check(t_dec < JPEG_DECODE_LIMIT_S, (fmt, t_dec))
+        check(fmt == "gif" or bool((back == rgb8).all()), fmt)
+    print(f"  phase 26 (formats): {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches[TIFF_SCENE]
+
+
 def host_build_s(models, env, use_native: bool) -> float:
     """Seconds of one baked host scene build (``Scene(...)``: the world and
     light SAH builds, the triangle tables) with the native builder or the
@@ -795,11 +892,11 @@ def host_build_s(models, env, use_native: bool) -> float:
 
 
 def phase_inputs(dc, walk, dev, card):
-    """Phase 26: JSON scenes with OBJ models and PNG and JPEG skies,
+    """Phase 26: JSON scenes with OBJ models and PNG, JPEG and TIFF skies,
     env_sphere_scene, the dense kernels against their plain versions on the
     asset scene's world table, the native builder and the disk cache on the
-    card's machine, the image codecs (`phase_jpeg`) and the CLI's
-    ``--profile-dir``."""
+    card's machine, the image codecs (`phase_jpeg`, `phase_formats`) and
+    the CLI's ``--profile-dir``."""
     import tempfile
 
     from path_tracer_tpu_torch import cli, native, scenes
@@ -864,6 +961,7 @@ def phase_inputs(dc, walk, dev, card):
                 else:
                     os.environ["PT_HOST_CACHE"] = old
         launches["asset_jpeg"] = phase_jpeg(made["sky"], card)
+        launches["asset_tiff"] = phase_formats(made["sky"], card)
 
         # --profile-dir: a trace of a small render
         prof = OUT_DIR / "prof26"

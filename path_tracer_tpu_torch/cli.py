@@ -1,13 +1,15 @@
 """Command-line renderer: ``python -m path_tracer_tpu_torch.cli [...]``.
 
 Port of ``path_tracer_tpu/cli.py``: a named scene or a JSON scene file
-(`utils.config.load_scene_json`: OBJ models, a PNG or JPEG sky, paths
-relative to the working directory; its camera, or the Cornell view at
-``--fov`` if it has none), progressive rendering in batches of up to 32
-samples with optional checkpoints, resumable renders, and the tonemapped
-image, PNG or JPEG by the extension of ``--out`` (checked before the scene
-is built: any other extension raises the JAX package's ``ValueError``, but
-before the render rather than after it). ``--device``
+(`utils.config.load_scene_json`: OBJ models, a sky in any format
+`scene.envmap.load_image` reads, paths relative to the working directory;
+its camera, or the Cornell view at ``--fov`` if it has none), progressive
+rendering in batches of up to 32 samples with optional checkpoints,
+resumable renders, and the tonemapped image in the format of the extension
+of ``--out`` (PNG, APNG, JPEG, TIFF, GIF, BMP, DIB, PPM or TGA, by Pillow's
+extension table; checked before the scene is built: any other extension
+raises the JAX package's ``ValueError``, but before the render rather than
+after it). ``--device``
 picks the torch device (default ``cuda``; with no card it raises rather
 than falling back to the CPU). ``--two-level`` keeps shared object-space
 tables plus instance transforms instead of baking instances to world space,
@@ -70,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="thin-lens diameter in world units (0 = pinhole)")
     p.add_argument("--focus", type=float, default=0.0,
                    help="focus distance (0 = the scene's look-at distance)")
-    p.add_argument("--out", default="render.png")
+    p.add_argument("--out", default="render.png",
+                   help="the image; its extension picks the format (png, jpg, tif, gif, bmp, ppm, tga, ...)")
     p.add_argument("--checkpoint", default=None, help="checkpoint .npz path (resume if exists)")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--two-level", action="store_true",

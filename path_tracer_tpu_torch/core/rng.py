@@ -65,3 +65,16 @@ def uniform4(lane_id: torch.Tensor, sample_id, bounce, stream) -> torch.Tensor:
     d = as_u32(stream, lane_id).expand(shp)
     r = pcg4d(lane_id, b, c, d)
     return torch.stack([u32_to_unit_float(x) for x in r], dim=-1)
+
+
+class StreamCounter:
+    """Hands out distinct stream ids for the RNG draw sites of a bounce, so
+    that every `uniform4` call in it draws from its own stream."""
+
+    def __init__(self, start: int = 0):
+        self._next = start
+
+    def next(self) -> int:
+        v = self._next
+        self._next += 1
+        return v

@@ -20,8 +20,19 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched cross product over the last axis."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def length_sq(a: torch.Tensor) -> torch.Tensor:
+    return dot(a, a)
+
+
 def length(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(dot(a, a))
+    return torch.sqrt(length_sq(a))
 
 
 def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -62,3 +73,15 @@ def random_cosine_vector(u0: torch.Tensor, u1: torch.Tensor) -> torch.Tensor:
 def ray_at(origin: torch.Tensor, direction: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Point along a ray (``src/ray.rs:20``)."""
     return origin + direction * t[..., None]
+
+
+def transform_point(mat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply a ``[3, 4]`` affine matrix (rotation | translation) to points
+    (``Affine3A::transform_point3a``)."""
+    return p @ mat[:, :3].T + mat[:, 3]
+
+
+def transform_vector(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply only the linear part of a ``[3, 4]`` affine matrix to vectors
+    (``Affine3A::transform_vector3a``)."""
+    return v @ mat[:, :3].T

@@ -1020,4 +1020,470 @@ int64_t jpeg_encode_scan(const int16_t *blocks, const int32_t *sel, int64_t n,
   return len;
 }
 
+
+// ------------------------------------------------- raster codecs of Pillow
+//
+// The byte loops of path_tracer_tpu_torch/utils/{tiff,gif,bmp,tga}.py:
+// LZW (TIFF's and GIF's), PackBits, TGA and BMP run lengths, GIF's LZW
+// encoder (Pillow's GifEncode.c) and the median-cut quantizer with its
+// pixel mapping (libImaging Quant.c, method 0). Each has a Python twin in
+// the module that uses it; tests/test_torch_formats.py holds them equal.
+// Outputs are buffers the caller allocated.
+
+// TIFF LZW (MSB-first codes, 9 to 12 bits, early change; libtiff's
+// LZWDecode): decode `n` bytes into out[cap]. Returns the bytes written,
+// -1 for a corrupt table (a code past the table, or no Clear first).
+int64_t tiff_lzw_decode(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap) {
+  const int kClear = 256, kEoi = 257, kSize = 4096 + 1024;
+  std::vector<int32_t> prefix(kSize), len(kSize);
+  std::vector<uint8_t> suffix(kSize), first(kSize);
+  for (int i = 0; i < 256; i++) prefix[i] = -1, len[i] = 1, suffix[i] = first[i] = (uint8_t)i;
+  int nbits = 9, free_ent = 258, old = -1;
+  int64_t bitpos = 0, o = 0;
+  const int64_t total_bits = n * 8;
+  while (o < cap && bitpos + nbits <= total_bits) {
+    int code = 0;
+    for (int k = 0; k < nbits; k++, bitpos++)
+      code = code << 1 | ((in[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
+    if (code == kEoi) break;
+    if (code == kClear) {
+      nbits = 9, free_ent = 258, old = -2;
+      continue;
+    }
+    if (old == -1) return -1;  // the first code is not a Clear
+    if (old == -2) {           // the first code after a Clear
+      if (code > kClear) return -1;
+      out[o++] = (uint8_t)code;
+      old = code;
+      continue;
+    }
+    if (code > free_ent || (code >= 258 && code < free_ent && len[code] == 0)) return -1;
+    if (free_ent >= kSize) return -1;
+    prefix[free_ent] = old;
+    first[free_ent] = first[old];
+    len[free_ent] = len[old] + 1;
+    suffix[free_ent] = code < free_ent ? first[code] : first[old];
+    if (++free_ent >= (1 << nbits) - 1 && nbits < 12) nbits++;
+    // write the string of `code` backwards
+    int64_t l = len[code], end = std::min(o + l, cap);
+    int c = code;
+    for (int64_t p = o + l - 1; p >= o; p--, c = prefix[c])
+      if (p < end) out[p] = suffix[c];
+    o = end;
+    old = code;
+  }
+  return o;
+}
+
+// GIF LZW (LSB-first codes of min_size + 1 to 12 bits, Clear and End
+// codes; Pillow's GifDecode.c): decode into out[cap]. Returns the pixels
+// written, -1 for a code past the table, -2 when the data ends before an
+// End code with the image unfilled.
+int64_t gif_lzw_decode(const uint8_t *in, int64_t n, int64_t min_size, uint8_t *out, int64_t cap) {
+  const int clear = 1 << min_size, end_code = clear + 1;
+  std::vector<int32_t> prefix(4096, -1), len(4096, 0);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  for (int i = 0; i < clear; i++) len[i] = 1, suffix[i] = first[i] = (uint8_t)i;
+  int width = (int)min_size + 1, next = clear + 2, old = -1;
+  int64_t bitpos = 0, o = 0;
+  const int64_t total_bits = n * 8;
+  while (o < cap) {
+    if (bitpos + width > total_bits) return -2;
+    int code = 0;
+    for (int k = 0; k < width; k++, bitpos++)
+      code |= ((in[bitpos >> 3] >> (bitpos & 7)) & 1) << k;
+    if (code == clear) {
+      width = (int)min_size + 1, next = clear + 2, old = -1;
+      continue;
+    }
+    if (code == end_code) break;
+    if (old < 0) {
+      if (code > clear) return -1;
+      out[o++] = (uint8_t)code;
+      old = code;
+      continue;
+    }
+    if (code > next || (code == next && next >= 4096)) return -1;
+    int c = code;
+    if (next < 4096) {
+      prefix[next] = old;
+      first[next] = first[old];
+      len[next] = len[old] + 1;
+      suffix[next] = code < next ? first[code] : first[old];
+      if (++next == (1 << width) && width < 12) width++;
+    }
+    int64_t l = len[c], stop = std::min(o + l, cap);
+    for (int64_t p = o + l - 1; p >= o; p--, c = prefix[c])
+      if (p < stop) out[p] = suffix[c];
+    o = stop;
+    old = code;
+  }
+  return o;
+}
+
+// GIF LZW encode of n indices at min_size bits (Pillow's GifEncode.c:
+// a Clear first, a Clear and a reset when the table's next code would be
+// 4096, codes LSB-first, an End code, the last byte zero-padded) into
+// out[cap]. Returns the bytes written, -1 if cap is too small.
+int64_t gif_lzw_encode(const uint8_t *in, int64_t n, int64_t min_size, uint8_t *out, int64_t cap) {
+  const int kTable = 8192, kLimit = 4096;
+  const int clear = 1 << min_size, end_code = clear + 1;
+  std::vector<uint32_t> codes(kTable, 0);
+  int next = end_code + 1, max_code = 2 * clear - 1, width = (int)min_size + 1;
+  uint32_t acc = 0;
+  int nacc = 0;
+  int64_t o = 0;
+  bool full = false;
+  auto put = [&](int code) {
+    acc |= (uint32_t)code << nacc;
+    nacc += width;
+    while (nacc >= 8) {
+      if (o >= cap) {
+        full = true;
+        return;
+      }
+      out[o++] = (uint8_t)(acc & 255);
+      acc >>= 8;
+      nacc -= 8;
+    }
+  };
+  auto reset = [&]() {
+    next = end_code + 1, max_code = 2 * clear - 1, width = (int)min_size + 1;
+    std::fill(codes.begin(), codes.end(), 0);
+  };
+  put(clear);
+  if (n > 0) {
+    int head = in[0];
+    for (int64_t i = 1; i < n && !full; i++) {
+      int tail = in[i];
+      int probe = ((head ^ (tail << 6)) * 31) & (kTable - 1);
+      bool found = false;
+      while (codes[probe]) {
+        if ((codes[probe] & 0xFFFFF) == (uint32_t)((head << 8) | tail)) {
+          head = (int)(codes[probe] >> 20);
+          found = true;
+          break;
+        }
+        probe -= (tail << 2) | 1;
+        if (probe < 0) probe += kTable;
+      }
+      if (found) continue;
+      put(head);
+      if (next < kLimit) {
+        codes[probe] = (uint32_t)next << 20 | (uint32_t)head << 8 | (uint32_t)tail;
+        if (next > max_code) {
+          max_code = max_code * 2 + 1;
+          width++;
+        }
+        next++;
+      } else {
+        put(clear);
+        reset();
+      }
+      head = tail;
+    }
+    put(head);
+  }
+  put(end_code);
+  if (nacc > 0 && !full) {
+    if (o >= cap) return -1;
+    out[o++] = (uint8_t)(acc & 255);
+  }
+  return full ? -1 : o;
+}
+
+// PackBits (TIFF compression 32773) into out[cap]. Returns the bytes
+// written.
+int64_t packbits_decode(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap) {
+  int64_t i = 0, o = 0;
+  while (i < n && o < cap) {
+    int h = (int8_t)in[i++];
+    if (h >= 0) {
+      int64_t k = std::min<int64_t>({(int64_t)h + 1, n - i, cap - o});
+      std::memcpy(out + o, in + i, (size_t)k);
+      i += h + 1, o += k;
+    } else if (h != -128) {
+      if (i >= n) break;
+      int64_t k = std::min<int64_t>(1 - h, cap - o);
+      std::memset(out + o, in[i++], (size_t)k);
+      o += k;
+    }
+  }
+  return o;
+}
+
+// TGA run-length packets (Pillow's TgaRleDecode.c) of `depth`-byte
+// pixels, rows of row_bytes, into out[rows * row_bytes] in file order.
+// Returns the bytes written, -1 for a run that crosses a row's end.
+int64_t tga_rle_decode(const uint8_t *in, int64_t n, int64_t depth, int64_t row_bytes, int64_t rows,
+                       uint8_t *out) {
+  const int64_t cap = row_bytes * rows;
+  int64_t i = 0, o = 0;
+  while (o < cap && i < n) {
+    const int64_t k = depth * ((in[i] & 0x7f) + 1);
+    if (in[i] & 0x80) {
+      if (i + 1 + depth > n) break;
+      if (o % row_bytes + k > row_bytes) return -1;
+      for (int64_t p = 0; p < k; p += depth) std::memcpy(out + o + p, in + i + 1, (size_t)depth);
+      i += 1 + depth, o += k;
+    } else {
+      if (i + 1 + k > n) break;
+      const int64_t m = std::min(k, cap - o);
+      std::memcpy(out + o, in + i + 1, (size_t)m);
+      i += 1 + k, o += m;
+    }
+  }
+  return o;
+}
+
+// BMP RLE8 / RLE4 as Pillow's BmpRleDecoder reads them (its Python loop,
+// byte for byte: the delta escape takes the two bytes after its own two,
+// an absolute run of k RLE4 pixels reads k // 2 bytes, and the word
+// alignment after it follows the file offset `base` + position). Writes at
+// most cap indices, in file row order. Returns the count written, -1 when a
+// delta's second pair is cut off.
+int64_t bmp_rle_decode(const uint8_t *in, int64_t n, int64_t base, int64_t width, int64_t rle4,
+                       uint8_t *out, int64_t cap) {
+  int64_t i = 0, o = 0, x = 0;
+  auto push = [&](uint8_t v) {
+    if (o < cap) out[o] = v;
+    o++;
+  };
+  while (o < cap) {
+    if (i + 2 > n) break;
+    int64_t num = in[i], byte = in[i + 1];
+    i += 2;
+    if (num) {
+      if (x + num > width) num = std::max<int64_t>(0, width - x);
+      for (int64_t k = 0; k < num; k++)
+        push(rle4 ? (uint8_t)(k % 2 == 0 ? byte >> 4 : byte & 15) : (uint8_t)byte);
+      x += num;
+    } else if (byte == 0) {
+      while (o % width) push(0);
+      x = 0;
+    } else if (byte == 1) {
+      break;
+    } else if (byte == 2) {
+      if (i + 2 > n) break;
+      i += 2;
+      if (i + 2 > n) return -1;
+      const int64_t right = in[i], up = in[i + 1];
+      i += 2;
+      for (int64_t k = 0; k < right + up * width && o < cap; k++) push(0);
+      x = o % width;
+    } else {
+      const int64_t count = rle4 ? byte / 2 : byte;
+      const int64_t got = std::min(count, n - i);
+      for (int64_t k = 0; k < got; k++) {
+        if (rle4) {
+          push(in[i + k] >> 4);
+          push(in[i + k] & 15);
+        } else {
+          push(in[i + k]);
+        }
+      }
+      i += got;
+      if (got < count) break;
+      x += byte;
+      if ((base + i) % 2) i++;
+    }
+  }
+  return std::min(o, cap);
+}
+
+// --- median cut (libImaging Quant.c, method 0) ---
+
+struct QBox {
+  std::vector<int32_t> idx;  // entries (distinct scaled colours)
+  uint32_t count;
+  int64_t volume;
+  int l, r;
+};
+
+static inline uint32_t qdist(const uint8_t *a, const uint8_t *b) {
+  const int dr = a[0] - b[0], dg = a[1] - b[1], db = a[2] - b[2];
+  return (uint32_t)(dr * dr + dg * dg + db * db);
+}
+
+// Quantize n RGB pixels to at most `colors` palette entries as Pillow's
+// im.quantize(colors) does for an RGB image: the colours scaled down
+// (>> scale) until at most 65536 remain, the median cut over them (the
+// largest box by pixel count first, through Pillow's heap and its ties;
+// split on the axis of the largest weighted range 77 / 150 / 29 at the
+// count's median), each box's mean colour rounded, then each colour mapped
+// to the nearest palette entry among those within twice the distance of its
+// box's entry. Writes palette[3 * colors] and idx[n]; returns the palette's
+// length.
+int64_t median_cut_quantize(const uint8_t *px, int64_t n, int64_t colors, uint8_t *palette,
+                            uint8_t *idx) {
+  if (n <= 0) return 0;
+  std::vector<uint32_t> table((size_t)1 << 24, 0);  // per 24-bit colour: count, later the entry
+  std::vector<uint32_t> keys;                       // distinct colours, ascending
+  for (int64_t i = 0; i < n; i++) {
+    const uint32_t k = (uint32_t)px[3 * i] << 16 | (uint32_t)px[3 * i + 1] << 8 | px[3 * i + 2];
+    table[k]++;
+  }
+  for (uint32_t k = 0; k < (1u << 24); k++)
+    if (table[k]) keys.push_back(k);
+  auto scaled = [](uint32_t k, int s) {
+    return (((k >> 16) & 255) >> s) << 16 | (((k >> 8) & 255) >> s) << 8 | ((k & 255) >> s);
+  };
+  int scale = 0;
+  std::vector<uint32_t> sk;
+  for (;; scale++) {
+    sk.clear();
+    for (uint32_t k : keys) sk.push_back(scaled(k, scale));
+    std::sort(sk.begin(), sk.end());
+    sk.erase(std::unique(sk.begin(), sk.end()), sk.end());
+    if (sk.size() <= 65536) break;
+  }
+  const int64_t m = (int64_t)sk.size();
+  std::vector<uint32_t> ecount((size_t)m, 0);
+  std::vector<uint8_t> ev((size_t)m * 3);
+  for (int64_t e = 0; e < m; e++)
+    for (int c = 0; c < 3; c++) ev[3 * e + c] = (uint8_t)(sk[e] >> (16 - 8 * c));
+  std::vector<int32_t> entry_of(keys.size());
+  for (size_t j = 0; j < keys.size(); j++) {
+    const int32_t e = (int32_t)(std::lower_bound(sk.begin(), sk.end(), scaled(keys[j], scale)) - sk.begin());
+    entry_of[j] = e;
+    ecount[e] += table[keys[j]];
+  }
+  std::vector<QBox> boxes;
+  boxes.push_back({std::vector<int32_t>((size_t)m), (uint32_t)n, -1, -1, -1});
+  std::iota(boxes[0].idx.begin(), boxes[0].idx.end(), 0);
+  auto volume = [&](QBox &b) {
+    if (b.volume >= 0) return b.volume;
+    if (b.idx.empty()) return b.volume = 0;
+    int lo[3] = {255, 255, 255}, hi[3] = {0, 0, 0};
+    for (int32_t e : b.idx)
+      for (int c = 0; c < 3; c++) lo[c] = std::min<int>(lo[c], ev[3 * e + c]), hi[c] = std::max<int>(hi[c], ev[3 * e + c]);
+    return b.volume = (int64_t)(hi[0] - lo[0] + 1) * (hi[1] - lo[1] + 1) * (hi[2] - lo[2] + 1);
+  };
+  // Quant.c's heap (QuantHeap.c): 1-based, the larger count on top
+  std::vector<int> heap(1, -1);
+  auto cmp = [&](int a, int b) { return (int)boxes[a].count - (int)boxes[b].count; };
+  auto heap_add = [&](int v) {
+    heap.push_back(-1);
+    size_t k = heap.size() - 1;
+    while (k != 1) {
+      if (cmp(v, heap[k / 2]) <= 0) break;
+      heap[k] = heap[k / 2];
+      k /= 2;
+    }
+    heap[k] = v;
+  };
+  auto heap_remove = [&]() {
+    if (heap.size() <= 1) return -1;
+    const int r = heap[1], v = heap.back();
+    heap.pop_back();
+    const size_t cnt = heap.size() - 1;
+    if (!cnt) return r;
+    size_t k = 1;
+    while (k * 2 <= cnt) {
+      size_t l = k * 2;
+      if (l < cnt && cmp(heap[l], heap[l + 1]) < 0) l++;
+      if (cmp(v, heap[l]) > 0) break;
+      heap[k] = heap[l];
+      k = l;
+    }
+    heap[k] = v;
+    return r;
+  };
+  heap_add(0);
+  for (int64_t it = 1; it < colors; it++) {
+    int b = -1;
+    while ((b = heap_remove()) >= 0 && volume(boxes[b]) == 1) {}
+    if (b < 0) break;
+    int lo[3] = {255, 255, 255}, hi[3] = {0, 0, 0};
+    for (int32_t e : boxes[b].idx)
+      for (int c = 0; c < 3; c++) lo[c] = std::min<int>(lo[c], ev[3 * e + c]), hi[c] = std::max<int>(hi[c], ev[3 * e + c]);
+    const int f[3] = {(hi[0] - lo[0]) * 77, (hi[1] - lo[1]) * 150, (hi[2] - lo[2]) * 29};
+    int axis = 0;
+    for (int i = 1; i < 3; i++)
+      if (f[axis] < f[i]) axis = i;
+    // the value group (descending) in which the running count passes half
+    uint64_t hist[256] = {0};
+    for (int32_t e : boxes[b].idx) hist[ev[3 * e + axis]] += ecount[e];
+    uint64_t run = 0;
+    int split = lo[axis];
+    for (int v = 255; v >= 0; v--) {
+      run += hist[v];
+      if (hist[v] && run * 2 > boxes[b].count) {
+        split = v;
+        break;
+      }
+    }
+    // left: values >= split, unless that is all of them (then > the least)
+    const int cut = split > lo[axis] ? split : lo[axis] + 1;
+    QBox L{{}, 0, -1, -1, -1}, R{{}, 0, -1, -1, -1};
+    for (int32_t e : boxes[b].idx) {
+      QBox &t = ev[3 * e + axis] >= cut ? L : R;
+      t.idx.push_back(e);
+      t.count += ecount[e];
+    }
+    boxes[b].idx.clear();
+    boxes[b].idx.shrink_to_fit();
+    const int li = (int)boxes.size();
+    boxes[b].l = li, boxes[b].r = li + 1;
+    boxes.push_back(std::move(L));
+    boxes.push_back(std::move(R));
+    heap_add(li);
+    heap_add(li + 1);
+  }
+  // palette ids: the leaves left first, empty ones skipped
+  std::vector<int32_t> box_of((size_t)m, -1);
+  int32_t nbox = 0;
+  std::vector<int> stack(1, 0);
+  while (!stack.empty()) {
+    const int b = stack.back();
+    stack.pop_back();
+    if (boxes[b].l >= 0) {
+      stack.push_back(boxes[b].r);
+      stack.push_back(boxes[b].l);
+    } else if (!boxes[b].idx.empty()) {
+      for (int32_t e : boxes[b].idx) box_of[e] = nbox;
+      nbox++;
+    }
+  }
+  std::vector<uint32_t> sum((size_t)nbox * 3, 0), cnt((size_t)nbox, 0);
+  for (size_t j = 0; j < keys.size(); j++) {
+    const int32_t bx = box_of[entry_of[j]];
+    const uint32_t c = table[keys[j]];
+    for (int ch = 0; ch < 3; ch++) sum[3 * bx + ch] += ((keys[j] >> (16 - 8 * ch)) & 255) * c;
+    cnt[bx] += c;
+  }
+  for (int32_t bx = 0; bx < nbox; bx++)
+    for (int ch = 0; ch < 3; ch++)
+      palette[3 * bx + ch] = (uint8_t)(int)(.5 + (double)sum[3 * bx + ch] / (double)cnt[bx]);
+  // the distance tables, each row sorted by (distance, index)
+  std::vector<uint32_t> dist((size_t)nbox * nbox);
+  std::vector<int32_t> order((size_t)nbox * nbox);
+  for (int32_t i = 0; i < nbox; i++)
+    for (int32_t j = 0; j < nbox; j++) dist[(size_t)i * nbox + j] = qdist(palette + 3 * i, palette + 3 * j);
+  for (int32_t i = 0; i < nbox; i++) {
+    int32_t *row = order.data() + (size_t)i * nbox;
+    const uint32_t *d = dist.data() + (size_t)i * nbox;
+    std::iota(row, row + nbox, 0);
+    std::stable_sort(row, row + nbox, [&](int32_t a, int32_t b) { return d[a] < d[b]; });
+  }
+  // each distinct colour to its entry (kept in table[]), then the pixels
+  for (size_t j = 0; j < keys.size(); j++) {
+    const uint8_t p[3] = {(uint8_t)(keys[j] >> 16), (uint8_t)(keys[j] >> 8), (uint8_t)keys[j]};
+    const int32_t bx = box_of[entry_of[j]];
+    uint32_t best = qdist(palette + 3 * bx, p);
+    int32_t match = bx;
+    const uint32_t limit = best << 2;
+    const int32_t *row = order.data() + (size_t)bx * nbox;
+    const uint32_t *d = dist.data() + (size_t)bx * nbox;
+    for (int32_t q = 0; q < nbox && d[row[q]] <= limit; q++) {
+      const uint32_t dd = qdist(palette + 3 * row[q], p);
+      if (dd < best) best = dd, match = row[q];
+    }
+    table[keys[j]] = (uint32_t)match;
+  }
+  for (int64_t i = 0; i < n; i++)
+    idx[i] = (uint8_t)table[(uint32_t)px[3 * i] << 16 | (uint32_t)px[3 * i + 1] << 8 | px[3 * i + 2]];
+  return nbox;
+}
+
 }  // extern "C"

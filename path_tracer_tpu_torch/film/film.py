@@ -5,10 +5,10 @@ The film is a ``[H, W, 4]`` float32 tensor: rgb radiance sums and the sample
 count in alpha (the reference's ``accumulate.wgsl`` layout). Checkpoints are
 the JAX package's ``.npz`` format, so each package resumes the other's
 films. `save_png` writes the format of the extension, as the JAX package's
-``Image.save(path)`` does: PNG for ``.png``, JPEG at quality 75 for
-``.jpg``, ``.jpeg``, ``.jpe`` and ``.jfif`` (the port's codecs,
-`utils.imageio`: the card's machine has no Pillow); any other extension
-raises ``ValueError``.
+``Image.save(path)`` does, with the port's codecs (`utils.imageio`: the
+card's machine has no Pillow): PNG (``.png``, ``.apng``), JPEG at quality
+75, TIFF, GIF, BMP, DIB, PPM and TGA by Pillow's extension table; any other
+extension raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def film_to_srgb(film: torch.Tensor) -> torch.Tensor:
 
 
 def save_png(path, film: torch.Tensor) -> None:
-    """Write the tonemapped film as PNG or JPEG, by the extension (the JAX
+    """Write the tonemapped film in the format of the extension (the JAX
     package's name). Film rows run bottom-up (NDC convention, see the
     camera module), so flip for image order."""
     srgb = film_to_srgb(film).cpu().numpy()

@@ -1,6 +1,7 @@
 """ctypes binding of the port's host library (``csrc/pt_native.cpp``): OBJ
-parsing, the binned-SAH BVH build, the walk engine's chunk partition and
-the JPEG entropy coder and integer DCTs.
+parsing, the binned-SAH BVH build, the walk engine's chunk partition, the
+JPEG entropy coder and integer DCTs, and the byte loops of the other raster
+codecs (LZW, PackBits, TGA and BMP run lengths, GIF's median-cut quantizer).
 
 The library is host C++ with a plain C interface, compiled at first use
 with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` into ``_build/`` beside
@@ -8,8 +9,8 @@ this package (tagged by the source and the flags, written to a temporary
 file and moved into place, so concurrent processes may build it at once).
 Without g++ (or if the build fails) `available` is False and the callers
 (`scene.model`, `scene.bvh.chunk_partition`, `scene.scene`,
-`utils.imageio`) run the NumPy builders and the Python entropy coder, which
-give the same output contract.
+`utils.imageio` and the format modules beside it) run the NumPy builders and
+the Python loops, which give the same output contract.
 
 A port of the JAX package's ``native.py``: each function's output equals
 its NumPy twin's; the SAH build and the chunk partition equal the JAX
@@ -110,6 +111,18 @@ def _load():
         lib.jpeg_fdct_quantize.argtypes = [ctypes.c_void_p, ctypes.c_int64, _I64P, _I64P, _I64P,
                                            ctypes.c_void_p]
         lib.jpeg_fdct_quantize.restype = None
+        _U8P = ctypes.c_void_p
+        _I = ctypes.c_int64
+        for name, args in (("tiff_lzw_decode", [_U8P, _I, _U8P, _I]),
+                           ("gif_lzw_decode", [_U8P, _I, _I, _U8P, _I]),
+                           ("gif_lzw_encode", [_U8P, _I, _I, _U8P, _I]),
+                           ("packbits_decode", [_U8P, _I, _U8P, _I]),
+                           ("tga_rle_decode", [_U8P, _I, _I, _I, _I, _U8P]),
+                           ("bmp_rle_decode", [_U8P, _I, _I, _I, _I, _U8P, _I]),
+                           ("median_cut_quantize", [_U8P, _I, _I, _U8P, _U8P])):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -280,3 +293,83 @@ def jpeg_fdct_quantize(samples: np.ndarray, recip: np.ndarray, corr: np.ndarray,
     lib.jpeg_fdct_quantize(s.ctypes.data, s.shape[0], *[t.ctypes.data_as(_I64P) for t in tabs],
                            out.ctypes.data)
     return out
+
+
+# --- the raster codecs' byte loops (their Python twins are in utils/) ---
+
+
+def _buf(data) -> np.ndarray:
+    return np.frombuffer(bytes(data), np.uint8)
+
+
+def tiff_lzw_decode(data: bytes, size: int) -> tuple[bytes, int]:
+    """`utils.tiff._lzw_decode_py`: (at most ``size`` bytes, return code)."""
+    lib = _load()
+    assert lib is not None
+    src, out = _buf(data), np.zeros(max(size, 1), np.uint8)
+    n = lib.tiff_lzw_decode(src.ctypes.data, len(data), out.ctypes.data, size)
+    return out[:max(n, 0)].tobytes(), min(n, 0)
+
+
+def gif_lzw_decode(data: bytes, min_size: int, size: int) -> tuple[np.ndarray, int]:
+    """`utils.gif._lzw_decode_py`: (indices, the count written or a negative
+    code)."""
+    lib = _load()
+    assert lib is not None
+    src, out = _buf(data), np.zeros(max(size, 1), np.uint8)
+    n = lib.gif_lzw_decode(src.ctypes.data, len(data), min_size, out.ctypes.data, size)
+    if n == -1:
+        out[:] = 0
+    return out[:size], n
+
+
+def gif_lzw_encode(indices: np.ndarray, min_size: int) -> bytes:
+    """`utils.gif._lzw_encode_py`: the code stream of ``indices``."""
+    lib = _load()
+    assert lib is not None
+    src = np.ascontiguousarray(indices, np.uint8).reshape(-1)
+    cap = 2 * src.size + 64  # <= 12 bits a code, a code per index, the Clears
+    out = np.zeros(cap, np.uint8)
+    n = lib.gif_lzw_encode(src.ctypes.data, src.size, min_size, out.ctypes.data, cap)
+    if n < 0:
+        raise MemoryError("gif_lzw_encode: output buffer too small")
+    return out[:n].tobytes()
+
+
+def packbits_decode(data: bytes, size: int) -> bytes:
+    """`utils.tiff._packbits_decode_py`: at most ``size`` bytes."""
+    lib = _load()
+    assert lib is not None
+    src, out = _buf(data), np.zeros(max(size, 1), np.uint8)
+    n = lib.packbits_decode(src.ctypes.data, len(data), out.ctypes.data, size)
+    return out[:n].tobytes()
+
+
+def tga_rle_decode(data: bytes, depth: int, row_bytes: int, rows: int) -> tuple[bytes, int]:
+    """`utils.tga._rle_decode_py`: (the bytes written, return code)."""
+    lib = _load()
+    assert lib is not None
+    src, out = _buf(data), np.zeros(max(row_bytes * rows, 1), np.uint8)
+    n = lib.tga_rle_decode(src.ctypes.data, len(data), depth, row_bytes, rows, out.ctypes.data)
+    return out[:max(n, 0)].tobytes(), min(n, 0)
+
+
+def bmp_rle_decode(data: bytes, base: int, width: int, rle4: bool, size: int) -> tuple[np.ndarray, int]:
+    """`utils.bmp._rle_decode_py`: (indices, the count written or -1)."""
+    lib = _load()
+    assert lib is not None
+    src, out = _buf(data), np.zeros(max(size, 1), np.uint8)
+    n = lib.bmp_rle_decode(src.ctypes.data, len(data), base, width, int(rle4), out.ctypes.data, size)
+    return out[:max(n, 0)], n
+
+
+def median_cut_quantize(rgb8: np.ndarray, colors: int = 256) -> tuple[np.ndarray, np.ndarray]:
+    """`utils.gif._quantize_py`: (palette ``[k, 3]`` uint8, indices
+    ``[H, W]`` uint8)."""
+    lib = _load()
+    assert lib is not None
+    px = np.ascontiguousarray(rgb8, np.uint8)
+    pal, idx = np.zeros((colors, 3), np.uint8), np.zeros(px.shape[:2], np.uint8)
+    k = lib.median_cut_quantize(px.ctypes.data, px.shape[0] * px.shape[1], colors,
+                                pal.ctypes.data, idx.ctypes.data)
+    return pal[:k], idx

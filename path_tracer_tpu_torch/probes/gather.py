@@ -75,6 +75,7 @@ REPS = 16
 MEDIAN_N = 200  # single launches of each side in a median timing
 MAX_LEN = 8192  # entries of the longest table the in-tile kernel stages (32 KB)
 SLEEP_CYCLES = 40_000_000  # a device-only batch's sleep: 20 ms or more at <= 2 GHz
+MAX_SLEEP_CYCLES = 32 * SLEEP_CYCLES  # the longest sleep a one-round batch may grow to
 ISSUE_MS = 10.0  # host issue time a device-only batch is sized for
 
 
@@ -311,9 +312,10 @@ def device_medians(fns, n: int = MEDIAN_N) -> tuple:
     sleep). The rounds per batch are sized from one timed round so that the
     host issues the batch in about `ISSUE_MS`; a batch whose host issue
     time is not below its sleep's device time (the event pair around the
-    sleep) is discarded and the rounds halved. So every event pair kept
-    brackets device work queued behind device work: none of the host's
-    issue time."""
+    sleep) is discarded and the rounds halved, or, at one round, the sleep
+    doubled (a stall of the host can outlast one sleep), up to
+    `MAX_SLEEP_CYCLES`. So every event pair kept brackets device work
+    queued behind device work: none of the host's issue time."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
@@ -323,6 +325,7 @@ def device_medians(fns, n: int = MEDIAN_N) -> tuple:
     per_round = time.perf_counter() - t0
     torch.cuda.synchronize()
     rounds = max(1, int(ISSUE_MS * 1e-3 / per_round))
+    cycles = SLEEP_CYCLES
     k = len(fns)
     times = [[] for _ in fns]
     worst = {"sleep_ms": float("inf"), "issue_ms": 0.0, "batches": 0}
@@ -332,7 +335,7 @@ def device_medians(fns, n: int = MEDIAN_N) -> tuple:
         sleep_start = _event()
         t0 = time.perf_counter()
         sleep_start.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(cycles)
         sides = []
         for i in range(r):
             for j in range(k):
@@ -346,10 +349,13 @@ def device_medians(fns, n: int = MEDIAN_N) -> tuple:
         torch.cuda.synchronize()
         sleep_ms = sleep_start.elapsed_time(pairs[0][0])
         if issue_ms >= sleep_ms:
-            if r == 1:
+            if r > 1:
+                rounds = max(1, r // 2)
+            elif cycles < MAX_SLEEP_CYCLES:
+                cycles *= 2
+            else:
                 raise RuntimeError(f"one round takes {issue_ms:.2f} ms to issue, over the "
-                                   f"{sleep_ms:.2f} ms sleep")
-            rounds = max(1, r // 2)
+                                   f"{sleep_ms:.2f} ms sleep of {cycles} cycles")
             continue
         worst = {"sleep_ms": min(worst["sleep_ms"], sleep_ms),
                  "issue_ms": max(worst["issue_ms"], issue_ms), "batches": worst["batches"] + 1}

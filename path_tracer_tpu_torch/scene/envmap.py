@@ -9,14 +9,21 @@ direction -> uv at ``integrator.rs:258-259``).
 
 The JAX package reads and writes images through Pillow, which the card's
 machine does not have. `load_image` decodes the file by its first bytes,
-as Pillow does, through the port's own codecs (`utils.imageio`): PNG at
-every colour type, bit depth and interlace, and baseline, extended and
-progressive JPEG, to the bytes of Pillow's ``convert("RGB")`` (16-bit gray
-PNG excepted: the port keeps the high byte where Pillow clips). Anything
-else raises, naming the file. `save_image` writes by the extension, as
-``Image.save(path)``: ``.png`` as PNG; ``.jpg``, ``.jpeg``, ``.jpe`` and
-``.jfif`` as JPEG at Pillow's default quality 75, the file Pillow writes;
-any other extension raises.
+in the order Pillow tries its plugins, through the port's own codecs
+(`utils.imageio` and the format modules beside it) to the bytes of
+Pillow's ``convert("RGB")``: PNG (every colour type, bit depth and
+interlace; APNG's default image), JPEG (baseline, extended and progressive;
+gray, YCbCr, RGB, CMYK and YCCK; every sampling libjpeg-turbo takes), TIFF
+(strips and tiles; none, LZW, Deflate and PackBits; gray, RGB and palette),
+GIF (frame 0), BMP and DIB, PBM/PGM/PPM and gray PFM, and TGA. Gray above 8
+bits (PNG, TIFF, PGM) keeps its high byte where Pillow clips to 255
+(``ROADMAP.md``, known faults of the reference). Anything else raises,
+naming the file. `save_image` writes by the extension, as
+``Image.save(path)`` does, the bytes Pillow writes: ``.tif``/``.tiff``,
+``.bmp``, ``.dib``, ``.ppm``/``.pnm``/``.pgm``/``.pbm``/``.pfm`` (P6),
+``.tga``/``.icb``/``.vda``/``.vst``, ``.gif`` (Pillow's median-cut palette),
+``.jpg``/``.jpeg``/``.jpe``/``.jfif`` (quality 75); ``.png`` and ``.apng``
+as the port's PNG; any other extension raises.
 
 The lookup fetches the four texels of the bilinear footprint with four row
 gathers. The JAX package's quad table (each footprint in one 12-wide row,
@@ -35,8 +42,9 @@ from path_tracer_tpu_torch.utils.imageio import decode_image, decode_png, write_
 
 
 def load_image(path) -> np.ndarray:
-    """Load a PNG or JPEG into linear-RGB float32 ``[H, W, 3]`` (gamma 2.2
-    -> linear), as the JAX package's ``load_image`` does with Pillow."""
+    """Load an image file (any format `utils.imageio.decode_image` reads)
+    into linear-RGB float32 ``[H, W, 3]`` (gamma 2.2 -> linear), as the JAX
+    package's ``load_image`` does with Pillow."""
     with open(path, "rb") as f:
         rgb8 = decode_image(f.read(), str(path))
     data = np.asarray(rgb8, np.float32) / 255.0
@@ -44,8 +52,8 @@ def load_image(path) -> np.ndarray:
 
 
 def save_image(path, rgb01: np.ndarray) -> None:
-    """Save a [0,1] float image ``[H, W, 3]`` as 8-bit PNG or JPEG, by the
-    extension."""
+    """Save a [0,1] float image ``[H, W, 3]`` as 8-bit RGB in the format of
+    the extension (`utils.imageio.write_image`)."""
     write_image(path, np.clip(np.asarray(rgb01) * 255.0, 0, 255).astype(np.uint8))
 
 

@@ -694,6 +694,12 @@ def walk_closest_hit_shade(eng: dict, origin, direction, t_limit):
     return orig, t, u, v, out[:, 4:7], out[:, 7].to(torch.int32)
 
 
+def walk_closest_hit(eng: dict, origin, direction, t_limit):
+    """The closest hit without the shading attributes: ``(tri_idx, t, u,
+    v)``, the contract of `traversal.closest_hit`."""
+    return walk_closest_hit_shade(eng, origin, direction, t_limit)[:4]
+
+
 def walk_any_hit(eng: dict, origin, direction, t_limit) -> torch.Tensor:
     """True where a hit with EPSILON < t < t_limit exists (unsorted rays)."""
     o, d, tl = _f32(origin, direction, t_limit)

@@ -9,7 +9,7 @@ schema, with the reference's values as defaults.
 JSON scene schema::
 
     {
-      "env": "path/to/env.png",            // optional equirect map (PNG or JPEG)
+      "env": "path/to/env.png",            // optional equirect map (any format envmap.load_image reads)
       "camera": {"origin": [x,y,z], "look_at": [x,y,z], "fov": deg,
                  "aperture": d, "focus": dist},   // optional
       "two_level": false,                   // optional

@@ -85,7 +85,7 @@ def validate_render_outputs(radiance, position, first_id, rays) -> None:
     _check(bool((_a(rays) >= 0).all()), "negative ray count")
 
 
-def debug_render(scene_host, camera, width, height, spp=1, device="cpu", **kw):
+def debug_render(scene_host, camera, width, height, spp=1, device="cuda", **kw):
     """Render one wave with scene and output validation; returns the film
     ``[H, W, 4]`` (rgb sum + sample count) as `integrator.wavefront.render`
     lays it out."""

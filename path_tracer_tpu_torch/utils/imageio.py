@@ -1,10 +1,13 @@
-"""Image file bytes: PNG and JPEG, read and written without Pillow.
+"""Image file bytes, read and written without Pillow: PNG and JPEG here,
+TIFF, GIF, BMP/DIB, the PPM family and TGA in the modules beside this one
+(`tiff`, `gif`, `bmp`, `netpbm`, `tga`), and the format dispatch.
 
 The JAX package reads and writes images through Pillow (``Image.open(...)
 .convert("RGB")``; ``Image.save(path)``, whose format follows the
-extension), which the card's machine does not have. This module gives the
+extension), which the card's machine does not have. These modules give the
 same bytes with ``numpy``, ``zlib`` and ``struct``, and the port's host
-library (`native`) for the JPEG entropy coder:
+library (`native`) for the byte loops (the JPEG entropy coder, LZW,
+run lengths, GIF's quantizer):
 
 * `decode_png`: every colour type at every bit depth it allows (1, 2, 4, 8,
   16), Adam7 interlace, every filter type, to the bytes of Pillow's
@@ -15,18 +18,26 @@ library (`native`) for the JPEG entropy coder:
   port takes the high byte there too (``ROADMAP.md``, known faults of the
   reference).
 * `decode_jpeg`: baseline and extended sequential Huffman (SOF0/SOF1) and
-  progressive (SOF2) files, 1 or 3 components, each component at 1x or 2x
-  the others' sampling on each axis, restart intervals, to the bytes of
-  Pillow's libjpeg-turbo decode: the integer inverse DCT of ``jidctint.c``,
-  the fancy upsampling of ``jdsample.c`` and the fixed-point YCbCr -> RGB of
-  ``jdcolor.c``, all bit for bit. Arithmetic coding, lossless and
-  hierarchical files, 12-bit samples and 4-component files raise.
+  progressive (SOF2) files; gray, YCbCr, RGB (Adobe transform 0 or the
+  component ids ``RGB``), CMYK and YCCK (Adobe transform 2), the 4-component
+  ones read as Pillow reads them (``CMYK;I``, then its CMYK -> RGB); every
+  sampling libjpeg-turbo takes (1 to 4 per axis, each dividing the largest:
+  4:2:0, 4:1:1, 3x, 4x, ...); restart intervals; to the bytes of Pillow's
+  libjpeg-turbo decode: the integer inverse DCT of ``jidctint.c``, the
+  upsampling ``jdsample.c`` picks for each ratio (fancy at 2x, else
+  repeated samples) and the fixed-point YCbCr -> RGB of ``jdcolor.c``, all
+  bit for bit. Arithmetic coding, lossless and hierarchical files and
+  12-bit samples raise.
 * `encode_jpeg`: the file Pillow writes for ``Image.save(..., "JPEG",
   quality=q)``: JFIF, baseline, 4:2:0, the Annex K tables scaled as
   ``jcparam.c`` scales them, the standard Huffman tables, and
   ``jccolor.c``, ``jcsample.c``, ``jfdctint.c`` and ``jcdctmgr.c``'s integer
   stages, so the quantized coefficients are Pillow's.
-* `encode_png`: 8-bit RGB, filter 0 on every row.
+* `encode_png`: 8-bit RGB, filter 0 on every row (also for ``.apng``, as
+  Pillow writes one frame without ``save_all``).
+* `decode_image` tells the format by the first bytes in Pillow's order and
+  `write_image` by the extension, with Pillow's extension table; any other
+  file or extension raises ``ValueError``, naming it.
 
 The Huffman decode and encode run in `native` (host C++) where g++ built
 it, else in the Python loops here (`_decode_scan_py`, `_encode_scan_py`),
@@ -44,6 +55,7 @@ import zlib
 import numpy as np
 
 from path_tracer_tpu_torch import native
+from path_tracer_tpu_torch.utils import bmp, gif, netpbm, tga, tiff
 
 # --------------------------------------------------------------------- PNG
 
@@ -636,9 +648,10 @@ def _interleave(a: np.ndarray, b: np.ndarray, axis: int) -> np.ndarray:
 
 def _upsample(c: np.ndarray, fx: int, fy: int) -> np.ndarray:
     """jdsample.c with do_fancy_upsampling (libjpeg-turbo's default): a
-    component's ``[h, w]`` samples to ``fy`` x ``fx`` times as many. 2x
-    horizontally (with or without 2x vertically) is fancy only above 2
-    samples wide; narrower, and for any other factor, samples repeat."""
+    component's ``[h, w]`` samples to ``fy`` x ``fx`` times as many, by the
+    ratio to the largest factors. 2x horizontally (with or without 2x
+    vertically) is fancy only above 2 samples wide; narrower, and for any
+    other ratio (3x, 4x, 4x by 2x, ...), samples repeat (int_upsample)."""
     c = c.astype(np.int32)
     if fx == 2 and fy == 2 and c.shape[1] > 2:  # h2v2_fancy_upsample
         up = 3 * c + _edge(c, 0, True)
@@ -755,21 +768,23 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
             prec, hgt, wid, nf = struct.unpack(">BHHB", seg[:6])
             if prec != 8:
                 raise ValueError(f"{name}: {prec}-bit JPEG; only 8-bit samples are supported")
-            if nf not in (1, 3):
-                raise ValueError(f"{name}: {nf}-component JPEG (CMYK/YCCK or other); "
-                                 "only gray and 3-component JPEG are supported")
+            if nf not in (1, 3, 4):
+                raise ValueError(f"{name}: {nf}-component JPEG; only 1, 3 and 4-component "
+                                 "(gray, YCbCr or RGB, CMYK or YCCK) JPEG is supported")
             if hgt == 0 or wid == 0:
                 raise ValueError(f"{name}: JPEG without a frame height (DNL) or width")
             raw = [tuple(seg[6 + 3 * i:9 + 3 * i]) for i in range(nf)]
-            hmax = max(c[1] >> 4 for c in raw) if nf > 1 else raw[0][1] >> 4
-            vmax = max(c[1] & 15 for c in raw) if nf > 1 else raw[0][1] & 15
+            factors = [(c[1] >> 4, c[1] & 15) for c in raw]
+            hmax = max(f[0] for f in factors) if nf > 1 else factors[0][0]
+            vmax = max(f[1] for f in factors) if nf > 1 else factors[0][1]
+            # jdinput.c: factors 1..4; jdsample.c: integral ratios only
+            if any(not (1 <= h <= 4 and 1 <= v <= 4) or (nf > 1 and (hmax % h or vmax % v))
+                   for h, v in factors):
+                raise ValueError(f"{name}: JPEG sampling factors {factors} are not supported "
+                                 "(libjpeg: 1 to 4, each dividing the largest)")
             mx, my = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
             for cid, hv, tq in raw:
                 h, v = (hv >> 4, hv & 15) if nf > 1 else (hmax, vmax)
-                if h < 1 or v < 1 or hmax % h or vmax % v or hmax // h > 2 or vmax // v > 2:
-                    raise ValueError(f"{name}: JPEG sampling factors "
-                                     f"{[(c[1] >> 4, c[1] & 15) for c in raw]} are not supported "
-                                     "(each component at 1x or 2x the others' on each axis)")
                 cw, chh = -(-wid * h // hmax), -(-hgt * v // vmax)
                 comps.append({"id": cid, "h": h, "v": v, "tq": tq, "w": cw, "hgt": chh,
                               "coef": np.zeros((my * v, mx * h, 64), np.int16), "q": None})
@@ -803,7 +818,13 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         planes.append(s[:hgt, :wid])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=2)
-    # jdapimin.c default_decompress_parms: is the file YCbCr or RGB?
+    # jdapimin.c default_decompress_parms: the file's colour space
+    if len(planes) == 4:  # Pillow decodes to CMYK and reads it as "CMYK;I"
+        if adobe is not None and adobe != 0:  # YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
+            cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int32)
+        else:
+            cmy = np.stack(planes[:3], axis=-1).astype(np.int32)
+        return _cmyk_to_rgb(255 - cmy, 255 - planes[3].astype(np.int32))
     if jfif:
         rgb = False
     elif adobe is not None:
@@ -811,6 +832,14 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     else:
         rgb = tuple(c["id"] for c in comps) == (82, 71, 66)  # "RGB"
     return np.stack(planes, axis=-1) if rgb else _ycc_to_rgb(*planes)
+
+
+def _cmyk_to_rgb(cmy: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """libImaging's cmyk2rgb: ``nk - nk * c / 255`` with ``nk = 255 - k``,
+    through its rounded MULDIV255."""
+    nk = (255 - k)[..., None]
+    t = cmy * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 def _scan(header: bytes, ent: bytes, frame, comps, qt, huff, restart, name):
@@ -852,6 +881,9 @@ def _scan(header: bytes, ent: bytes, frame, comps, qt, huff, restart, name):
             geom.append((c["h"], c["v"]))
     if ns == 1:
         mcus_y, mcus_x = coefs[0].shape[:2]
+    elif sum(h * v for h, v in geom) > 10:  # jdinput.c D_MAX_BLOCKS_IN_MCU
+        raise ValueError(f"{name}: JPEG scan of {sum(h * v for h, v in geom)} blocks an MCU "
+                         "(libjpeg takes at most 10)")
     else:
         mcus_x, mcus_y = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
     segs = [p.replace(b"\xff\x00", b"\xff") for p in _RESTART.split(ent)]
@@ -941,23 +973,78 @@ def encode_jpeg(rgb8: np.ndarray, quality: int) -> bytes:
 # --- formats ---
 
 JPEG_QUALITY = 75  # Pillow's default, what ``Image.save("x.jpg")`` writes
-_WRITERS = {".png": "png", ".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg", ".jfif": "jpeg"}
+# Pillow's extension table for the formats the port writes (Image.EXTENSION)
+_WRITERS = {".png": "png", ".apng": "png", ".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg",
+            ".jfif": "jpeg", ".tif": "tiff", ".tiff": "tiff", ".gif": "gif", ".bmp": "bmp",
+            ".dib": "dib", ".ppm": "ppm", ".pnm": "ppm", ".pgm": "ppm", ".pbm": "ppm",
+            ".pfm": "ppm", ".tga": "tga", ".icb": "tga", ".vda": "tga", ".vst": "tga"}
+_ENCODERS = {"png": encode_png, "jpeg": lambda rgb8: encode_jpeg(rgb8, JPEG_QUALITY),
+             "tiff": tiff.encode_tiff, "gif": gif.encode_gif, "bmp": bmp.encode_bmp,
+             "dib": lambda rgb8: bmp.encode_bmp(rgb8, file_header=False), "ppm": netpbm.encode_ppm,
+             "tga": tga.encode_tga}
+# Formats Pillow opens that the port does not read, told by their magic
+# numbers and tried where Pillow's plugin order (after its preloaded BMP, DIB,
+# GIF, JPEG, PPM and PNG) puts them: before TIFF, between TIFF and TGA, after
+# TGA. (ICO and CUR are left out: their four bytes also begin TGA files.)
+_BEFORE_TIFF = (
+    ("AVIF", lambda d: d[4:12] in (b"ftypavif", b"ftypavis")),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
+    ("DDS", lambda d: d[:4] == b"DDS "),
+    ("FITS", lambda d: d[:6] == b"SIMPLE"),
+    ("ICNS", lambda d: d[:4] == b"icns"),
+    ("JPEG 2000", lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\0\0\0\x0cjP  \r\n\x87\n"),
+)
+_BEFORE_TGA = (
+    ("PSD", lambda d: d[:4] == b"8BPS"),
+    ("QOI", lambda d: d[:4] == b"qoif"),
+    ("SGI", lambda d: d[:2] == b"\x01\xda"),
+    ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
+)
+_AFTER_TGA = (("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"),)
+
+
+def _unsupported(data: bytes, name: str, table) -> None:
+    for fmt, match in table:
+        if match(data):
+            raise ValueError(f"{name}: {fmt} file; the port does not read {fmt} "
+                             "(ROADMAP.md queues the formats still to port)")
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """An image file's bytes -> uint8 RGB ``[H, W, 3]``, the format told by
-    its first bytes, as Pillow tells it."""
-    if data[:8] == _PNG_SIGNATURE:
-        return decode_png(data, name)
+    its first bytes in the order ``Image.open`` tries Pillow's plugins: BMP,
+    DIB (a header size of 12, 40, 52, 56, 64, 108 or 124 bytes), GIF, JPEG,
+    the PPM family, PNG (APNG: its default image), then TIFF and TGA (by
+    Pillow's TGA header checks). A file in another format Pillow opens
+    raises ``ValueError`` naming it; one no format claims raises too."""
+    if data[:2] == bmp.SIGNATURE:
+        return bmp.decode_bmp(data, name)
+    if len(data) >= 4 and struct.unpack("<I", data[:4])[0] in bmp.DIB_HEADERS:
+        return bmp.decode_dib(data, name)
+    if data[:6] in gif.SIGNATURES:
+        return gif.decode_gif(data, name)
     if data[:3] == b"\xff\xd8\xff":
         return decode_jpeg(data, name)
-    raise ValueError(f"{name}: not a PNG or JPEG file (the port reads PNG and JPEG only)")
+    if netpbm.accepts(data[:2]):
+        return netpbm.decode_pnm(data, name)
+    if data[:8] == _PNG_SIGNATURE:
+        return decode_png(data, name)
+    _unsupported(data, name, _BEFORE_TIFF)
+    if data[:4] in tiff.SIGNATURES:
+        return tiff.decode_tiff(data, name)
+    _unsupported(data, name, _BEFORE_TGA)
+    if tga.accepts(data):
+        return tga.decode_tga(data, name)
+    _unsupported(data, name, _AFTER_TGA)
+    raise ValueError(f"{name}: not an image file the port reads (PNG, JPEG, TIFF, GIF, BMP, DIB, "
+                     "PBM/PGM/PPM/PFM, TGA)")
 
 
 def image_format(path) -> str:
-    """``"png"`` or ``"jpeg"``: the format ``Image.save(path)`` picks from
-    the extension (case-insensitive). Raises ``ValueError`` naming any
-    other extension."""
+    """The format ``Image.save(path)`` picks from the extension
+    (case-insensitive): ``png``, ``jpeg``, ``tiff``, ``gif``, ``bmp``,
+    ``dib``, ``ppm`` or ``tga``. Raises ``ValueError`` naming any other
+    extension."""
     ext = os.path.splitext(str(path))[1].lower()
     if ext not in _WRITERS:
         raise ValueError(f"unknown file extension: {ext!r} ({path}); the port writes "
@@ -966,9 +1053,9 @@ def image_format(path) -> str:
 
 
 def write_image(path, rgb8: np.ndarray) -> None:
-    """Write uint8 RGB ``[H, W, 3]`` as PNG, or as JPEG at Pillow's default
-    quality, by the extension."""
-    rgb8 = np.ascontiguousarray(rgb8, np.uint8)
-    data = encode_jpeg(rgb8, JPEG_QUALITY) if image_format(path) == "jpeg" else encode_png(rgb8)
+    """Write uint8 RGB ``[H, W, 3]`` in the format of the extension, the
+    bytes Pillow's ``Image.fromarray(rgb8, "RGB").save(path)`` writes (PNG:
+    the port's own encoder; JPEG at Pillow's default quality)."""
+    data = _ENCODERS[image_format(path)](np.ascontiguousarray(rgb8, np.uint8))
     with open(path, "wb") as f:
         f.write(data)

@@ -119,6 +119,25 @@ def test_vecmath_matches():
     )
 
 
+@pytest.mark.parametrize("name", ["cross", "length_sq", "transform_point", "transform_vector",
+                                  "StreamCounter"])
+def test_helpers_match(name):
+    """The helpers the JAX package's own code never calls (its tests and
+    benches do), against the JAX functions on the same inputs."""
+    if name == "StreamCounter":
+        j, t = jrng.StreamCounter(3), trng.StreamCounter(3)
+        assert [t.next() for _ in range(5)] == [j.next() for _ in range(5)] == [3, 4, 5, 6, 7]
+        return
+    a, b = _vecs(seed=13, unit=False), _vecs(seed=14, unit=False)
+    mat = np.random.default_rng(15).normal(size=(3, 4)).astype(np.float32)
+    args = {"cross": (a, b), "length_sq": (a,), "transform_point": (mat, a),
+            "transform_vector": (mat, b)}[name]
+    want = np.asarray(getattr(jvm, name)(*args))
+    got = getattr(tvm, name)(*map(torch.from_numpy, args)).numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+
+
 def test_onb_matches():
     n = _vecs(seed=13)
     n[:8] = [[0, 0, 1]] * 4 + [[0, 0, -1]] * 4  # poles

@@ -154,7 +154,8 @@ def test_unsupported_jpeg_raises(tmp_path, case):
     elif case == "hierarchical":
         data[sof + 1] = 0xC5
     elif case == "sampling":
-        data[sof + 11] = 0x41  # Y at 4x1 against chroma at 1x1: a 4x horizontal upsample
+        data[sof + 11] = 0x32  # Y at 3x2 against Cb at 2x1: a ratio of 3 / 2, which libjpeg refuses
+        data[sof + 14] = 0x21
     else:
         data[sof + 9] = 2
     path = tmp_path / f"{case}.jpg"
@@ -380,7 +381,7 @@ def test_native_dct_matches_numpy(monkeypatch):
                                           imageio._fdct_quantize_np(samples, table))
 
 
-@pytest.mark.parametrize("out", ["x.jpg", "x.JPEG", "x.png", "x.bmp", "x"])
+@pytest.mark.parametrize("out", ["x.jpg", "x.JPEG", "x.png", "x.webp", "x"])
 def test_cli_out_extension(tmp_path, monkeypatch, out):
     """``--out`` takes the format of its extension, as the JAX package's
     ``Image.save``; one Pillow would not write to (or any the port does
@@ -390,7 +391,7 @@ def test_cli_out_extension(tmp_path, monkeypatch, out):
     monkeypatch.setattr(cli, "load_scene", lambda args: built.append(1) or real(args))
     argv = ["--scene", "env_sphere_scene", "--width", "4", "--height", "4", "--spp", "1",
             "--max-bounces", "2", "--device", "cpu", "--out", str(tmp_path / out)]
-    if out in ("x.bmp", "x"):
+    if out in ("x.webp", "x"):
         with pytest.raises(ValueError, match="unknown file extension"):
             cli.main(argv)
         assert not built

@@ -164,24 +164,25 @@ def test_save_image_round_trip(tmp_path):
     np.testing.assert_array_equal(tenv.load_image(tmp_path / "t.png"), jenv.load_image(tmp_path / "j.png"))
 
 
-@pytest.mark.parametrize("case", ["cmyk-jpeg", "arithmetic-jpeg", "gif"])
+@pytest.mark.parametrize("case", ["webp", "arithmetic-jpeg", "jpeg-in-tiff"])
 def test_unsupported_images_raise(tmp_path, case):
-    """What the port does not read raises, naming the file: a CMYK JPEG, an
-    arithmetic-coded one (its SOF0 marker patched to SOF9) and a GIF.
-    (JPEG, 16-bit and Adam7 PNG load: ``tests/test_torch_images.py``.)"""
+    """What the port does not read raises, naming the file: a WebP, an
+    arithmetic-coded JPEG (its SOF0 marker patched to SOF9) and a TIFF of
+    JPEG strips. (JPEG, PNG and the other raster formats load:
+    ``tests/test_torch_images.py``, ``tests/test_torch_formats.py``.)"""
     path = tmp_path / f"{case}.img"
     px = np.zeros((4, 4, 3), np.uint8)
-    if case == "cmyk-jpeg":
-        Image.fromarray(np.zeros((4, 4, 4), np.uint8), "CMYK").save(path, "JPEG")
-        what = "4-component"
+    if case == "webp":
+        Image.fromarray(px).save(path, "WEBP")
+        what = "WebP"
     elif case == "arithmetic-jpeg":
         buf = io.BytesIO()
         Image.fromarray(px).save(buf, "JPEG")
         path.write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
         what = "arithmetic-coded"
     else:
-        Image.fromarray(px).save(path, "GIF")
-        what = "not a PNG or JPEG"
+        Image.fromarray(px).save(path, "TIFF", compression="jpeg")
+        what = "JPEG TIFF"
     with pytest.raises(ValueError, match=what) as err:
         tenv.load_image(path)
     assert str(path) in str(err.value)
@@ -470,7 +471,7 @@ def test_validate_scene_catches(fault):
 
 def test_debug_render():
     sh, cam = tscenes.cornell_diffuse()
-    film = debug.debug_render(sh, cam, 8, 8, spp=1, max_bounces=3)
+    film = debug.debug_render(sh, cam, 8, 8, spp=1, device="cpu", max_bounces=3)
     assert film.shape == (8, 8, 4) and bool((film[..., 3] == 1).all())
     with pytest.raises(debug.SceneValidationError):
         debug.validate_render_outputs(torch.tensor([[float("nan"), 0.0, 0.0]]), torch.zeros(1, 3),

@@ -8,6 +8,7 @@ against these plain versions run on the card (``tests/test_torch_kernels.py``,
 
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -75,6 +76,58 @@ def test_probe_wrappers_reject_cpu_tensors_for_kernels():
     x, i = gather.tile_inputs(0, (8, 128), 0, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         gather.tile_gather_cuda(x, i, 0)
+
+
+class _FakeCard:
+    """A host clock and a device clock for `gather.device_medians`: each
+    call costs ``host_ms`` to issue and 5 us on the device; a sleep of c
+    cycles lasts c / 2e6 ms (2 GHz); an event records the device clock."""
+
+    def __init__(self, host_ms):
+        self.host_ms, self.host, self.dev = host_ms, 0.0, 0.0
+
+    def event(self):
+        card = self
+
+        class Event:
+            def record(self):
+                self.t = card.dev
+
+            def elapsed_time(self, other):
+                return other.t - self.t
+
+        return Event()
+
+    def sleep(self, cycles):
+        self.dev += cycles / 2e6
+
+    def call(self):
+        self.host += self.host_ms
+        self.dev += 0.005
+
+    def patch(self, monkeypatch):
+        monkeypatch.setattr(gather, "_event", self.event)
+        monkeypatch.setattr(gather, "time", SimpleNamespace(perf_counter=lambda: self.host / 1e3))
+        monkeypatch.setattr(torch.cuda, "_sleep", self.sleep)
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+
+def test_device_medians_lengthens_the_sleep_for_a_slow_round(monkeypatch):
+    # One round takes 41 ms to issue, over the 20 ms sleep: the sleep doubles
+    # until it covers the round, and every kept pair brackets device work only.
+    card = _FakeCard(41.0)
+    card.patch(monkeypatch)
+    (ms,), worst = gather.device_medians([card.call], 3)
+    assert ms == pytest.approx(0.005)
+    assert worst["batches"] == 3 and worst["issue_ms"] < worst["sleep_ms"] == pytest.approx(80.0)
+
+
+def test_device_medians_raises_past_the_longest_sleep(monkeypatch):
+    card = _FakeCard(1000.0)
+    card.patch(monkeypatch)
+    longest = gather.MAX_SLEEP_CYCLES / 2e6
+    with pytest.raises(RuntimeError, match=f"over the {longest:.2f} ms sleep"):
+        gather.device_medians([card.call], 3)
 
 
 def test_row_gather_plain_equals_jax_probe():

@@ -139,6 +139,23 @@ def test_closest_matches_jax(engines):
     _assert_closest_agrees(j, t)
 
 
+@pytest.mark.parametrize("query", ["walk_closest_hit"])
+def test_closest_hit_wrapper_matches_jax(engines, query):
+    """The ``(idx, t, u, v)`` wrapper over the shading query, on (c)'s 512
+    rays: winners equal, t/u/v within RTOL."""
+    je, te = _both(engines)
+    o, d = _rays(512, seed=1)
+    tl = np.full(512, np.inf, np.float32)
+    j = [np.asarray(x) for x in getattr(jwalk, query)(je, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl))]
+    t = [x.numpy() for x in getattr(twalk, query)(te, *map(torch.from_numpy, (o, d, tl)))]
+    assert len(t) == len(j) == 4
+    np.testing.assert_array_equal(t[0], j[0])
+    hit = j[0] >= 0
+    assert hit.sum() > 100
+    for a, b in zip(t[1:], j[1:]):
+        np.testing.assert_allclose(a[hit], b[hit], rtol=RTOL, atol=1e-6)
+
+
 @pytest.mark.parametrize("scale", [0.99, 1.01])
 def test_any_hit_matches_jax(engines, scale):
     """(d) Shadow windows just short of and just past each ray's closest
