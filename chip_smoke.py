@@ -220,7 +220,14 @@ Phases (any failure raises and the script exits non-zero without the final
     ``.dib``, ``.ppm``, ``.tga``, ``.gif`` and ``.apng`` and decoded back
     (the lossless ones equal to its tonemapped bytes, the GIF's PSNR held to
     ``GIF_PSNR_MIN``), and the 2048x4096 sky through the GIF, TIFF and BMP
-    writers and readers (seconds, each decode under 5 s); and
+    writers and readers (seconds, each decode under 5 s); WebP: the
+    committed lossless sky, lossy, ``VP8X`` + ``ALPH`` and animated files
+    decoded to the digests in ``assets/webp_digests.json``,
+    ``assets/asset_scene_webp.json`` (the asset scene under ``sky.webp``)
+    rendered beside the other two with 0 pixels of its film differing, the
+    film to ``.webp`` and back (PSNR held to ``WEBP_PSNR_MIN``), the
+    2048x4096 sky through the WebP writer and reader (the decode under
+    5 s); and
     ``--profile-dir`` on a 64x64 render: the trace's events and kernels.
 
 Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24, 25, 26.
@@ -355,6 +362,22 @@ def time_ms(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def time_plain(fn, rows):
+    """(device time of one ``fn(rows)`` call by CUDA events, its output),
+    after a warm-up call on the first block of ``rows``: a plain version
+    runs once on all the rows it is compared on, not twice as
+    ``time_ms(fn, 1)`` would (at 16,384 rays the walk, two-level and stream
+    plain versions take 8-15 s a call)."""
+    fn(rows[:128])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn(rows)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -797,6 +820,10 @@ FORMAT_DIGESTS = "assets/format_digests.json"  # SHA-256 of Pillow's decode of e
 FORMAT_SPP = 2  # the TIFF-sky and PNG-sky renders of phase_formats
 FORMAT_OUTS = (".tif", ".bmp", ".dib", ".ppm", ".tga", ".gif", ".apng")
 GIF_PSNR_MIN = 30.0  # dB, the film's GIF against its tonemapped bytes (a CPU render of the scene at 128x72, 2 spp: 40.76)
+WEBP_SCENE = "assets/asset_scene_webp.json"  # asset_scene.json under assets/sky.webp (lossless, sky.png's pixels)
+WEBP_DIGESTS = "assets/webp_digests.json"  # SHA-256 of Pillow's decode of each committed WebP file
+# dB, the film's .webp against its tonemapped bytes (a CPU render of the scene at 64x36, 2 spp, 8 bounces: 35.21)
+WEBP_PSNR_MIN = 30.0
 
 
 def phase_formats(sky, card):
@@ -807,9 +834,12 @@ def phase_formats(sky, card):
     launched), their films equal pixel for pixel; (c) the TIFF-sky film
     through ``film.save_png`` to each new extension and decoded back:
     lossless ones equal to the tonemapped bytes, the GIF's PSNR held to
-    ``GIF_PSNR_MIN``; (d) the 2048x4096 sky ``sky`` through the GIF, TIFF
-    and BMP writers and readers, timed, the decodes under
-    ``JPEG_DECODE_LIMIT_S``."""
+    ``GIF_PSNR_MIN``; (d) the 2048x4096 sky ``sky`` through the GIF, TIFF,
+    BMP and WebP writers and readers, timed, the decodes under
+    ``JPEG_DECODE_LIMIT_S``. WebP (``utils/{webp,vp8,vp8l}.py``): the
+    committed WebP files against ``WEBP_DIGESTS`` in (a), the WebP-sky
+    scene beside the other two in (b), the film's ``.webp`` held to
+    ``WEBP_PSNR_MIN`` in (c)."""
     import hashlib
 
     from path_tracer_tpu_torch import native
@@ -819,7 +849,8 @@ def phase_formats(sky, card):
 
     t_phase = time.perf_counter()
     check(native.available(), "the native library is not available (g++)")
-    for path, want in json.loads(Path(FORMAT_DIGESTS).read_text()).items():
+    digests = {**json.loads(Path(FORMAT_DIGESTS).read_text()), **json.loads(Path(WEBP_DIGESTS).read_text())}
+    for path, want in digests.items():
         data = Path(path).read_bytes()
         t0 = time.perf_counter()
         rgb = imageio.decode_image(data, path)
@@ -829,51 +860,52 @@ def phase_formats(sky, card):
               f"(native), {'equal to' if same else 'NOT equal to'} Pillow's digest")
         check(same, path)
     films, launches = {}, {}
-    for scene in (TIFF_SCENE, ASSET_SCENE):
+    for scene in (TIFF_SCENE, WEBP_SCENE, ASSET_SCENE):
         wavefront.STEPS.update(bounce=0, calls=0, reads=0)
         launches[scene], res = render_cli(scene, FORMAT_SPP, card, ("closest", "any"))
         films[scene] = res["film"]
         print(f"  {scene}: {wavefront.STEPS['bounce']} bounce steps, trace {res['trace_s']:.2f} s, "
               f"scene build {res['phases']['scene build']:.3f} s, launches of PERF.md §6 rows 1-2: "
               f"closest {launches[scene]['closest']}, any {launches[scene]['any']} ({card})")
-    differ = int((films[TIFF_SCENE] != films[ASSET_SCENE]).any(dim=-1).sum())
-    print(f"  TIFF-sky against PNG-sky film: {differ} of {WIDTH * HEIGHT} pixels differ (limit 0)")
-    check(differ == 0, differ)
+    for scene, label in ((TIFF_SCENE, "TIFF"), (WEBP_SCENE, "WebP")):
+        differ = int((films[scene] != films[ASSET_SCENE]).any(dim=-1).sum())
+        print(f"  {label}-sky against PNG-sky film: {differ} of {WIDTH * HEIGHT} pixels differ (limit 0)")
+        check(differ == 0, (label, differ))
     film8 = np.clip(film_to_srgb(films[TIFF_SCENE]).cpu().numpy() * 255.0, 0, 255).astype(np.uint8)[::-1]
-    for ext in FORMAT_OUTS:
+    for ext in (*FORMAT_OUTS, ".webp"):
         out = OUT_DIR / f"smoke_film{ext}"
         t0 = time.perf_counter()
-        save_png(out, films[TIFF_SCENE])
+        save_png(out, films[WEBP_SCENE if ext == ".webp" else TIFF_SCENE])
         t_write = time.perf_counter() - t0
         data = out.read_bytes()
         t0 = time.perf_counter()
         back = imageio.decode_image(data, str(out))
         t_read = time.perf_counter() - t0
-        if ext == ".gif":
-            db = psnr(back, film8)
+        if ext in (".gif", ".webp"):
+            db, limit = psnr(back, film8), GIF_PSNR_MIN if ext == ".gif" else WEBP_PSNR_MIN
             print(f"  {out.name}: {len(data)} bytes, write {t_write:.3f} s, read {t_read:.3f} s, "
-                  f"PSNR against the film's tonemapped bytes {db:.2f} dB (limit {GIF_PSNR_MIN})")
-            check(db >= GIF_PSNR_MIN, db)
+                  f"PSNR against the film's tonemapped bytes {db:.2f} dB (limit {limit})")
+            check(db >= limit, (ext, db))
         else:
             same = back.shape == film8.shape and bool((back == film8).all())
             print(f"  {out.name}: {len(data)} bytes, write {t_write:.3f} s, read {t_read:.3f} s, "
                   f"{'equal to' if same else 'NOT equal to'} the film's tonemapped bytes")
             check(same, out.name)
     rgb8 = np.clip(np.power(np.maximum(sky, 0.0), 1 / 2.2) * 255.0, 0, 255).astype(np.uint8)
-    for fmt in ("gif", "tiff", "bmp"):
+    for fmt in ("gif", "tiff", "bmp", "webp"):
         t0 = time.perf_counter()
         data = imageio._ENCODERS[fmt](rgb8)
         t_enc = time.perf_counter() - t0
         t0 = time.perf_counter()
         back = imageio.decode_image(data, f"procedural_sky.{fmt}")
         t_dec = time.perf_counter() - t0
-        quality = (f"PSNR {psnr(back, rgb8):.2f} dB" if fmt == "gif"
+        quality = (f"PSNR {psnr(back, rgb8):.2f} dB" if fmt in ("gif", "webp")
                    else f"{'equal' if bool((back == rgb8).all()) else 'NOT equal'} to the pixels")
         print(f"  procedural_sky(h=2048) {rgb8.shape[1]}x{rgb8.shape[0]} as {fmt.upper()}: {len(data)} bytes, "
               f"write {t_enc:.3f} s, read {t_dec:.3f} s (limit {JPEG_DECODE_LIMIT_S} s), {quality} "
               f"(native loops, the card's host; {card})")
         check(t_dec < JPEG_DECODE_LIMIT_S, (fmt, t_dec))
-        check(fmt == "gif" or bool((back == rgb8).all()), fmt)
+        check(fmt in ("gif", "webp") or bool((back == rgb8).all()), fmt)
     print(f"  phase 26 (formats): {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches[TIFF_SCENE]
 
@@ -1411,7 +1443,7 @@ def phase_walk(walk, scene, cam, dev, card, others=()):
         if key == "walk_closest":
             km, (kt, ks) = time_ms(lambda: walk.closest_cuda(eng, qo, qd, qt), reps)
             rows = whole_blocks(rng, walk._valid(qo, qd, qt), PLAIN_RAYS // 128)
-            pm, (pt, ps) = time_ms(lambda: walk.closest_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            pm, (pt, ps) = time_plain(lambda r: walk.closest_plain(eng, qo[r], qd[r], qt[r]), rows)
             nan_r = ~(torch.isfinite(qo[rows]).all(1) & torch.isfinite(qd[rows]).all(1))
             err = check_walk_closest(f"render shape {name}", kt[rows], ks[rows], pt, ps, nan_r)
             stats = walk.walk_stats(eng, *public)
@@ -1424,7 +1456,7 @@ def phase_walk(walk, scene, cam, dev, card, others=()):
             km, ka = time_ms(lambda: walk.any_cuda(eng, qo, qd, qt), reps)
             live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
             rows = torch.as_tensor(np.sort(rng.choice(live, PLAIN_RAYS, replace=False)), device=dev)
-            pm, pa = time_ms(lambda: walk.any_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            pm, pa = time_plain(lambda r: walk.any_plain(eng, qo[r], qd[r], qt[r]), rows)
             err = check_any(f"walk render shape {name}", ka[rows], pa, qo[rows], qd[rows], qt[rows])
             stats = walk.walk_stats(eng, *public, query="any")
             need = needed_walk_work(walk, eng, o_ss, d_ss, tl_ss, tl_ss, occ_chunk)
@@ -1708,7 +1740,7 @@ def time_two_level(iwalk, walk, eng, shapes, occluders, label, rng, card, plain_
         if query == "closest":
             km, k = time_ms(lambda: iwalk.closest_cuda(eng, qo, qd, qt), rep)
             rows = whole_blocks(rng, walk._valid(qo, qd, qt), plain_rays // 128)
-            pm, p = time_ms(lambda: iwalk.closest_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            pm, p = time_plain(lambda r: iwalk.closest_plain(eng, qo[r], qd[r], qt[r]), rows)
             nan_r = ~(torch.isfinite(qo[rows]).all(1) & torch.isfinite(qd[rows]).all(1))
             err = check_two_level_closest(f"{label} {shape}", [x[rows] for x in k], p, nan_r)
             need = need_of(walk, eng, qo, qd, qt, torch.where(k[1] >= 0, k[0], qt))
@@ -1719,7 +1751,7 @@ def time_two_level(iwalk, walk, eng, shapes, occluders, label, rng, card, plain_
             live = walk._valid(qo, qd, qt).nonzero()[:, 0].cpu().numpy()
             rows = torch.as_tensor(np.sort(rng.choice(live, min(plain_rays, live.size), replace=False)),
                                    device=qo.device)
-            pm, pa = time_ms(lambda: iwalk.any_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            pm, pa = time_plain(lambda r: iwalk.any_plain(eng, qo[r], qd[r], qt[r]), rows)
             err = check_any(f"{label} {shape}", ka[rows], pa, qo[rows], qd[rows], qt[rows])
             o_ss, d_ss, tl_ss, occ_slot, occ_inst = occluders
             need = need_of(walk, eng, o_ss, d_ss, tl_ss, tl_ss, (occ_slot, occ_inst))
@@ -2043,7 +2075,7 @@ def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card, othe
         nan_r = ~(torch.isfinite(qo[rows]).all(1) & torch.isfinite(qd[rows]).all(1))
         if key == "stream_closest":
             km, (kt, ki) = time_ms(lambda: ds.closest_cuda(eng, qo, qd, qt), reps)
-            pm, (pt, pi) = time_ms(lambda: ds.closest_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            pm, (pt, pi) = time_plain(lambda r: ds.closest_plain(eng, qo[r], qd[r], qt[r]), rows)
             err = check_walk_closest(f"render shape {name}", kt[rows], ki[rows], pt, pi, nan_r,
                                      kind="stream")
             pub_ms, _ = time_ms(lambda: ds.dense_stream_closest_hit_shade(eng, *rays), reps)
@@ -2054,7 +2086,7 @@ def phase_stream_shapes(ds, dc, walk, eng, walk_eng, scene, cam, dev, card, othe
             this = lambda: ds.closest_cuda(eng, qo, qd, qt)  # noqa: E731
         else:
             km, ka = time_ms(lambda: ds.any_cuda(eng, qo, qd, qt), reps)
-            pm, pa = time_ms(lambda: ds.any_plain(eng, qo[rows], qd[rows], qt[rows]), 1)
+            pm, pa = time_plain(lambda r: ds.any_plain(eng, qo[r], qd[r], qt[r]), rows)
             err = check_any(f"stream render shape {name}", ka[rows], pa, qo[rows], qd[rows], qt[rows])
             pub_ms, _ = time_ms(lambda: ds.dense_stream_any_hit(eng, *rays), reps)
             walk_ms, _ = time_ms(lambda: walk.walk_any_hit(walk_eng, *rays), reps)

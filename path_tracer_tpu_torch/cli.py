@@ -6,7 +6,7 @@ Port of ``path_tracer_tpu/cli.py``: a named scene or a JSON scene file
 its camera, or the Cornell view at ``--fov`` if it has none), progressive
 rendering in batches of up to 32 samples with optional checkpoints,
 resumable renders, and the tonemapped image in the format of the extension
-of ``--out`` (PNG, APNG, JPEG, TIFF, GIF, BMP, DIB, PPM or TGA, by Pillow's
+of ``--out`` (PNG, APNG, JPEG, TIFF, GIF, BMP, DIB, PPM, TGA or WebP, by Pillow's
 extension table; checked before the scene is built: any other extension
 raises the JAX package's ``ValueError``, but before the render rather than
 after it). ``--device``

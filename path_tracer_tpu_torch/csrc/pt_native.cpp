@@ -14,12 +14,14 @@
 // library and to the port's NumPy builders).
 
 #include <algorithm>
+#include <array>
 #include <cctype>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <initializer_list>
 #include <numeric>
 #include <thread>
 #include <utility>
@@ -1484,6 +1486,1312 @@ int64_t median_cut_quantize(const uint8_t *px, int64_t n, int64_t colors, uint8_
   for (int64_t i = 0; i < n; i++)
     idx[i] = (uint8_t)table[(uint32_t)px[3 * i] << 16 | (uint32_t)px[3 * i + 1] << 8 | px[3 * i + 2]];
   return nbox;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------ WebP
+// The byte loops of WebP's two bitstreams (path_tracer_tpu_torch/utils/
+// vp8l.py and vp8.py hold their Python twins, which give the same output):
+// VP8L's bit reader and decode loop; VP8's boolean decoder and
+// per-macroblock decode (modes, tokens, reconstruction, loop filter); the
+// boolean encoder, the macroblock encode (mode choice, quantization) and
+// token coding. Each follows its twin line for line.
+
+namespace {
+
+// --- VP8L (RFC 9649) ---
+
+struct LBits {
+  const uint8_t *d;
+  int64_t n, pos, limit;
+  uint32_t peek(int k) const {
+    const int64_t at = pos >> 3;
+    uint64_t v = 0;
+    for (int i = 0; i < 4; i++) v |= (uint64_t)(at + i < n ? d[at + i] : 0) << (8 * i);
+    return (uint32_t)((v >> (pos & 7)) & ((1u << k) - 1));
+  }
+  uint32_t read(int k) {
+    const uint32_t v = peek(k);
+    pos += k;
+    return v;
+  }
+};
+
+struct LCode {
+  std::vector<uint32_t> t;  // symbol << 8 | length, by the next `bits` stream bits
+  int bits = 0;
+};
+
+bool lcode_build(const int *len, int size, LCode &c) {
+  int used = 0, last = -1, maxl = 0;
+  for (int s = 0; s < size; s++)
+    if (len[s]) used++, last = s, maxl = std::max(maxl, len[s]);
+  if (used == 1) {
+    c.bits = 0;
+    c.t.assign(1, (uint32_t)last << 8);
+    return true;
+  }
+  if (!used) return false;
+  int64_t kraft = 0;
+  for (int s = 0; s < size; s++)
+    if (len[s]) kraft += (int64_t)1 << (maxl - len[s]);
+  if (kraft != (int64_t)1 << maxl) return false;
+  c.bits = maxl;
+  c.t.assign((size_t)1 << maxl, 0);
+  uint32_t code = 0;
+  for (int l = 1; l <= maxl; l++) {
+    for (int s = 0; s < size; s++) {
+      if (len[s] != l) continue;
+      uint32_t rev = 0;
+      for (int i = 0; i < l; i++) rev |= ((code >> i) & 1) << (l - 1 - i);
+      for (uint32_t k = rev; k < (1u << maxl); k += 1u << l) c.t[k] = (uint32_t)s << 8 | (uint32_t)l;
+      code++;
+    }
+    code <<= 1;
+  }
+  return true;
+}
+
+inline int lsymbol(LBits &b, const LCode &c) {
+  const uint32_t e = c.bits ? c.t[b.peek(c.bits)] : c.t[0];
+  b.pos += e & 0xff;
+  return (int)(e >> 8);
+}
+
+const int kCodeLengthOrder[19] = {17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15};
+
+int lcode_read(LBits &b, int size, LCode &out) {
+  std::vector<int> len((size_t)size, 0);
+  if (b.read(1)) {
+    const int count = (int)b.read(1) + 1;
+    const int first = (int)b.read(b.read(1) ? 8 : 1);
+    if (first < size) len[first] = 1;
+    if (count == 2) {
+      const int s = (int)b.read(8);
+      if (s < size) len[s] = 1;
+    }
+  } else {
+    int cl[19] = {0};
+    const int ncl = (int)b.read(4) + 4;
+    for (int i = 0; i < ncl; i++) cl[kCodeLengthOrder[i]] = (int)b.read(3);
+    LCode clc;
+    if (!lcode_build(cl, 19, clc)) return -1;
+    int max_symbol = size;
+    if (b.read(1)) {
+      max_symbol = 2 + (int)b.read(2 + 2 * (int)b.read(3));
+      if (max_symbol > size) return -1;
+    }
+    int symbol = 0, prev = 8;
+    while (symbol < size) {
+      if (max_symbol == 0) break;
+      max_symbol--;
+      const int n = lsymbol(b, clc);
+      if (n < 16) {
+        len[symbol++] = n;
+        if (n) prev = n;
+      } else {
+        static const int extra[3] = {2, 3, 7}, offset[3] = {3, 3, 11};
+        const int repeat = (int)b.read(extra[n - 16]) + offset[n - 16];
+        if (symbol + repeat > size) return -1;
+        for (int k = 0; k < repeat; k++) len[symbol++] = n == 16 ? prev : 0;
+      }
+    }
+  }
+  if (b.pos > b.limit) return -5;
+  return lcode_build(len.data(), size, out) ? 0 : -1;
+}
+
+inline int64_t lcopy(LBits &b, int s) {
+  if (s < 4) return s + 1;
+  const int extra = (s - 2) >> 1;
+  return ((int64_t)(2 + (s & 1)) << extra) + b.read(extra) + 1;
+}
+
+inline int64_t lsub(int64_t size, int bits) { return (size + ((int64_t)1 << bits) - 1) >> bits; }
+
+// DecodeImageStream; transforms are appended to `tf` as type, bits, xsize,
+// count, data...; returns 0 or an error code of vp8l.ERRORS.
+int limage(LBits &b, int64_t xsize, int64_t ysize, bool top, const int32_t *dmap, std::vector<uint32_t> &tf,
+           std::vector<uint32_t> &px) {
+  if (top) {
+    int seen = 0;
+    while (b.read(1)) {
+      const int kind = (int)b.read(2);
+      if (seen >> kind & 1) return -3;
+      seen |= 1 << kind;
+      std::vector<uint32_t> data;
+      int bits = 0;
+      const int64_t xs = xsize;
+      if (kind == 0 || kind == 1) {
+        bits = (int)b.read(3) + 2;
+        const int rc = limage(b, lsub(xsize, bits), lsub(ysize, bits), false, dmap, tf, data);
+        if (rc) return rc;
+      } else if (kind == 3) {
+        const int colors = (int)b.read(8) + 1;
+        bits = colors > 16 ? 0 : colors > 4 ? 1 : colors > 2 ? 2 : 3;
+        const int rc = limage(b, colors, 1, false, dmap, tf, data);
+        if (rc) return rc;
+        xsize = lsub(xsize, bits);
+      }
+      tf.insert(tf.end(), {(uint32_t)kind, (uint32_t)bits, (uint32_t)xs, (uint32_t)data.size()});
+      tf.insert(tf.end(), data.begin(), data.end());
+    }
+  }
+  int cache_bits = 0;
+  if (b.read(1)) {
+    cache_bits = (int)b.read(4);
+    if (cache_bits < 1 || cache_bits > 11) return -2;
+  }
+  int meta_bits = 0;
+  int64_t meta_w = 0;
+  std::vector<uint32_t> groups_of;
+  if (top && b.read(1)) {
+    meta_bits = (int)b.read(3) + 2;
+    meta_w = lsub(xsize, meta_bits);
+    const int rc = limage(b, meta_w, lsub(ysize, meta_bits), false, dmap, tf, groups_of);
+    if (rc) return rc;
+    for (auto &g : groups_of) g = (g >> 8) & 0xffff;
+  }
+  uint32_t n_groups = 1;
+  for (auto g : groups_of) n_groups = std::max(n_groups, g + 1);
+  const int cache_size = cache_bits ? 1 << cache_bits : 0;
+  const int sizes[5] = {280 + cache_size, 256, 256, 256, 40};
+  std::vector<LCode> codes((size_t)n_groups * 5);
+  for (size_t i = 0; i < codes.size(); i++) {
+    const int rc = lcode_read(b, sizes[i % 5], codes[i]);
+    if (rc) return rc;
+  }
+  const int64_t total = xsize * ysize;
+  px.assign((size_t)total, 0);
+  std::vector<uint32_t> cache((size_t)cache_size);
+  const int shift = 32 - cache_bits;
+  int64_t pos = 0, x = 0, y = 0;
+  const LCode *g = codes.data();
+  while (pos < total) {
+    if (!groups_of.empty()) g = codes.data() + 5 * (size_t)groups_of[(size_t)((y >> meta_bits) * meta_w + (x >> meta_bits))];
+    const int code = lsymbol(b, g[0]);
+    int64_t length = 1;
+    if (code < 256) {
+      const uint32_t red = (uint32_t)lsymbol(b, g[1]), blue = (uint32_t)lsymbol(b, g[2]);
+      const uint32_t alpha = (uint32_t)lsymbol(b, g[3]);
+      px[(size_t)pos] = alpha << 24 | red << 16 | (uint32_t)code << 8 | blue;
+    } else if (code < 280) {
+      length = lcopy(b, code - 256);
+      const int64_t dist_code = lcopy(b, lsymbol(b, g[4]));
+      int64_t dist;
+      if (dist_code > 120) {
+        dist = dist_code - 120;
+      } else {
+        dist = dmap[2 * (dist_code - 1)] + dmap[2 * (dist_code - 1) + 1] * xsize;
+        if (dist < 1) dist = 1;
+      }
+      if (b.pos > b.limit) return -5;
+      if (dist > pos || length > total - pos) return -4;
+      for (int64_t i = pos; i < pos + length; i++) px[(size_t)i] = px[(size_t)(i - dist)];
+    } else {
+      px[(size_t)pos] = cache[(size_t)(code - 280)];
+    }
+    if (cache_size)
+      for (int64_t i = pos; i < pos + length; i++) cache[(px[(size_t)i] * 0x1e35a7bdu) >> shift] = px[(size_t)i];
+    pos += length;
+    x += length;
+    while (x >= xsize) x -= xsize, y++;
+  }
+  if (b.pos > b.limit) return -5;
+  return 0;
+}
+
+// --- VP8 (RFC 6386) ---
+
+const int kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
+const int kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
+const int kCat3[] = {173, 148, 140, 0}, kCat4[] = {176, 155, 140, 135, 0}, kCat5[] = {180, 157, 141, 134, 130, 0},
+          kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
+const int *const kCat[4] = {kCat3, kCat4, kCat5, kCat6};
+enum { B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU, DC_NOTOP, DC_NOLEFT, DC_NOTOPLEFT };
+const int kYModesTree[18] = {-B_DC, 1, -B_TM, 2, -B_VE, 3, 4, 6, -B_HE, 5, -B_RD, -B_VR, -B_LD, 7, -B_VL, 8, -B_HD, -B_HU};
+
+struct BoolDec {
+  const uint8_t *d = nullptr;
+  int64_t n = 0, pos = 0;
+  uint64_t value = 0;
+  int bits = -8, eof = 0;
+  uint32_t range = 254;
+  void load() {
+    if (pos < n) {
+      value = (value << 8) | d[pos++];
+      bits += 8;
+    } else if (!eof) {
+      value <<= 8;
+      bits += 8;
+      eof = 1;
+    } else {
+      bits = 0;
+    }
+  }
+  int bit(int prob) {
+    if (bits < 0) load();
+    const uint32_t split = (range * (uint32_t)prob) >> 8;
+    uint32_t r;
+    int b;
+    if ((value >> bits) > split) {
+      r = range - split;
+      value -= (uint64_t)(split + 1) << bits;
+      b = 1;
+    } else {
+      r = split + 1;
+      b = 0;
+    }
+    const int shift = 7 ^ (31 - __builtin_clz(r));
+    range = (r << shift) - 1;
+    bits -= shift;
+    return b;
+  }
+};
+
+inline int clip(int v, int lo, int hi) { return v < lo ? lo : v > hi ? hi : v; }
+
+int large_value(BoolDec &br, const uint8_t *p) {
+  if (!br.bit(p[3])) return !br.bit(p[4]) ? 2 : 3 + br.bit(p[5]);
+  if (!br.bit(p[6])) {
+    if (!br.bit(p[7])) return 5 + br.bit(159);
+    const int v = 7 + 2 * br.bit(165);
+    return v + br.bit(145);
+  }
+  const int bit1 = br.bit(p[8]);
+  const int cat = 2 * bit1 + br.bit(p[9 + bit1]);
+  int v = 0;
+  for (const int *t = kCat[cat]; *t; t++) v = 2 * v + br.bit(*t);
+  return v + 3 + (8 << cat);
+}
+
+// GetCoeffs; probs [8][3][11] of the block type
+int get_coeffs(BoolDec &br, const uint8_t *probs, int ctx, int qdc, int qac, int n, int16_t *out) {
+  const uint8_t *p = probs + (kBands[n] * 3 + ctx) * 11;
+  while (n < 16) {
+    if (!br.bit(p[0])) return n;
+    while (!br.bit(p[1])) {
+      if (++n == 16) return 16;
+      p = probs + kBands[n] * 33;
+    }
+    int v, nxt;
+    if (!br.bit(p[2])) {
+      v = 1, nxt = 1;
+    } else {
+      v = large_value(br, p), nxt = 2;
+    }
+    if (br.bit(0x80)) v = -v;
+    out[kZigzag[n]] = (int16_t)(v * (n > 0 ? qac : qdc));
+    n++;
+    p = probs + (kBands[n] * 3 + nxt) * 11;
+  }
+  return 16;
+}
+
+void iwht(const int16_t *dc, int16_t *out) {
+  int tmp[16];
+  for (int i = 0; i < 4; i++) {
+    const int a0 = dc[i] + dc[12 + i], a1 = dc[4 + i] + dc[8 + i];
+    const int a2 = dc[4 + i] - dc[8 + i], a3 = dc[i] - dc[12 + i];
+    tmp[i] = a0 + a1, tmp[8 + i] = a0 - a1, tmp[4 + i] = a3 + a2, tmp[12 + i] = a3 - a2;
+  }
+  for (int i = 0; i < 4; i++) {
+    const int d = tmp[4 * i] + 3;
+    const int a0 = d + tmp[4 * i + 3], a1 = tmp[4 * i + 1] + tmp[4 * i + 2];
+    const int a2 = tmp[4 * i + 1] - tmp[4 * i + 2], a3 = d - tmp[4 * i + 3];
+    out[4 * i] = (int16_t)((a0 + a1) >> 3), out[4 * i + 1] = (int16_t)((a3 + a2) >> 3);
+    out[4 * i + 2] = (int16_t)((a0 - a1) >> 3), out[4 * i + 3] = (int16_t)((a3 - a2) >> 3);
+  }
+}
+
+inline int mul1(int a) { return ((a * 20091) >> 16) + a; }
+inline int mul2(int a) { return (a * 35468) >> 16; }
+
+void idct_add(const int16_t *c, uint8_t *dst, int64_t stride) {
+  int tmp[16];
+  for (int i = 0; i < 4; i++) {
+    const int a = c[i] + c[8 + i], b = c[i] - c[8 + i];
+    const int cc = mul2(c[4 + i]) - mul1(c[12 + i]), d = mul1(c[4 + i]) + mul2(c[12 + i]);
+    tmp[4 * i] = a + d, tmp[4 * i + 1] = b + cc, tmp[4 * i + 2] = b - cc, tmp[4 * i + 3] = a - d;
+  }
+  for (int i = 0; i < 4; i++) {
+    const int dc = tmp[i] + 4;
+    const int a = dc + tmp[8 + i], b = dc - tmp[8 + i];
+    const int cc = mul2(tmp[4 + i]) - mul1(tmp[12 + i]), d = mul1(tmp[4 + i]) + mul2(tmp[12 + i]);
+    uint8_t *row = dst + i * stride;
+    const int v[4] = {a + d, b + cc, b - cc, a - d};
+    for (int k = 0; k < 4; k++) row[k] = (uint8_t)clip(row[k] + (v[k] >> 3), 0, 255);
+  }
+}
+
+inline int avg3(int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; }
+inline int avg2(int a, int b) { return (a + b + 1) >> 1; }
+
+// a 4x4 prediction from top (A..H), left (I..L) and the corner x
+void pred4(int mode, const int *top, const int *left, int x, int *o) {
+  const int A = top[0], B = top[1], C = top[2], D = top[3], E = top[4], F = top[5], G = top[6], H = top[7];
+  const int I = left[0], J = left[1], K = left[2], L = left[3];
+  auto put = [&](int v, std::initializer_list<std::pair<int, int>> xy) {
+    for (auto &p : xy) o[4 * p.second + p.first] = v;
+  };
+  switch (mode) {
+    case B_DC: {
+      const int dc = (A + B + C + D + I + J + K + L + 4) >> 3;
+      for (int i = 0; i < 16; i++) o[i] = dc;
+      break;
+    }
+    case B_TM:
+      for (int y = 0; y < 4; y++)
+        for (int k = 0; k < 4; k++) o[4 * y + k] = clip(left[y] + top[k] - x, 0, 255);
+      break;
+    case B_VE: {
+      const int v[4] = {avg3(x, A, B), avg3(A, B, C), avg3(B, C, D), avg3(C, D, E)};
+      for (int i = 0; i < 16; i++) o[i] = v[i & 3];
+      break;
+    }
+    case B_HE: {
+      const int v[4] = {avg3(x, I, J), avg3(I, J, K), avg3(J, K, L), avg3(K, L, L)};
+      for (int i = 0; i < 16; i++) o[i] = v[i >> 2];
+      break;
+    }
+    case B_RD:
+      put(avg3(J, K, L), {{0, 3}});
+      put(avg3(I, J, K), {{1, 3}, {0, 2}});
+      put(avg3(x, I, J), {{2, 3}, {1, 2}, {0, 1}});
+      put(avg3(A, x, I), {{3, 3}, {2, 2}, {1, 1}, {0, 0}});
+      put(avg3(B, A, x), {{3, 2}, {2, 1}, {1, 0}});
+      put(avg3(C, B, A), {{3, 1}, {2, 0}});
+      put(avg3(D, C, B), {{3, 0}});
+      break;
+    case B_LD:
+      put(avg3(A, B, C), {{0, 0}});
+      put(avg3(B, C, D), {{1, 0}, {0, 1}});
+      put(avg3(C, D, E), {{2, 0}, {1, 1}, {0, 2}});
+      put(avg3(D, E, F), {{3, 0}, {2, 1}, {1, 2}, {0, 3}});
+      put(avg3(E, F, G), {{3, 1}, {2, 2}, {1, 3}});
+      put(avg3(F, G, H), {{3, 2}, {2, 3}});
+      put(avg3(G, H, H), {{3, 3}});
+      break;
+    case B_VR:
+      put(avg2(x, A), {{0, 0}, {1, 2}});
+      put(avg2(A, B), {{1, 0}, {2, 2}});
+      put(avg2(B, C), {{2, 0}, {3, 2}});
+      put(avg2(C, D), {{3, 0}});
+      put(avg3(K, J, I), {{0, 3}});
+      put(avg3(J, I, x), {{0, 2}});
+      put(avg3(I, x, A), {{0, 1}, {1, 3}});
+      put(avg3(x, A, B), {{1, 1}, {2, 3}});
+      put(avg3(A, B, C), {{2, 1}, {3, 3}});
+      put(avg3(B, C, D), {{3, 1}});
+      break;
+    case B_VL:
+      put(avg2(A, B), {{0, 0}});
+      put(avg2(B, C), {{1, 0}, {0, 2}});
+      put(avg2(C, D), {{2, 0}, {1, 2}});
+      put(avg2(D, E), {{3, 0}, {2, 2}});
+      put(avg3(A, B, C), {{0, 1}});
+      put(avg3(B, C, D), {{1, 1}, {0, 3}});
+      put(avg3(C, D, E), {{2, 1}, {1, 3}});
+      put(avg3(D, E, F), {{3, 1}, {2, 3}});
+      put(avg3(E, F, G), {{3, 2}});
+      put(avg3(F, G, H), {{3, 3}});
+      break;
+    case B_HU:
+      put(avg2(I, J), {{0, 0}});
+      put(avg2(J, K), {{2, 0}, {0, 1}});
+      put(avg2(K, L), {{2, 1}, {0, 2}});
+      put(avg3(I, J, K), {{1, 0}});
+      put(avg3(J, K, L), {{3, 0}, {1, 1}});
+      put(avg3(K, L, L), {{3, 1}, {1, 2}});
+      put(L, {{3, 2}, {2, 2}, {0, 3}, {1, 3}, {2, 3}, {3, 3}});
+      break;
+    default:  // B_HD
+      put(avg2(I, x), {{0, 0}, {2, 1}});
+      put(avg2(J, I), {{0, 1}, {2, 2}});
+      put(avg2(K, J), {{0, 2}, {2, 3}});
+      put(avg2(L, K), {{0, 3}});
+      put(avg3(A, B, C), {{3, 0}});
+      put(avg3(x, A, B), {{2, 0}});
+      put(avg3(I, x, A), {{1, 0}, {3, 1}});
+      put(avg3(J, I, x), {{1, 1}, {3, 2}});
+      put(avg3(K, J, I), {{1, 2}, {3, 3}});
+      put(avg3(L, K, J), {{1, 3}});
+  }
+}
+
+// a 16x16 or 8x8 prediction: DC, TM, V, H or an edge DC
+void pred_block(int mode, const int *top, const int *left, int x, int size, int *o) {
+  const int shift = size == 16 ? 4 : 3, n = size * size;
+  int st = 0, sl = 0;
+  for (int i = 0; i < size; i++) st += top[i], sl += left[i];
+  int dc = -1;
+  if (mode == B_DC) dc = (st + sl + size) >> (shift + 1);
+  if (mode == DC_NOTOP) dc = (sl + size / 2) >> shift;
+  if (mode == DC_NOLEFT) dc = (st + size / 2) >> shift;
+  if (mode == DC_NOTOPLEFT) dc = 0x80;
+  if (dc >= 0) {
+    for (int i = 0; i < n; i++) o[i] = dc;
+  } else if (mode == B_TM) {
+    for (int y = 0; y < size; y++)
+      for (int k = 0; k < size; k++) o[y * size + k] = clip(left[y] + top[k] - x, 0, 255);
+  } else if (mode == B_VE) {
+    for (int i = 0; i < n; i++) o[i] = top[i % size];
+  } else {
+    for (int i = 0; i < n; i++) o[i] = left[i / size];
+  }
+}
+
+inline int edge_mode(int mode, int64_t mb_x, int64_t mb_y) {
+  if (mode != B_DC) return mode;
+  if (mb_x == 0) return mb_y == 0 ? DC_NOTOPLEFT : DC_NOLEFT;
+  return mb_y == 0 ? DC_NOTOP : B_DC;
+}
+
+// the loop filter
+inline void filter2(uint8_t *p, int64_t i, int64_t s) {
+  const int p1 = p[i - 2 * s], p0 = p[i - s], q0 = p[i], q1 = p[i + s];
+  const int a = 3 * (q0 - p0) + clip(p1 - q1, -128, 127);
+  const int a1 = clip((a + 4) >> 3, -16, 15), a2 = clip((a + 3) >> 3, -16, 15);
+  p[i - s] = (uint8_t)clip(p0 + a2, 0, 255), p[i] = (uint8_t)clip(q0 - a1, 0, 255);
+}
+inline void filter4(uint8_t *p, int64_t i, int64_t s) {
+  const int p1 = p[i - 2 * s], p0 = p[i - s], q0 = p[i], q1 = p[i + s];
+  const int a = 3 * (q0 - p0);
+  const int a1 = clip((a + 4) >> 3, -16, 15), a2 = clip((a + 3) >> 3, -16, 15), a3 = (a1 + 1) >> 1;
+  p[i - 2 * s] = (uint8_t)clip(p1 + a3, 0, 255), p[i - s] = (uint8_t)clip(p0 + a2, 0, 255);
+  p[i] = (uint8_t)clip(q0 - a1, 0, 255), p[i + s] = (uint8_t)clip(q1 - a3, 0, 255);
+}
+inline void filter6(uint8_t *p, int64_t i, int64_t s) {
+  const int p2 = p[i - 3 * s], p1 = p[i - 2 * s], p0 = p[i - s], q0 = p[i], q1 = p[i + s], q2 = p[i + 2 * s];
+  const int a = clip(3 * (q0 - p0) + clip(p1 - q1, -128, 127), -128, 127);
+  const int a1 = (27 * a + 63) >> 7, a2 = (18 * a + 63) >> 7, a3 = (9 * a + 63) >> 7;
+  p[i - 3 * s] = (uint8_t)clip(p2 + a3, 0, 255), p[i - 2 * s] = (uint8_t)clip(p1 + a2, 0, 255);
+  p[i - s] = (uint8_t)clip(p0 + a1, 0, 255), p[i] = (uint8_t)clip(q0 - a1, 0, 255);
+  p[i + s] = (uint8_t)clip(q1 - a2, 0, 255), p[i + 2 * s] = (uint8_t)clip(q2 - a3, 0, 255);
+}
+inline bool edge_ok(const uint8_t *p, int64_t i, int64_t s, int t) {
+  return 4 * std::abs(p[i - s] - p[i]) + std::abs(p[i - 2 * s] - p[i + s]) <= t;
+}
+inline bool edge_ok2(const uint8_t *p, int64_t i, int64_t s, int t, int it) {
+  if (!edge_ok(p, i, s, t)) return false;
+  const int p3 = p[i - 4 * s], p2 = p[i - 3 * s], p1 = p[i - 2 * s], p0 = p[i - s];
+  const int q0 = p[i], q1 = p[i + s], q2 = p[i + 2 * s], q3 = p[i + 3 * s];
+  return std::abs(p3 - p2) <= it && std::abs(p2 - p1) <= it && std::abs(p1 - p0) <= it && std::abs(q3 - q2) <= it &&
+         std::abs(q2 - q1) <= it && std::abs(q1 - q0) <= it;
+}
+void filter_loop(uint8_t *p, int64_t i, int64_t hs, int64_t vs, int size, int thresh, int ithresh, int hev,
+                 bool mb_edge) {
+  const int t = 2 * thresh + 1;
+  for (int k = 0; k < size; k++, i += vs) {
+    if (!edge_ok2(p, i, hs, t, ithresh)) continue;
+    if (std::abs(p[i - 2 * hs] - p[i - hs]) > hev || std::abs(p[i + hs] - p[i]) > hev)
+      filter2(p, i, hs);
+    else if (mb_edge)
+      filter6(p, i, hs);
+    else
+      filter4(p, i, hs);
+  }
+}
+void filter_simple(uint8_t *p, int64_t i, int64_t hs, int64_t vs, int thresh) {
+  const int t = 2 * thresh + 1;
+  for (int k = 0; k < 16; k++, i += vs)
+    if (edge_ok(p, i, hs, t)) filter2(p, i, hs);
+}
+
+// --- the encoder's token coding: one walk for costs, statistics and bits ---
+
+struct BoolEnc {
+  std::vector<uint8_t> out;
+  uint32_t range = 255, bottom = 0;
+  int bit_count = 24;
+  void carry() {
+    size_t i = out.size() - 1;
+    while (out[i] == 255) out[i--] = 0;
+    out[i]++;
+  }
+  void put(int bit, int prob) {
+    const uint32_t split = 1 + (((range - 1) * (uint32_t)prob) >> 8);
+    if (bit) {
+      bottom += split;
+      range -= split;
+    } else {
+      range = split;
+    }
+    while (range < 128) {
+      range <<= 1;
+      if (bottom & 0x80000000u) carry();
+      bottom <<= 1;
+      if (!--bit_count) {
+        out.push_back((uint8_t)(bottom >> 24));
+        bottom &= 0xffffff;
+        bit_count = 8;
+      }
+    }
+  }
+  void flush() {
+    const int c = bit_count;
+    uint32_t v = bottom;
+    if (v & ((uint32_t)1 << (32 - c))) carry();
+    v <<= c & 7;
+    for (int k = 0; k < (c >> 3); k++) v <<= 8;
+    for (int k = 0; k < 4; k++) {
+      out.push_back((uint8_t)(v >> 24));
+      v <<= 8;
+    }
+  }
+};
+
+// put(bit, prob): a cost (1/256 bits), a statistic (prob >= 256 is a
+// position + 256), or a bit
+struct Sink {
+  int kind;  // 0 cost, 1 statistics, 2 bits
+  int64_t cost = 0;
+  const int32_t *bit_cost = nullptr;
+  int64_t *stats = nullptr;
+  BoolEnc *enc = nullptr;
+  void put(int bit, int prob) {
+    if (kind == 0)
+      cost += bit ? bit_cost[256 - prob] : bit_cost[prob];
+    else if (kind == 1) {
+      if (prob >= 256) stats[2 * (prob - 256) + bit]++;
+    } else
+      enc->put(bit, prob);
+  }
+};
+
+// _put_block: probs [8][3][11] of the block type; returns the nz context
+int put_block(Sink &s, const int16_t *lv, int first, const int32_t *probs, int ctx) {
+  int last = 15;
+  while (last >= first && !lv[last]) last--;
+  int n = first;
+  const int32_t *p = probs + (kBands[n] * 3 + ctx) * 11;
+  if (last < first) {
+    s.put(0, p[0]);
+    return 0;
+  }
+  while (n < 16) {
+    s.put(1, p[0]);
+    while (!lv[n]) {
+      s.put(0, p[1]);
+      n++;
+      p = probs + kBands[n] * 33;
+    }
+    s.put(1, p[1]);
+    const int v = std::abs((int)lv[n]);
+    int nxt;
+    if (v == 1) {
+      s.put(0, p[2]);
+      nxt = 1;
+    } else {
+      s.put(1, p[2]);
+      if (v <= 4) {
+        s.put(0, p[3]);
+        if (v == 2) {
+          s.put(0, p[4]);
+        } else {
+          s.put(1, p[4]);
+          s.put(v - 3, p[5]);
+        }
+      } else if (v <= 10) {
+        s.put(1, p[3]);
+        s.put(0, p[6]);
+        if (v <= 6) {
+          s.put(0, p[7]);
+          s.put(v - 5, 159);
+        } else {
+          s.put(1, p[7]);
+          s.put((v - 7) >> 1, 165);
+          s.put((v - 7) & 1, 145);
+        }
+      } else {
+        s.put(1, p[3]);
+        s.put(1, p[6]);
+        const int cat = v < 19 ? 0 : v < 35 ? 1 : v < 67 ? 2 : 3;
+        s.put(cat >> 1, p[8]);
+        s.put(cat & 1, p[9 + (cat >> 1)]);
+        const int extra = v - 3 - (8 << cat);
+        int len = 0;
+        while (kCat[cat][len]) len++;
+        for (int k = 0; k < len; k++) s.put((extra >> (len - 1 - k)) & 1, kCat[cat][k]);
+      }
+      nxt = 2;
+    }
+    s.put(lv[n] < 0, 0x80);
+    n++;
+    if (n == 16 || n > last) {
+      if (n < 16) s.put(0, probs[(kBands[n] * 3 + nxt) * 11]);
+      return 1;
+    }
+    p = probs + (kBands[n] * 3 + nxt) * 11;
+  }
+  return 1;
+}
+
+// the tree decisions of an i4 mode: (node, bit) pairs
+int bmode_path(int mode, int i, int *nodes, int *bits, int depth) {
+  for (int bit = 0; bit < 2; bit++) {
+    const int nxt = kYModesTree[i + bit];
+    if (nxt <= 0 && -nxt == mode) {
+      nodes[depth] = i >> 1, bits[depth] = bit;
+      return depth + 1;
+    }
+    if (nxt > 0) {
+      nodes[depth] = i >> 1, bits[depth] = bit;
+      const int d = bmode_path(mode, 2 * nxt, nodes, bits, depth + 1);
+      if (d) return d;
+    }
+  }
+  return 0;
+}
+
+void put_bmode(Sink &s, int mode, const uint8_t *prob) {
+  int nodes[10], bits[10];
+  const int d = bmode_path(mode, 0, nodes, bits, 0);
+  for (int k = 0; k < d; k++) s.put(bits[k], prob[nodes[k]]);
+}
+
+void put_ymode(Sink &s, int mode) {
+  if (mode == B_DC || mode == B_VE) {
+    s.put(0, 156);
+    s.put(mode == B_VE, 163);
+  } else {
+    s.put(1, 156);
+    s.put(mode == B_TM, 128);
+  }
+}
+
+void put_uvmode(Sink &s, int mode) {
+  s.put(mode != B_DC, 142);
+  if (mode == B_DC) return;
+  s.put(mode != B_VE, 114);
+  if (mode == B_VE) return;
+  s.put(mode == B_TM, 183);
+}
+
+// the encoder's transforms and quantizer
+void fdct(const int *src, const int *pred, int *out) {
+  int tmp[16];
+  for (int i = 0; i < 4; i++) {
+    const int d0 = src[4 * i] - pred[4 * i], d1 = src[4 * i + 1] - pred[4 * i + 1];
+    const int d2 = src[4 * i + 2] - pred[4 * i + 2], d3 = src[4 * i + 3] - pred[4 * i + 3];
+    const int a0 = d0 + d3, a1 = d1 + d2, a2 = d1 - d2, a3 = d0 - d3;
+    tmp[4 * i] = (a0 + a1) * 8;
+    tmp[4 * i + 1] = (a2 * 2217 + a3 * 5352 + 1812) >> 9;
+    tmp[4 * i + 2] = (a0 - a1) * 8;
+    tmp[4 * i + 3] = (a3 * 2217 - a2 * 5352 + 937) >> 9;
+  }
+  for (int i = 0; i < 4; i++) {
+    const int a0 = tmp[i] + tmp[12 + i], a1 = tmp[4 + i] + tmp[8 + i];
+    const int a2 = tmp[4 + i] - tmp[8 + i], a3 = tmp[i] - tmp[12 + i];
+    out[i] = (a0 + a1 + 7) >> 4;
+    out[4 + i] = ((a2 * 2217 + a3 * 5352 + 12000) >> 16) + (a3 != 0);
+    out[8 + i] = (a0 - a1 + 7) >> 4;
+    out[12 + i] = (a3 * 2217 - a2 * 5352 + 51000) >> 16;
+  }
+}
+
+void fwht(const int *dc, int *out) {
+  int tmp[16];
+  for (int i = 0; i < 4; i++) {
+    const int a0 = dc[4 * i] + dc[4 * i + 2], a1 = dc[4 * i + 1] + dc[4 * i + 3];
+    const int a2 = dc[4 * i + 1] - dc[4 * i + 3], a3 = dc[4 * i] - dc[4 * i + 2];
+    tmp[4 * i] = a0 + a1, tmp[4 * i + 1] = a3 + a2, tmp[4 * i + 2] = a3 - a2, tmp[4 * i + 3] = a0 - a1;
+  }
+  for (int i = 0; i < 4; i++) {
+    const int a0 = tmp[i] + tmp[8 + i], a1 = tmp[4 + i] + tmp[12 + i];
+    const int a2 = tmp[4 + i] - tmp[12 + i], a3 = tmp[i] - tmp[8 + i];
+    out[i] = (a0 + a1) >> 1, out[4 + i] = (a3 + a2) >> 1, out[8 + i] = (a3 - a2) >> 1, out[12 + i] = (a0 - a1) >> 1;
+  }
+}
+
+// levels (zigzag order) from `first` and the dequantized coefficients (raster order)
+void quantize(const int *coef, int first, int qdc, int qac, int rdc, int rac, int16_t *lv, int16_t *deq) {
+  for (int k = 0; k < 16; k++) lv[k] = 0, deq[k] = 0;
+  for (int n = first; n < 16; n++) {
+    const int j = kZigzag[n], q = n == 0 ? qdc : qac, rnd = n == 0 ? rdc : rac;
+    const int v = coef[j];
+    const int l = std::min((std::abs(v) + ((q * rnd) >> 7)) / q, 2047);
+    if (l) {
+      lv[n] = (int16_t)(v > 0 ? l : -l);
+      deq[j] = (int16_t)(lv[n] * q);
+    }
+  }
+}
+
+void recon4(const int *pred, const int16_t *deq, int *out) {
+  uint8_t b[16];
+  for (int i = 0; i < 16; i++) b[i] = (uint8_t)pred[i];
+  idct_add(deq, b, 4);
+  for (int i = 0; i < 16; i++) out[i] = b[i];
+}
+
+int64_t sse16(const int *a, const int *b) {
+  int64_t s = 0;
+  for (int i = 0; i < 16; i++) s += (int64_t)(a[i] - b[i]) * (a[i] - b[i]);
+  return s;
+}
+
+bool any_nonzero(const int16_t *lv, int from) {
+  for (int k = from; k < 16; k++)
+    if (lv[k]) return true;
+  return false;
+}
+
+}  // namespace
+
+extern "C" {
+
+// VP8L: decode the entropy-coded image at bit `bit_pos` of `data` (a VP8L
+// chunk after its header, or an ALPH stream). Writes the transforms (type,
+// bits, xsize, count, data...) after their count, then the residual
+// pixels, into `out` (at most `cap` words). Returns the words written or an
+// error code of vp8l.ERRORS (-6: `out` too small).
+int64_t vp8l_decode(const uint8_t *data, int64_t n, int64_t xsize, int64_t ysize, int64_t bit_pos,
+                    const int32_t *dmap, uint32_t *out, int64_t cap) {
+  LBits b{data, n, bit_pos, std::max<int64_t>(8 * n, 64)};
+  std::vector<uint32_t> tf, px;
+  const int rc = limage(b, xsize, ysize, true, dmap, tf, px);
+  if (rc) return rc;
+  int64_t count = 0;
+  for (size_t i = 0; i < tf.size(); i += 4 + tf[i + 3]) count++;
+  const int64_t words = 1 + (int64_t)tf.size() + (int64_t)px.size();
+  if (words > cap) return -6;
+  out[0] = (uint32_t)count;
+  std::copy(tf.begin(), tf.end(), out + 1);
+  std::copy(px.begin(), px.end(), out + 1 + tf.size());
+  return words;
+}
+
+// VP8: the macroblocks of a key frame after its header (vp8._decode_frame_py).
+// part0 / n0 the first partition and `state` its reader's (pos, value, bits,
+// range, eof) after the header; the token partitions are `parts` split at
+// `offsets` [n_parts + 1]. params: update_map, 3 segment probabilities,
+// use_skip, skip_p, filter type, quant [4][6], filter strengths [4][2][3].
+// Writes the macroblock-aligned planes Y [16 mb_h][16 mb_w], U, V
+// [8 mb_h][8 mb_w]. Returns 0, or -1 when a partition ended early.
+int64_t vp8_decode_frame(const uint8_t *part0, int64_t n0, const int64_t *state, const uint8_t *parts,
+                         const int64_t *offsets, int64_t n_parts, int64_t mb_w, int64_t mb_h, const int32_t *params,
+                         const uint8_t *probs, const uint8_t *bmodes, uint8_t *Yo, uint8_t *Uo, uint8_t *Vo) {
+  BoolDec br;
+  br.d = part0, br.n = n0, br.pos = state[0], br.value = (uint64_t)state[1], br.bits = (int)state[2];
+  br.range = (uint32_t)state[3], br.eof = (int)state[4];
+  std::vector<BoolDec> tb((size_t)n_parts);
+  for (int64_t p = 0; p < n_parts; p++) {
+    tb[p].d = parts + offsets[p], tb[p].n = offsets[p + 1] - offsets[p];
+    tb[p].load();
+  }
+  const int update_map = params[0], use_skip = params[4], skip_p = params[5], filter_type = params[6];
+  const int *sp = params + 1, *quant = params + 7, *fstr = params + 31;
+  const int64_t w = 16 * mb_w, h = 16 * mb_h, sy = w + 5, suv = w / 2 + 1;
+  std::vector<uint8_t> Y((size_t)(sy * (h + 1)), 127), U((size_t)(suv * (h / 2 + 1)), 127), V;
+  for (int64_t r = 1; r <= h; r++) Y[(size_t)(r * sy)] = 129;
+  for (int64_t r = 1; r <= h / 2; r++) U[(size_t)(r * suv)] = 129;
+  V = U;
+  std::vector<int> top_ctx((size_t)(4 * mb_w), B_DC);
+  std::vector<std::array<int, 2>> nz((size_t)mb_w, {0, 0});
+  std::vector<std::array<int, 4>> finfo((size_t)(mb_w * mb_h));
+  struct MB {
+    int segment, skip, is_i4, modes[16], uv;
+  };
+  std::vector<MB> row((size_t)mb_w);
+  alignas(16) int16_t c[384];
+  for (int64_t mb_y = 0; mb_y < mb_h; mb_y++) {
+    int left_ctx[4] = {B_DC, B_DC, B_DC, B_DC};
+    for (int64_t mb_x = 0; mb_x < mb_w; mb_x++) {
+      MB &mb = row[(size_t)mb_x];
+      int *top = &top_ctx[(size_t)(4 * mb_x)];
+      mb.segment = update_map ? (!br.bit(sp[0]) ? br.bit(sp[1]) : br.bit(sp[2]) + 2) : 0;
+      mb.skip = use_skip ? br.bit(skip_p) : 0;
+      mb.is_i4 = !br.bit(145);
+      if (!mb.is_i4) {
+        const int ymode = br.bit(156) ? (br.bit(128) ? B_TM : B_HE) : (br.bit(163) ? B_VE : B_DC);
+        mb.modes[0] = ymode;
+        for (int k = 0; k < 4; k++) top[k] = left_ctx[k] = ymode;
+      } else {
+        for (int y = 0; y < 4; y++) {
+          int ymode = left_ctx[y];
+          for (int x = 0; x < 4; x++) {
+            const uint8_t *prob = bmodes + (top[x] * 10 + ymode) * 9;
+            int i = kYModesTree[br.bit(prob[0])];
+            while (i > 0) i = kYModesTree[2 * i + br.bit(prob[i])];
+            ymode = -i;
+            top[x] = ymode;
+          }
+          for (int x = 0; x < 4; x++) mb.modes[4 * y + x] = top[x];
+          left_ctx[y] = ymode;
+        }
+      }
+      mb.uv = !br.bit(142) ? B_DC : !br.bit(114) ? B_VE : br.bit(183) ? B_TM : B_HE;
+    }
+    BoolDec &tk = tb[(size_t)(mb_y % n_parts)];
+    int left[2] = {0, 0};
+    for (int64_t mb_x = 0; mb_x < mb_w; mb_x++) {
+      const MB &mb = row[(size_t)mb_x];
+      const int *q = quant + 6 * mb.segment;
+      std::memset(c, 0, sizeof(c));
+      bool non_zero = false;
+      auto &top = nz[(size_t)mb_x];
+      if (mb.skip && use_skip) {
+        top[0] = left[0] = 0;
+        if (!mb.is_i4) top[1] = left[1] = 0;
+      } else {
+        const uint8_t *ac;
+        int first;
+        if (!mb.is_i4) {
+          int16_t dc[16] = {0}, dcs[16];
+          const int n = get_coeffs(tk, probs + 1 * 264, top[1] + left[1], q[2], q[3], 0, dc);
+          top[1] = left[1] = n > 0;
+          iwht(dc, dcs);
+          for (int i = 0; i < 16; i++) c[16 * i] = dcs[i];
+          first = 1, ac = probs;
+        } else {
+          first = 0, ac = probs + 3 * 264;
+        }
+        int tnz = top[0] & 0x0f, lnz = left[0] & 0x0f;
+        for (int y = 0; y < 4; y++) {
+          int lbit = lnz & 1;
+          for (int x = 0; x < 4; x++) {
+            int16_t *blk = c + 16 * (4 * y + x);
+            const int n = get_coeffs(tk, ac, lbit + (tnz & 1), q[0], q[1], first, blk);
+            lbit = n > first;
+            tnz = (tnz >> 1) | (lbit << 7);
+            non_zero |= n > 1 || blk[0] != 0;
+          }
+          tnz >>= 4;
+          lnz = (lnz >> 1) | (lbit << 7);
+        }
+        int out_t = tnz, out_l = lnz >> 4;
+        for (int ch = 0; ch < 4; ch += 2) {
+          tnz = top[0] >> (4 + ch), lnz = left[0] >> (4 + ch);
+          for (int y = 0; y < 2; y++) {
+            int lbit = lnz & 1;
+            for (int x = 0; x < 2; x++) {
+              int16_t *blk = c + 16 * (16 + 2 * ch + 2 * y + x);
+              const int n = get_coeffs(tk, probs + 2 * 264, lbit + (tnz & 1), q[4], q[5], 0, blk);
+              lbit = n > 0;
+              tnz = (tnz >> 1) | (lbit << 3);
+              non_zero |= n > 1 || blk[0] != 0;
+            }
+            tnz >>= 2;
+            lnz = (lnz >> 1) | (lbit << 5);
+          }
+          out_t |= (tnz << 4) << ch;
+          out_l |= (lnz & 0xf0) << ch;
+        }
+        top[0] = out_t, left[0] = out_l;
+      }
+      const int *f = fstr + 6 * mb.segment + 3 * mb.is_i4;
+      finfo[(size_t)(mb_y * mb_w + mb_x)] = {f[0], f[1], f[2], (int)(mb.is_i4 || non_zero)};
+      // reconstruction into the bordered planes
+      const int64_t x0 = 16 * mb_x + 1, y0 = 16 * mb_y + 1;
+      int pred[256], tp[16], lf[16];
+      if (mb.is_i4) {
+        const uint8_t *tr = &Y[(size_t)((y0 - 1) * sy + x0 + 16)];
+        for (int n = 0; n < 16; n++) {
+          const int bx = n & 3, by = n >> 2;
+          uint8_t *at = &Y[(size_t)((y0 + 4 * by) * sy + x0 + 4 * bx)];
+          int t8[8], l4[4];
+          for (int k = 0; k < 4; k++) t8[k] = at[k - sy], l4[k] = at[k * sy - 1];
+          for (int k = 0; k < 4; k++) t8[4 + k] = bx == 3 ? tr[k] : at[4 + k - sy];
+          pred4(mb.modes[n], t8, l4, at[-sy - 1], pred);
+          for (int k = 0; k < 16; k++) at[(k >> 2) * sy + (k & 3)] = (uint8_t)pred[k];
+          idct_add(c + 16 * n, at, sy);
+        }
+      } else {
+        uint8_t *at = &Y[(size_t)(y0 * sy + x0)];
+        for (int k = 0; k < 16; k++) tp[k] = at[k - sy], lf[k] = at[k * sy - 1];
+        pred_block(edge_mode(mb.modes[0], mb_x, mb_y), tp, lf, at[-sy - 1], 16, pred);
+        for (int k = 0; k < 256; k++) at[(k >> 4) * sy + (k & 15)] = (uint8_t)pred[k];
+        for (int n = 0; n < 16; n++) idct_add(c + 16 * n, at + 4 * (n >> 2) * sy + 4 * (n & 3), sy);
+      }
+      const int mode = edge_mode(mb.uv, mb_x, mb_y);
+      for (int ch = 0; ch < 2; ch++) {
+        std::vector<uint8_t> &P = ch ? V : U;
+        uint8_t *at = &P[(size_t)((8 * mb_y + 1) * suv + 8 * mb_x + 1)];
+        for (int k = 0; k < 8; k++) tp[k] = at[k - suv], lf[k] = at[k * suv - 1];
+        pred_block(mode, tp, lf, at[-suv - 1], 8, pred);
+        for (int k = 0; k < 64; k++) at[(k >> 3) * suv + (k & 7)] = (uint8_t)pred[k];
+        for (int n = 0; n < 4; n++) idct_add(c + 16 * (16 + 4 * ch + n), at + 4 * (n >> 1) * suv + 4 * (n & 1), suv);
+      }
+    }
+    uint8_t *last = &Y[(size_t)((16 * mb_y + 16) * sy)];
+    for (int k = 1; k <= 4; k++) last[w + k] = last[w];
+  }
+  if (br.eof) return -1;
+  for (auto &p : tb)
+    if (p.eof) return -1;
+  for (int64_t r = 0; r < h; r++) std::memcpy(Yo + r * w, &Y[(size_t)((r + 1) * sy + 1)], (size_t)w);
+  for (int64_t r = 0; r < h / 2; r++) {
+    std::memcpy(Uo + r * (w / 2), &U[(size_t)((r + 1) * suv + 1)], (size_t)(w / 2));
+    std::memcpy(Vo + r * (w / 2), &V[(size_t)((r + 1) * suv + 1)], (size_t)(w / 2));
+  }
+  if (!filter_type) return 0;
+  const int64_t uw = w / 2;
+  for (int64_t mb_y = 0; mb_y < mb_h; mb_y++) {
+    for (int64_t mb_x = 0; mb_x < mb_w; mb_x++) {
+      const auto &fi = finfo[(size_t)(mb_y * mb_w + mb_x)];
+      const int limit = fi[0], ilevel = fi[1], hev = fi[2], inner = fi[3];
+      if (!limit) continue;
+      const int64_t y0 = 16 * mb_y * w + 16 * mb_x, c0 = 8 * mb_y * uw + 8 * mb_x;
+      if (filter_type == 1) {
+        if (mb_x > 0) filter_simple(Yo, y0, 1, w, limit + 4);
+        if (inner)
+          for (int k = 4; k < 16; k += 4) filter_simple(Yo, y0 + k, 1, w, limit);
+        if (mb_y > 0) filter_simple(Yo, y0, w, 1, limit + 4);
+        if (inner)
+          for (int k = 4; k < 16; k += 4) filter_simple(Yo, y0 + k * w, w, 1, limit);
+        continue;
+      }
+      if (mb_x > 0) {
+        filter_loop(Yo, y0, 1, w, 16, limit + 4, ilevel, hev, true);
+        filter_loop(Uo, c0, 1, uw, 8, limit + 4, ilevel, hev, true);
+        filter_loop(Vo, c0, 1, uw, 8, limit + 4, ilevel, hev, true);
+      }
+      if (inner) {
+        for (int k = 4; k < 16; k += 4) filter_loop(Yo, y0 + k, 1, w, 16, limit, ilevel, hev, false);
+        filter_loop(Uo, c0 + 4, 1, uw, 8, limit, ilevel, hev, false);
+        filter_loop(Vo, c0 + 4, 1, uw, 8, limit, ilevel, hev, false);
+      }
+      if (mb_y > 0) {
+        filter_loop(Yo, y0, w, 1, 16, limit + 4, ilevel, hev, true);
+        filter_loop(Uo, c0, uw, 1, 8, limit + 4, ilevel, hev, true);
+        filter_loop(Vo, c0, uw, 1, 8, limit + 4, ilevel, hev, true);
+      }
+      if (inner) {
+        for (int k = 4; k < 16; k += 4) filter_loop(Yo, y0 + k * w, w, 1, 16, limit, ilevel, hev, false);
+        filter_loop(Uo, c0 + 4 * uw, uw, 1, 8, limit, ilevel, hev, false);
+        filter_loop(Vo, c0 + 4 * uw, uw, 1, 8, limit, ilevel, hev, false);
+      }
+    }
+  }
+  return 0;
+}
+
+// VP8: the macroblock encode (vp8._encode_mbs_py). Y [16 mb_h][16 mb_w], U,
+// V [8 mb_h][8 mb_w]; segs [mbs]; quant [4][6]; lambdas [4]; rounding
+// (dc, ac) /128; probs0 [4][8][3][11] (int32); bit_cost [257]; bmodes
+// [10][10][9]. Writes modes [mbs][18] and levels [mbs][25][16].
+int64_t vp8_encode_mbs(const uint8_t *Yi, const uint8_t *Ui, const uint8_t *Vi, int64_t mb_w, int64_t mb_h,
+                       const int32_t *segs, const int32_t *quant, const int64_t *lambdas, int64_t rdc, int64_t rac,
+                       const int32_t *probs, const int32_t *bit_cost, const uint8_t *bmodes, int32_t *modes_out,
+                       int16_t *levels_out) {
+  const int64_t w = 16 * mb_w, h = 16 * mb_h, sy = w + 5, suv = w / 2 + 1;
+  std::vector<uint8_t> R((size_t)(sy * (h + 1)), 127), RU((size_t)(suv * (h / 2 + 1)), 127), RV;
+  for (int64_t r = 1; r <= h; r++) R[(size_t)(r * sy)] = 129;
+  for (int64_t r = 1; r <= h / 2; r++) RU[(size_t)(r * suv)] = 129;
+  RV = RU;
+  std::vector<int> top_ctx((size_t)(4 * mb_w), B_DC);
+  std::vector<std::array<int, 9>> nz_top((size_t)mb_w);
+  for (auto &t : nz_top) t.fill(0);
+  Sink cost{0};
+  cost.bit_cost = bit_cost;
+  auto block_cost = [&](const int16_t *lv, int first, const int32_t *pt, int ctx) {
+    cost.cost = 0;
+    put_block(cost, lv, first, pt, ctx);
+    return cost.cost;
+  };
+  for (int64_t mb_y = 0; mb_y < mb_h; mb_y++) {
+    int left_ctx[4] = {B_DC, B_DC, B_DC, B_DC};
+    std::array<int, 9> nz_left;
+    nz_left.fill(0);
+    for (int64_t mb_x = 0; mb_x < mb_w; mb_x++) {
+      const int64_t mb = mb_y * mb_w + mb_x;
+      const int32_t *q = quant + 6 * segs[mb];
+      const int64_t lam = lambdas[segs[mb]];
+      const int64_t x0 = 16 * mb_x + 1, y0 = 16 * mb_y + 1;
+      int bsrc[16][16], top[16], tr[4], left[16];
+      for (int n = 0; n < 16; n++)
+        for (int k = 0; k < 16; k++)
+          bsrc[n][k] = Yi[(16 * mb_y + 4 * (n >> 2) + (k >> 2)) * w + 16 * mb_x + 4 * (n & 3) + (k & 3)];
+      for (int k = 0; k < 16; k++) top[k] = R[(size_t)((y0 - 1) * sy + x0 + k)], left[k] = R[(size_t)((y0 + k) * sy + x0 - 1)];
+      for (int k = 0; k < 4; k++) tr[k] = R[(size_t)((y0 - 1) * sy + x0 + 16 + k)];
+      const int corner = R[(size_t)((y0 - 1) * sy + x0 - 1)];
+      // i16
+      int64_t best_score = -1;
+      int best_mode = 0, best_tnz[4], best_lnz[4];
+      int16_t best_lv[16][16], best_y2[16];
+      int best_rec[16][16];
+      for (int mode : {B_DC, B_TM, B_VE, B_HE}) {
+        int pred[256], bpred[16][16], coefs[16][16], dcs_in[16], y2c[16];
+        pred_block(edge_mode(mode, mb_x, mb_y), top, left, corner, 16, pred);
+        for (int n = 0; n < 16; n++)
+          for (int k = 0; k < 16; k++) bpred[n][k] = pred[16 * (4 * (n >> 2) + (k >> 2)) + 4 * (n & 3) + (k & 3)];
+        for (int n = 0; n < 16; n++) fdct(bsrc[n], bpred[n], coefs[n]), dcs_in[n] = coefs[n][0];
+        fwht(dcs_in, y2c);
+        int16_t y2lv[16], y2deq[16], dcs[16];
+        quantize(y2c, 0, q[2], q[3], (int)rdc, (int)rac, y2lv, y2deq);
+        iwht(y2deq, dcs);
+        int64_t rate = bit_cost[256 - 145];
+        rate += mode == B_DC || mode == B_VE ? bit_cost[156] + (mode == B_VE ? bit_cost[256 - 163] : bit_cost[163])
+                                             : bit_cost[256 - 156] + (mode == B_TM ? bit_cost[256 - 128] : bit_cost[128]);
+        rate += block_cost(y2lv, 0, probs + 1 * 264, nz_top[(size_t)mb_x][8] + nz_left[8]);
+        int tnz[4], lnz[4];
+        for (int k = 0; k < 4; k++) tnz[k] = nz_top[(size_t)mb_x][k], lnz[k] = nz_left[k];
+        int16_t lv_all[16][16];
+        int rec[16][16];
+        int64_t sse = 0;
+        for (int n = 0; n < 16; n++) {
+          int16_t deq[16];
+          quantize(coefs[n], 1, q[0], q[1], (int)rdc, (int)rac, lv_all[n], deq);
+          deq[0] = dcs[n];
+          const int bx = n & 3, by = n >> 2;
+          rate += block_cost(lv_all[n], 1, probs, tnz[bx] + lnz[by]);
+          tnz[bx] = lnz[by] = any_nonzero(lv_all[n], 1);
+          recon4(bpred[n], deq, rec[n]);
+          sse += sse16(rec[n], bsrc[n]);
+        }
+        const int64_t score = 256 * sse + lam * rate;
+        if (best_score < 0 || score < best_score) {
+          best_score = score, best_mode = mode;
+          std::memcpy(best_lv, lv_all, sizeof(best_lv));
+          std::memcpy(best_y2, y2lv, sizeof(best_y2));
+          std::memcpy(best_rec, rec, sizeof(best_rec));
+          std::memcpy(best_tnz, tnz, sizeof(tnz));
+          std::memcpy(best_lnz, lnz, sizeof(lnz));
+        }
+      }
+      // i4
+      int local[17][21];
+      local[0][0] = corner;
+      for (int k = 0; k < 16; k++) local[0][1 + k] = top[k], local[k + 1][0] = left[k];
+      for (int k = 0; k < 4; k++) local[0][17 + k] = tr[k];
+      int64_t score4 = lam * bit_cost[145];
+      int tctx[4], lctx[4], tnz4[4], lnz4[4], modes4[16];
+      for (int k = 0; k < 4; k++)
+        tctx[k] = top_ctx[(size_t)(4 * mb_x + k)], lctx[k] = left_ctx[k], tnz4[k] = nz_top[(size_t)mb_x][k], lnz4[k] = nz_left[k];
+      int16_t lv4[16][16];
+      int rec4[16][16];
+      for (int n = 0; n < 16; n++) {
+        const int bx = n & 3, by = n >> 2, ax = 4 * bx + 1, ay = 4 * by + 1;
+        int btop[8], bleft[4];
+        for (int k = 0; k < 4; k++) {
+          btop[k] = local[ay - 1][ax + k];
+          btop[4 + k] = bx == 3 ? local[0][17 + k] : local[ay - 1][ax + 4 + k];
+          bleft[k] = local[ay + k][ax - 1];
+        }
+        const int bcorner = local[ay - 1][ax - 1], ctx = tnz4[bx] + lnz4[by];
+        int64_t bbest = -1;
+        int bmode = 0;
+        int16_t blv[16];
+        int brec[16];
+        for (int m = 0; m < 10; m++) {
+          int pred[16], coef[16], rb[16];
+          int16_t lv[16], deq[16];
+          pred4(m, btop, bleft, bcorner, pred);
+          fdct(bsrc[n], pred, coef);
+          quantize(coef, 0, q[0], q[1], (int)rdc, (int)rac, lv, deq);
+          recon4(pred, deq, rb);
+          cost.cost = 0;
+          put_bmode(cost, m, bmodes + (tctx[bx] * 10 + lctx[by]) * 9);
+          const int64_t mode_bits = cost.cost;
+          const int64_t rate = block_cost(lv, 0, probs + 3 * 264, ctx) + mode_bits;
+          const int64_t s = 256 * sse16(rb, bsrc[n]) + lam * rate;
+          if (bbest < 0 || s < bbest) {
+            bbest = s, bmode = m;
+            std::memcpy(blv, lv, sizeof(blv));
+            std::memcpy(brec, rb, sizeof(brec));
+          }
+        }
+        score4 += bbest;
+        tctx[bx] = lctx[by] = bmode;
+        tnz4[bx] = lnz4[by] = any_nonzero(blv, 0);
+        for (int k = 0; k < 16; k++) local[ay + (k >> 2)][ax + (k & 3)] = brec[k];
+        modes4[n] = bmode;
+        std::memcpy(lv4[n], blv, sizeof(blv));
+        std::memcpy(rec4[n], brec, sizeof(brec));
+      }
+      int32_t *mo = modes_out + 18 * mb;
+      int16_t *lo = levels_out + 400 * mb;
+      std::memset(mo, 0, 18 * sizeof(int32_t));
+      std::memset(lo, 0, 400 * sizeof(int16_t));
+      const int(*yrec)[16];
+      if (score4 < best_score) {
+        mo[0] = 1;
+        for (int n = 0; n < 16; n++) mo[1 + n] = modes4[n];
+        std::memcpy(lo, lv4, sizeof(lv4));
+        yrec = rec4;
+        for (int k = 0; k < 4; k++) top_ctx[(size_t)(4 * mb_x + k)] = tctx[k], left_ctx[k] = lctx[k];
+        for (int k = 0; k < 4; k++) nz_top[(size_t)mb_x][k] = tnz4[k], nz_left[k] = lnz4[k];
+      } else {
+        mo[1] = best_mode;
+        std::memcpy(lo, best_lv, sizeof(best_lv));
+        std::memcpy(lo + 384, best_y2, sizeof(best_y2));
+        yrec = best_rec;
+        for (int k = 0; k < 4; k++) top_ctx[(size_t)(4 * mb_x + k)] = left_ctx[k] = best_mode;
+        nz_top[(size_t)mb_x][8] = nz_left[8] = any_nonzero(best_y2, 0);
+        for (int k = 0; k < 4; k++) nz_top[(size_t)mb_x][k] = best_tnz[k], nz_left[k] = best_lnz[k];
+      }
+      for (int n = 0; n < 16; n++)
+        for (int k = 0; k < 16; k++)
+          R[(size_t)((y0 + 4 * (n >> 2) + (k >> 2)) * sy + x0 + 4 * (n & 3) + (k & 3))] = (uint8_t)yrec[n][k];
+      // chroma
+      const int64_t cx = 8 * mb_x + 1, cy = 8 * mb_y + 1;
+      int ptop[2][8], pleft[2][8], pcorner[2], csrc[2][4][16];
+      for (int ch = 0; ch < 2; ch++) {
+        const std::vector<uint8_t> &P = ch ? RV : RU;
+        const uint8_t *S = ch ? Vi : Ui;
+        for (int k = 0; k < 8; k++) ptop[ch][k] = P[(size_t)((cy - 1) * suv + cx + k)], pleft[ch][k] = P[(size_t)((cy + k) * suv + cx - 1)];
+        pcorner[ch] = P[(size_t)((cy - 1) * suv + cx - 1)];
+        for (int n = 0; n < 4; n++)
+          for (int k = 0; k < 16; k++)
+            csrc[ch][n][k] = S[(8 * mb_y + 4 * (n >> 1) + (k >> 2)) * (w / 2) + 8 * mb_x + 4 * (n & 1) + (k & 3)];
+      }
+      int64_t cbest = -1;
+      int cmode = 0, ctn[4], cln[4];
+      int16_t clv[8][16];
+      int crec[8][16];
+      for (int mode : {B_DC, B_TM, B_VE, B_HE}) {
+        cost.cost = 0;
+        put_uvmode(cost, mode);
+        int64_t rate = cost.cost, sse = 0;
+        int tn[4], ln[4];
+        for (int k = 0; k < 4; k++) tn[k] = nz_top[(size_t)mb_x][4 + k], ln[k] = nz_left[4 + k];
+        int16_t lv_all[8][16];
+        int recs[8][16];
+        for (int ch = 0; ch < 2; ch++) {
+          int pred[64];
+          pred_block(edge_mode(mode, mb_x, mb_y), ptop[ch], pleft[ch], pcorner[ch], 8, pred);
+          for (int n = 0; n < 4; n++) {
+            const int bx = n & 1, by = n >> 1;
+            int bp[16], coef[16];
+            for (int k = 0; k < 16; k++) bp[k] = pred[8 * (4 * by + (k >> 2)) + 4 * bx + (k & 3)];
+            int16_t deq[16];
+            int16_t *lv = lv_all[4 * ch + n];
+            fdct(csrc[ch][n], bp, coef);
+            quantize(coef, 0, q[4], q[5], (int)rdc, (int)rac, lv, deq);
+            rate += block_cost(lv, 0, probs + 2 * 264, tn[2 * ch + bx] + ln[2 * ch + by]);
+            tn[2 * ch + bx] = ln[2 * ch + by] = any_nonzero(lv, 0);
+            recon4(bp, deq, recs[4 * ch + n]);
+            sse += sse16(recs[4 * ch + n], csrc[ch][n]);
+          }
+        }
+        const int64_t score = 256 * sse + lam * rate;
+        if (cbest < 0 || score < cbest) {
+          cbest = score, cmode = mode;
+          std::memcpy(clv, lv_all, sizeof(clv));
+          std::memcpy(crec, recs, sizeof(crec));
+          std::memcpy(ctn, tn, sizeof(tn));
+          std::memcpy(cln, ln, sizeof(ln));
+        }
+      }
+      for (int k = 0; k < 4; k++) nz_top[(size_t)mb_x][4 + k] = ctn[k], nz_left[4 + k] = cln[k];
+      for (int ch = 0; ch < 2; ch++) {
+        std::vector<uint8_t> &P = ch ? RV : RU;
+        for (int n = 0; n < 4; n++)
+          for (int k = 0; k < 16; k++)
+            P[(size_t)((cy + 4 * (n >> 1) + (k >> 2)) * suv + cx + 4 * (n & 1) + (k & 3))] = (uint8_t)crec[4 * ch + n][k];
+      }
+      mo[17] = cmode;
+      std::memcpy(lo + 256, clv, sizeof(clv));
+    }
+    uint8_t *last = &R[(size_t)((16 * mb_y + 16) * sy)];
+    for (int k = 1; k <= 4; k++) last[w + k] = last[w];
+  }
+  return 0;
+}
+
+// VP8: the token partitions (vp8._write_tokens_py): modes [mbs][18], levels
+// [mbs][25][16], skips [mbs], probs [4][8][3][11] as int32 (positions + 256
+// for statistics). With stats non-null only counts (zeros, ones) into
+// stats [1056][2]; else writes the partitions one after another into out
+// (cap bytes) and their sizes into sizes [n_parts]. Returns the bytes
+// written, or -1 when out is too small.
+int64_t vp8_write_tokens(const int32_t *modes, const int16_t *levels, const uint8_t *skips, const int32_t *probs,
+                         int64_t mb_w, int64_t n_mb, int64_t n_parts, int64_t *stats, uint8_t *out, int64_t cap,
+                         int64_t *sizes) {
+  std::vector<BoolEnc> encs((size_t)n_parts);
+  Sink s{stats ? 1 : 2};
+  s.stats = stats;
+  std::vector<std::array<int, 9>> nz_top((size_t)mb_w);
+  for (auto &t : nz_top) t.fill(0);
+  for (int64_t mb_y = 0; mb_y < n_mb / mb_w; mb_y++) {
+    s.enc = &encs[(size_t)(mb_y % n_parts)];
+    std::array<int, 9> left;
+    left.fill(0);
+    for (int64_t mb_x = 0; mb_x < mb_w; mb_x++) {
+      const int64_t mb = mb_y * mb_w + mb_x;
+      const int is_i4 = modes[18 * mb];
+      auto &top = nz_top[(size_t)mb_x];
+      const int16_t *lv = levels + 400 * mb;
+      if (skips[mb]) {
+        for (int k = 0; k < 8; k++) top[k] = left[k] = 0;
+        if (!is_i4) top[8] = left[8] = 0;
+        continue;
+      }
+      int first;
+      const int32_t *ac;
+      if (!is_i4) {
+        top[8] = left[8] = put_block(s, lv + 384, 0, probs + 264, top[8] + left[8]);
+        first = 1, ac = probs;
+      } else {
+        first = 0, ac = probs + 3 * 264;
+      }
+      for (int n = 0; n < 16; n++) {
+        const int bx = n & 3, by = n >> 2;
+        top[bx] = left[by] = put_block(s, lv + 16 * n, first, ac, top[bx] + left[by]);
+      }
+      for (int n = 0; n < 8; n++) {
+        const int ch = n >> 2, bx = n & 1, by = (n >> 1) & 1;
+        top[4 + 2 * ch + bx] = left[4 + 2 * ch + by] =
+            put_block(s, lv + 16 * (16 + n), 0, probs + 2 * 264, top[4 + 2 * ch + bx] + left[4 + 2 * ch + by]);
+      }
+    }
+  }
+  if (stats) return 0;
+  int64_t total = 0;
+  for (int64_t p = 0; p < n_parts; p++) {
+    encs[(size_t)p].flush();
+    const int64_t n = (int64_t)encs[(size_t)p].out.size();
+    if (total + n > cap) return -1;
+    std::memcpy(out + total, encs[(size_t)p].out.data(), (size_t)n);
+    sizes[p] = n;
+    total += n;
+  }
+  return total;
+}
+
+// VP8: the first partition (vp8._write_modes_py): the header's decisions
+// bits [n_bits][2] (bit, prob), then each macroblock's segment (seg_probs
+// non-null), skip flag (skip_p > 0) and modes. Returns the bytes written,
+// or -1 when out (cap bytes) is too small.
+int64_t vp8_write_modes(const int32_t *bits, int64_t n_bits, const int32_t *modes, const int32_t *segs,
+                        const uint8_t *skips, const int32_t *seg_probs, int64_t skip_p, int64_t mb_w, int64_t n_mb,
+                        const uint8_t *bmodes, uint8_t *out, int64_t cap) {
+  BoolEnc enc;
+  Sink s{2};
+  s.enc = &enc;
+  for (int64_t i = 0; i < n_bits; i++) enc.put(bits[2 * i], bits[2 * i + 1]);
+  std::vector<int> top_ctx((size_t)(4 * mb_w), B_DC);
+  int left_ctx[4] = {B_DC, B_DC, B_DC, B_DC};
+  for (int64_t mb = 0; mb < n_mb; mb++) {
+    const int64_t mb_x = mb % mb_w;
+    const int32_t *m = modes + 18 * mb;
+    if (mb_x == 0)
+      for (int k = 0; k < 4; k++) left_ctx[k] = B_DC;
+    if (seg_probs) {
+      const int sg = segs[mb];
+      enc.put(sg >> 1, seg_probs[0]);
+      enc.put(sg & 1, seg_probs[1 + (sg >> 1)]);
+    }
+    if (skip_p) enc.put(skips[mb], (int)skip_p);
+    enc.put(1 - m[0], 145);
+    if (m[0]) {
+      for (int n = 0; n < 16; n++) {
+        const int bx = n & 3, by = n >> 2;
+        put_bmode(s, m[1 + n], bmodes + (top_ctx[(size_t)(4 * mb_x + bx)] * 10 + left_ctx[by]) * 9);
+        top_ctx[(size_t)(4 * mb_x + bx)] = left_ctx[by] = m[1 + n];
+      }
+    } else {
+      put_ymode(s, m[1]);
+      for (int k = 0; k < 4; k++) top_ctx[(size_t)(4 * mb_x + k)] = left_ctx[k] = m[1];
+    }
+    put_uvmode(s, m[17]);
+  }
+  enc.flush();
+  if ((int64_t)enc.out.size() > cap) return -1;
+  std::memcpy(out, enc.out.data(), enc.out.size());
+  return (int64_t)enc.out.size();
 }
 
 }  // extern "C"

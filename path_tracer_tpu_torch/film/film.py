@@ -7,8 +7,8 @@ the JAX package's ``.npz`` format, so each package resumes the other's
 films. `save_png` writes the format of the extension, as the JAX package's
 ``Image.save(path)`` does, with the port's codecs (`utils.imageio`: the
 card's machine has no Pillow): PNG (``.png``, ``.apng``), JPEG at quality
-75, TIFF, GIF, BMP, DIB, PPM and TGA by Pillow's extension table; any other
-extension raises ``ValueError``.
+75, TIFF, GIF, BMP, DIB, PPM, TGA and WebP (lossy, quality 80) by Pillow's
+extension table; any other extension raises ``ValueError``.
 """
 
 from __future__ import annotations

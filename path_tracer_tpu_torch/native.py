@@ -1,7 +1,8 @@
 """ctypes binding of the port's host library (``csrc/pt_native.cpp``): OBJ
 parsing, the binned-SAH BVH build, the walk engine's chunk partition, the
 JPEG entropy coder and integer DCTs, and the byte loops of the other raster
-codecs (LZW, PackBits, TGA and BMP run lengths, GIF's median-cut quantizer).
+codecs (LZW, PackBits, TGA and BMP run lengths, GIF's median-cut quantizer,
+WebP's VP8L decode loop, VP8 macroblock decode, encode and token coding).
 
 The library is host C++ with a plain C interface, compiled at first use
 with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` into ``_build/`` beside
@@ -119,7 +120,14 @@ def _load():
                            ("packbits_decode", [_U8P, _I, _U8P, _I]),
                            ("tga_rle_decode", [_U8P, _I, _I, _I, _I, _U8P]),
                            ("bmp_rle_decode", [_U8P, _I, _I, _I, _I, _U8P, _I]),
-                           ("median_cut_quantize", [_U8P, _I, _I, _U8P, _U8P])):
+                           ("median_cut_quantize", [_U8P, _I, _I, _U8P, _U8P]),
+                           ("vp8l_decode", [_U8P, _I, _I, _I, _I, _U8P, _U8P, _I]),
+                           ("vp8_decode_frame", [_U8P, _I, _U8P, _U8P, _U8P, _I, _I, _I, _U8P, _U8P, _U8P,
+                                                 _U8P, _U8P, _U8P]),
+                           ("vp8_encode_mbs", [_U8P, _U8P, _U8P, _I, _I, _U8P, _U8P, _U8P, _I, _I, _U8P, _U8P,
+                                               _U8P, _U8P, _U8P]),
+                           ("vp8_write_tokens", [_U8P, _U8P, _U8P, _U8P, _I, _I, _I, _U8P, _U8P, _I, _U8P]),
+                           ("vp8_write_modes", [_U8P, _I, _U8P, _U8P, _U8P, _U8P, _I, _I, _I, _U8P, _U8P, _I])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int64
@@ -373,3 +381,116 @@ def median_cut_quantize(rgb8: np.ndarray, colors: int = 256) -> tuple[np.ndarray
     k = lib.median_cut_quantize(px.ctypes.data, px.shape[0] * px.shape[1], colors,
                                 pal.ctypes.data, idx.ctypes.data)
     return pal[:k], idx
+
+
+# --- WebP (their Python twins are in utils/vp8l.py and utils/vp8.py) ---
+
+
+def _i32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int32)
+
+
+def vp8l_decode(data: bytes, xsize: int, ysize: int, bit_pos: int, distance_map):
+    """`utils.vp8l._decode_stream_py`: (transforms, residual pixels) or an
+    error code."""
+    lib = _load()
+    assert lib is not None
+    src = _buf(data)
+    sub = ((xsize + 3) >> 2) * ((ysize + 3) >> 2)
+    out = np.zeros(1 + xsize * ysize + 2 * sub + 256 + 16, np.uint32)
+    n = lib.vp8l_decode(src.ctypes.data, len(data), xsize, ysize, bit_pos, _i32(distance_map).ctypes.data,
+                        out.ctypes.data, out.size)
+    if n < 0:
+        return int(n)
+    transforms, i = [], 1
+    for _ in range(int(out[0])):
+        kind, bits, xs, count = (int(v) for v in out[i:i + 4])
+        data_ = out[i + 4:i + 4 + count].copy()
+        if kind in (0, 1):
+            data_ = data_.reshape((ysize + (1 << bits) - 1) >> bits, (xs + (1 << bits) - 1) >> bits)
+        elif kind == 3:
+            data_ = data_.reshape(1, count)
+            xsize = (xs + (1 << bits) - 1) >> bits
+        transforms.append((kind, bits, xs, data_))
+        i += 4 + count
+    return transforms, out[i:i + xsize * ysize].reshape(ysize, xsize).copy()
+
+
+def vp8_decode_frame(part0: bytes, state, parts, mb_w: int, mb_h: int, P: dict, bmodes):
+    """`utils.vp8._decode_frame_py`: the planes (Y, U, V) or -1."""
+    lib = _load()
+    assert lib is not None
+    p0 = _buf(part0)
+    cat = _buf(b"".join(parts))
+    offsets = np.cumsum([0] + [len(p) for p in parts]).astype(np.int64)
+    params = _i32([P["update_map"], *P["segment_probs"], P["use_skip"], P["skip_p"], P["filter_type"],
+                   *np.ravel(P["quant"]), *np.ravel(P["fstrengths"])])
+    probs = np.ascontiguousarray(P["probs"], np.uint8)
+    st = np.array(state, np.int64)
+    Y = np.zeros((16 * mb_h, 16 * mb_w), np.uint8)
+    U, V = np.zeros((8 * mb_h, 8 * mb_w), np.uint8), np.zeros((8 * mb_h, 8 * mb_w), np.uint8)
+    rc = lib.vp8_decode_frame(p0.ctypes.data, len(part0), st.ctypes.data, cat.ctypes.data, offsets.ctypes.data,
+                              len(parts), mb_w, mb_h, params.ctypes.data, probs.ctypes.data,
+                              np.ascontiguousarray(bmodes, np.uint8).ctypes.data, Y.ctypes.data, U.ctypes.data,
+                              V.ctypes.data)
+    return int(rc) if rc else (Y, U, V)
+
+
+def vp8_encode_mbs(Y, U, V, segs, quant, lambdas, rounding, probs0, bit_cost, bmodes):
+    """`utils.vp8._encode_mbs_py`: (modes, levels)."""
+    lib = _load()
+    assert lib is not None
+    Y, U, V = (np.ascontiguousarray(a, np.uint8) for a in (Y, U, V))
+    mb_h, mb_w = Y.shape[0] // 16, Y.shape[1] // 16
+    modes = np.zeros((mb_w * mb_h, 18), np.int32)
+    levels = np.zeros((mb_w * mb_h, 25, 16), np.int16)
+    segs, quant, probs, cost = _i32(segs), _i32(quant), _i32(probs0), _i32(bit_cost)
+    lam = np.ascontiguousarray(lambdas, np.int64)
+    lib.vp8_encode_mbs(Y.ctypes.data, U.ctypes.data, V.ctypes.data, mb_w, mb_h, segs.ctypes.data,
+                       quant.ctypes.data, lam.ctypes.data, rounding[0], rounding[1], probs.ctypes.data,
+                       cost.ctypes.data, np.ascontiguousarray(bmodes, np.uint8).ctypes.data, modes.ctypes.data,
+                       levels.ctypes.data)
+    return modes, levels
+
+
+def vp8_write_tokens(modes, levels, skips, probs, mb_w: int, n_parts: int):
+    """`utils.vp8._write_tokens_py`: the partitions' bytes, or with
+    ``probs`` None the statistics."""
+    lib = _load()
+    assert lib is not None
+    modes, skips = _i32(modes), np.ascontiguousarray(skips, np.uint8)
+    levels = np.ascontiguousarray(levels, np.int16)
+    n_mb = len(modes)
+    if probs is None:
+        stats = np.zeros((4 * 8 * 3 * 11, 2), np.int64)
+        pos = _i32(np.arange(4 * 8 * 3 * 11) + 256)
+        lib.vp8_write_tokens(modes.ctypes.data, levels.ctypes.data, skips.ctypes.data, pos.ctypes.data, mb_w,
+                             n_mb, n_parts, stats.ctypes.data, None, 0, None)
+        return stats.reshape(4, 8, 3, 11, 2)
+    probs = _i32(probs)
+    cap = 64 * 1024 + 1200 * n_mb  # a macroblock's 400 levels take at most ~1 KB of tokens
+    out = np.zeros(cap, np.uint8)
+    sizes = np.zeros(n_parts, np.int64)
+    n = lib.vp8_write_tokens(modes.ctypes.data, levels.ctypes.data, skips.ctypes.data, probs.ctypes.data, mb_w,
+                             n_mb, n_parts, None, out.ctypes.data, cap, sizes.ctypes.data)
+    if n < 0:
+        raise MemoryError("vp8_write_tokens: output buffer too small")
+    ends = np.cumsum(sizes)
+    return [out[e - s:e].tobytes() for s, e in zip(sizes, ends)]
+
+
+def vp8_write_modes(header_bits, modes, segs, skips, seg_probs, skip_p: int, mb_w: int, bmodes) -> bytes:
+    """`utils.vp8._write_modes_py`: the first partition's bytes."""
+    lib = _load()
+    assert lib is not None
+    bits, modes, segs = _i32(header_bits), _i32(modes), _i32(segs)
+    skips = np.ascontiguousarray(skips, np.uint8)
+    sp = _i32(seg_probs) if seg_probs is not None else None
+    cap = 4096 + len(bits) // 4 + 64 * len(modes)
+    out = np.zeros(cap, np.uint8)
+    n = lib.vp8_write_modes(bits.ctypes.data, len(bits), modes.ctypes.data, segs.ctypes.data, skips.ctypes.data,
+                            sp.ctypes.data if sp is not None else None, skip_p, mb_w, len(modes),
+                            np.ascontiguousarray(bmodes, np.uint8).ctypes.data, out.ctypes.data, cap)
+    if n < 0:
+        raise MemoryError("vp8_write_modes: output buffer too small")
+    return out[:n].tobytes()

@@ -15,7 +15,8 @@ Pillow's ``convert("RGB")``: PNG (every colour type, bit depth and
 interlace; APNG's default image), JPEG (baseline, extended and progressive;
 gray, YCbCr, RGB, CMYK and YCCK; every sampling libjpeg-turbo takes), TIFF
 (strips and tiles; none, LZW, Deflate and PackBits; gray, RGB and palette),
-GIF (frame 0), BMP and DIB, PBM/PGM/PPM and gray PFM, and TGA. Gray above 8
+GIF (frame 0), BMP and DIB, PBM/PGM/PPM and gray PFM, TGA, and WebP (lossy,
+lossless, extended, an animation's frame 0). Gray above 8
 bits (PNG, TIFF, PGM) keeps its high byte where Pillow clips to 255
 (``ROADMAP.md``, known faults of the reference). Anything else raises,
 naming the file. `save_image` writes by the extension, as
@@ -23,7 +24,9 @@ naming the file. `save_image` writes by the extension, as
 ``.bmp``, ``.dib``, ``.ppm``/``.pnm``/``.pgm``/``.pbm``/``.pfm`` (P6),
 ``.tga``/``.icb``/``.vda``/``.vst``, ``.gif`` (Pillow's median-cut palette),
 ``.jpg``/``.jpeg``/``.jpe``/``.jfif`` (quality 75); ``.png`` and ``.apng``
-as the port's PNG; any other extension raises.
+as the port's PNG; ``.webp`` lossy at Pillow's quality 80 in Pillow's layout,
+with the port's own VP8 frame (libwebp's bytes are not reproduced; its
+decode of them is); any other extension raises.
 
 The lookup fetches the four texels of the bilinear footprint with four row
 gathers. The JAX package's quad table (each footprint in one 12-wide row,

@@ -1,13 +1,14 @@
 """Image file bytes, read and written without Pillow: PNG and JPEG here,
-TIFF, GIF, BMP/DIB, the PPM family and TGA in the modules beside this one
-(`tiff`, `gif`, `bmp`, `netpbm`, `tga`), and the format dispatch.
+TIFF, GIF, BMP/DIB, the PPM family, TGA and WebP in the modules beside this
+one (`tiff`, `gif`, `bmp`, `netpbm`, `tga`, `webp` with its bitstreams
+`vp8` and `vp8l`), and the format dispatch.
 
 The JAX package reads and writes images through Pillow (``Image.open(...)
 .convert("RGB")``; ``Image.save(path)``, whose format follows the
 extension), which the card's machine does not have. These modules give the
 same bytes with ``numpy``, ``zlib`` and ``struct``, and the port's host
 library (`native`) for the byte loops (the JPEG entropy coder, LZW,
-run lengths, GIF's quantizer):
+run lengths, GIF's quantizer, WebP's decode and encode loops):
 
 * `decode_png`: every colour type at every bit depth it allows (1, 2, 4, 8,
   16), Adam7 interlace, every filter type, to the bytes of Pillow's
@@ -55,7 +56,7 @@ import zlib
 import numpy as np
 
 from path_tracer_tpu_torch import native
-from path_tracer_tpu_torch.utils import bmp, gif, netpbm, tga, tiff
+from path_tracer_tpu_torch.utils import bmp, gif, netpbm, tga, tiff, webp
 
 # --------------------------------------------------------------------- PNG
 
@@ -977,15 +978,15 @@ JPEG_QUALITY = 75  # Pillow's default, what ``Image.save("x.jpg")`` writes
 _WRITERS = {".png": "png", ".apng": "png", ".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg",
             ".jfif": "jpeg", ".tif": "tiff", ".tiff": "tiff", ".gif": "gif", ".bmp": "bmp",
             ".dib": "dib", ".ppm": "ppm", ".pnm": "ppm", ".pgm": "ppm", ".pbm": "ppm",
-            ".pfm": "ppm", ".tga": "tga", ".icb": "tga", ".vda": "tga", ".vst": "tga"}
+            ".pfm": "ppm", ".tga": "tga", ".icb": "tga", ".vda": "tga", ".vst": "tga", ".webp": "webp"}
 _ENCODERS = {"png": encode_png, "jpeg": lambda rgb8: encode_jpeg(rgb8, JPEG_QUALITY),
              "tiff": tiff.encode_tiff, "gif": gif.encode_gif, "bmp": bmp.encode_bmp,
              "dib": lambda rgb8: bmp.encode_bmp(rgb8, file_header=False), "ppm": netpbm.encode_ppm,
-             "tga": tga.encode_tga}
+             "tga": tga.encode_tga, "webp": webp.encode_webp}
 # Formats Pillow opens that the port does not read, told by their magic
 # numbers and tried where Pillow's plugin order (after its preloaded BMP, DIB,
-# GIF, JPEG, PPM and PNG) puts them: before TIFF, between TIFF and TGA, after
-# TGA. (ICO and CUR are left out: their four bytes also begin TGA files.)
+# GIF, JPEG, PPM and PNG) puts them: before TIFF, between TIFF and TGA. (ICO
+# and CUR are left out: their four bytes also begin TGA files.)
 _BEFORE_TIFF = (
     ("AVIF", lambda d: d[4:12] in (b"ftypavif", b"ftypavis")),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2")),
@@ -1000,7 +1001,6 @@ _BEFORE_TGA = (
     ("SGI", lambda d: d[:2] == b"\x01\xda"),
     ("Sun raster", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
 )
-_AFTER_TGA = (("WebP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"),)
 
 
 def _unsupported(data: bytes, name: str, table) -> None:
@@ -1014,9 +1014,10 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """An image file's bytes -> uint8 RGB ``[H, W, 3]``, the format told by
     its first bytes in the order ``Image.open`` tries Pillow's plugins: BMP,
     DIB (a header size of 12, 40, 52, 56, 64, 108 or 124 bytes), GIF, JPEG,
-    the PPM family, PNG (APNG: its default image), then TIFF and TGA (by
-    Pillow's TGA header checks). A file in another format Pillow opens
-    raises ``ValueError`` naming it; one no format claims raises too."""
+    the PPM family, PNG (APNG: its default image), then TIFF, TGA (by
+    Pillow's TGA header checks) and WebP. A file in another format Pillow
+    opens raises ``ValueError`` naming it; one no format claims raises
+    too."""
     if data[:2] == bmp.SIGNATURE:
         return bmp.decode_bmp(data, name)
     if len(data) >= 4 and struct.unpack("<I", data[:4])[0] in bmp.DIB_HEADERS:
@@ -1035,16 +1036,17 @@ def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     _unsupported(data, name, _BEFORE_TGA)
     if tga.accepts(data):
         return tga.decode_tga(data, name)
-    _unsupported(data, name, _AFTER_TGA)
+    if webp.accepts(data):
+        return webp.decode_webp(data, name)
     raise ValueError(f"{name}: not an image file the port reads (PNG, JPEG, TIFF, GIF, BMP, DIB, "
-                     "PBM/PGM/PPM/PFM, TGA)")
+                     "PBM/PGM/PPM/PFM, TGA, WebP)")
 
 
 def image_format(path) -> str:
     """The format ``Image.save(path)`` picks from the extension
     (case-insensitive): ``png``, ``jpeg``, ``tiff``, ``gif``, ``bmp``,
-    ``dib``, ``ppm`` or ``tga``. Raises ``ValueError`` naming any other
-    extension."""
+    ``dib``, ``ppm``, ``tga`` or ``webp``. Raises ``ValueError`` naming any
+    other extension."""
     ext = os.path.splitext(str(path))[1].lower()
     if ext not in _WRITERS:
         raise ValueError(f"unknown file extension: {ext!r} ({path}); the port writes "
@@ -1055,7 +1057,9 @@ def image_format(path) -> str:
 def write_image(path, rgb8: np.ndarray) -> None:
     """Write uint8 RGB ``[H, W, 3]`` in the format of the extension, the
     bytes Pillow's ``Image.fromarray(rgb8, "RGB").save(path)`` writes (PNG:
-    the port's own encoder; JPEG at Pillow's default quality)."""
+    the port's own encoder; JPEG at Pillow's default quality; WebP: lossy at
+    Pillow's quality 80 in Pillow's layout, with the port's own VP8 frame,
+    which Pillow reads to the pixels the port reads)."""
     data = _ENCODERS[image_format(path)](np.ascontiguousarray(rgb8, np.uint8))
     with open(path, "wb") as f:
         f.write(data)

@@ -155,15 +155,22 @@ def test_closest_matches_jax(engines):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
-@pytest.mark.parametrize("scale", [0.99, 1.01])
-def test_any_hit_window_matches_jax(engines, scale):
-    """Shadow windows just short of and just past each ray's closest hit:
-    flags equal to the JAX engine's, and to the closest hit's verdict."""
+@pytest.fixture(scope="module")
+def window_rays(engines):
+    """The any-hit cases' rays and the port's closest hit on them (hit, t),
+    made once for both windows."""
     o, d = _rays(N_JAX, seed=2)
     ti, tt = tds.dense_stream_closest_hit_shade(engines[1], torch.from_numpy(o), torch.from_numpy(d),
                                                 torch.full((N_JAX,), torch.inf))[:2]
-    hit = (ti >= 0).numpy()
-    lim = np.where(hit, tt.numpy() * scale, 1e-3).astype(np.float32)
+    return o, d, (ti >= 0).numpy(), tt.numpy()
+
+
+@pytest.mark.parametrize("scale", [0.99, 1.01])
+def test_any_hit_window_matches_jax(engines, window_rays, scale):
+    """Shadow windows just short of and just past each ray's closest hit:
+    flags equal to the JAX engine's, and to the closest hit's verdict."""
+    o, d, hit, tt = window_rays
+    lim = np.where(hit, tt * scale, 1e-3).astype(np.float32)
     j, t = _any(engines, o, d, lim)
     np.testing.assert_array_equal(t, j)
     np.testing.assert_array_equal(t, hit if scale > 1 else np.zeros_like(hit))
@@ -196,8 +203,9 @@ def test_ragged_dead_and_nan_lanes(engines):
 def test_render_sample_stream_matches_jax():
     """dragon_scene cut to 24,588 world tris, its world queries through the
     streamed engine on both sides (the JAX dict gets ``tri["dense_stream"]``
-    by hand: its ``Scene.device()`` packs it only on a TPU), 16x16, 2 spp,
-    8 bounces; compared as the other whole-slice tests compare
+    by hand: its ``Scene.device()`` packs it only on a TPU), 16x8, 2 spp
+    (the second sample's stream and the average over samples), 8 bounces;
+    compared as the other whole-slice tests compare
     (``tests/test_torch_render.py``)."""
     sh, cam = jscenes.dragon_scene(**DRAGON_KW)
     jd = sh.device()
@@ -207,7 +215,7 @@ def test_render_sample_stream_matches_jax():
     jd["tri"]["dense_stream"] = {k: jnp.asarray(v) for k, v in tables.items() if k != "meta"}
     ndc, org = cam.view_proj_inverse(), cam.origin
     args = dict(max_bounces=8, spp=2, mtypes=sh.active_mtypes, any_volumes=sh.has_volumes)
-    j = [np.asarray(x) for x in jrender(jd, jnp.asarray(ndc), jnp.asarray(org), 0, 16, 16, **args)]
+    j = [np.asarray(x) for x in jrender(jd, jnp.asarray(ndc), jnp.asarray(org), 0, 16, 8, **args)]
     td = tscene.from_jax_scene(jax.tree_util.tree_map(np.asarray, jd), "cpu")
     assert "stream" in td["tri"] and "walk" not in td["tri"] and "dense" not in td["tri"]
     for k in tds.JAX_TABLES:
@@ -216,7 +224,7 @@ def test_render_sample_stream_matches_jax():
     np.testing.assert_array_equal(td["tri"]["stream"]["qab"].numpy(),
                                   tds.pack_qab(sh.tri["positions"], tables["aux"].shape[0]))
     n0 = dict(LAUNCHES)
-    t = [x.numpy() for x in tw.render_sample(td, torch.from_numpy(ndc), torch.from_numpy(org), 0, 16, 16,
+    t = [x.numpy() for x in tw.render_sample(td, torch.from_numpy(ndc), torch.from_numpy(org), 0, 16, 8,
                                              **args)]
     assert LAUNCHES == n0  # CPU tensors take the plain versions
     jr, tr = j[0], t[0]

@@ -575,14 +575,14 @@ def test_sixteen_bit_gray_diverges(tmp_path, case):
 
 
 @pytest.mark.parametrize("case", ["tiff_float", "tiff_cmyk", "tiff_ycbcr", "tiff_jpeg", "tiff_logluv",
-                                  "tiff_bigtiff", "pf_colour", "webp", "qoi", "jpeg_fractional",
+                                  "tiff_bigtiff", "pf_colour", "avif", "qoi", "jpeg_fractional",
                                   "jpeg_mcu_of_11_blocks", "gif_ends_early"])
 def test_still_unsupported_raise(tmp_path, case):
     """What the port does not read raises ``ValueError`` naming the file and
     what it lacks (``ROADMAP.md`` queues them)."""
     what = {"tiff_float": "floating-point", "tiff_cmyk": "CMYK", "tiff_ycbcr": "YCbCr",
             "tiff_jpeg": "JPEG", "tiff_logluv": "LogLuv", "tiff_bigtiff": "BigTIFF", "pf_colour": "not an image file",
-            "webp": "WebP", "qoi": "QOI", "jpeg_fractional": "sampling factors",
+            "avif": "AVIF", "qoi": "QOI", "jpeg_fractional": "sampling factors",
             "jpeg_mcu_of_11_blocks": "11 blocks an MCU", "gif_ends_early": "truncated"}[case]
     data = {
         "tiff_float": lambda: pillow(Image.fromarray(RGB[..., 0].astype(np.float32)), "TIFF"),
@@ -592,7 +592,7 @@ def test_still_unsupported_raise(tmp_path, case):
         "tiff_logluv": lambda: tiff_file(RGB, 8, 32845),
         "tiff_bigtiff": lambda: pillow(Image.fromarray(RGB), "TIFF", big_tiff=True),
         "pf_colour": lambda: b"PF\n1 1\n-1.0\n" + bytes(12),
-        "webp": lambda: pillow(Image.fromarray(RGB), "WEBP"),
+        "avif": lambda: pillow(Image.fromarray(RGB), "AVIF"),
         "qoi": lambda: pillow(Image.fromarray(RGB), "QOI"),
         "jpeg_fractional": lambda: jpeg_sampled([_Y, _CB, _CR], ((3, 2), (2, 1), (1, 1))),
         "jpeg_mcu_of_11_blocks": lambda: jpeg_sampled([_Y, _CB, _CR], ((3, 3), (1, 1), (1, 1))),

@@ -35,7 +35,7 @@ from path_tracer_tpu_torch import cli, native
 from path_tracer_tpu_torch.film import film as tfilm
 from path_tracer_tpu_torch.scene import envmap as tenv
 from path_tracer_tpu_torch.utils import config as tconfig
-from path_tracer_tpu_torch.utils import imageio
+from path_tracer_tpu_torch.utils import imageio, webp
 from test_torch_render import _assert_slice_agrees
 from torch_builders import numpy_builders  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -381,17 +381,19 @@ def test_native_dct_matches_numpy(monkeypatch):
                                           imageio._fdct_quantize_np(samples, table))
 
 
-@pytest.mark.parametrize("out", ["x.jpg", "x.JPEG", "x.png", "x.webp", "x"])
+@pytest.mark.parametrize("out", ["x.jpg", "x.JPEG", "x.png", "x.webp", "x.avif", "x"])
 def test_cli_out_extension(tmp_path, monkeypatch, out):
     """``--out`` takes the format of its extension, as the JAX package's
     ``Image.save``; one Pillow would not write to (or any the port does
-    not) raises before the scene is built, not after the render."""
+    not: AVIF) raises before the scene is built, not after the render.
+    ``.webp`` is the port's lossy frame, which Pillow reads to the pixels
+    the port reads."""
     built = []
     real = cli.load_scene
     monkeypatch.setattr(cli, "load_scene", lambda args: built.append(1) or real(args))
     argv = ["--scene", "env_sphere_scene", "--width", "4", "--height", "4", "--spp", "1",
             "--max-bounces", "2", "--device", "cpu", "--out", str(tmp_path / out)]
-    if out in ("x.webp", "x"):
+    if out in ("x.avif", "x"):
         with pytest.raises(ValueError, match="unknown file extension"):
             cli.main(argv)
         assert not built
@@ -402,6 +404,11 @@ def test_cli_out_extension(tmp_path, monkeypatch, out):
     if out == "x.png":
         assert data[:8] == b"\x89PNG\r\n\x1a\n"
         np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), rgb8)
+        return
+    if out == "x.webp":
+        assert data == webp.encode_webp(np.ascontiguousarray(rgb8))
+        np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data)).convert("RGB")),
+                                      imageio.decode_image(data))
         return
     buf = io.BytesIO()
     Image.fromarray(np.ascontiguousarray(rgb8), "RGB").save(buf, "JPEG")

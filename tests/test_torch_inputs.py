@@ -164,17 +164,18 @@ def test_save_image_round_trip(tmp_path):
     np.testing.assert_array_equal(tenv.load_image(tmp_path / "t.png"), jenv.load_image(tmp_path / "j.png"))
 
 
-@pytest.mark.parametrize("case", ["webp", "arithmetic-jpeg", "jpeg-in-tiff"])
+@pytest.mark.parametrize("case", ["avif", "arithmetic-jpeg", "jpeg-in-tiff"])
 def test_unsupported_images_raise(tmp_path, case):
-    """What the port does not read raises, naming the file: a WebP, an
+    """What the port does not read raises, naming the file: an AVIF, an
     arithmetic-coded JPEG (its SOF0 marker patched to SOF9) and a TIFF of
-    JPEG strips. (JPEG, PNG and the other raster formats load:
-    ``tests/test_torch_images.py``, ``tests/test_torch_formats.py``.)"""
+    JPEG strips. (JPEG, PNG, WebP and the other raster formats load:
+    ``tests/test_torch_images.py``, ``tests/test_torch_formats.py``,
+    ``tests/test_torch_webp.py``.)"""
     path = tmp_path / f"{case}.img"
     px = np.zeros((4, 4, 3), np.uint8)
-    if case == "webp":
-        Image.fromarray(px).save(path, "WEBP")
-        what = "WebP"
+    if case == "avif":
+        Image.fromarray(px).save(path, "AVIF")
+        what = "AVIF"
     elif case == "arithmetic-jpeg":
         buf = io.BytesIO()
         Image.fromarray(px).save(buf, "JPEG")

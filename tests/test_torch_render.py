@@ -85,8 +85,26 @@ DRAGON_KW = {"nu": 96, "nv": 64, "env_h": 32}
 MANY_KW = {"grid": 3, "subdivisions": 1}
 
 
-def _render_both(name, engine=_jax_scene_with_dense_pl, **kw):
-    sh, cam = getattr(jscenes, name)(**kw)
+@pytest.fixture(scope="module")
+def jax_scene():
+    """``jscenes.<name>(**kw)``, built once for the module: the cases that
+    render or check the tables of the same scene share it
+    (``Scene.device()`` makes a fresh dict on each call)."""
+    built = {}
+
+    def get(name, **kw):
+        key = (name, tuple(sorted(kw.items())))
+        if key not in built:
+            built[key] = getattr(jscenes, name)(**kw)
+        return built[key]
+
+    return get
+
+
+def _render_both(name, engine=_jax_scene_with_dense_pl, build=None, **kw):
+    """The JAX and the port's ``render_sample`` of ``build(name, **kw)``
+    (default: a new ``jscenes.<name>(**kw)``) through ``engine``."""
+    sh, cam = build(name, **kw) if build else getattr(jscenes, name)(**kw)
     jd = engine(sh)
     ndc, org = cam.view_proj_inverse(), cam.origin
     args = dict(max_bounces=BOUNCES, spp=SPP, mtypes=sh.active_mtypes, any_volumes=sh.has_volumes)
@@ -107,29 +125,29 @@ def _assert_slice_agrees(j, t):
 
 
 @pytest.mark.parametrize("name,kw", [("mesh_scene", {"subdivisions": 2}), ("cornell_specular", {})])
-def test_render_sample_matches_jax(name, kw):
-    _assert_slice_agrees(*_render_both(name, **kw))
+def test_render_sample_matches_jax(jax_scene, name, kw):
+    _assert_slice_agrees(*_render_both(name, build=jax_scene, **kw))
 
 
-def test_render_sample_volume_matches_jax():
+def test_render_sample_volume_matches_jax(jax_scene):
     """cornell_volume: the nested-media stack, free flight, HG scattering and
     Beer-Lambert absorption inside the loop."""
-    _assert_slice_agrees(*_render_both("cornell_volume"))
+    _assert_slice_agrees(*_render_both("cornell_volume", build=jax_scene))
 
 
-def test_render_sample_walk_matches_jax():
+def test_render_sample_walk_matches_jax(jax_scene):
     """dragon_scene's world queries through the walk engine on both sides:
     GGX glass with an absorbing, scattering medium under an equirect sky.
     Both sides' tables come from their NumPy chunk partitions."""
-    j, t = _render_both("dragon_scene", engine=_jax_scene_with_walk, **DRAGON_KW)
+    j, t = _render_both("dragon_scene", engine=_jax_scene_with_walk, build=jax_scene, **DRAGON_KW)
     _assert_slice_agrees(j, t)
 
 
-def test_from_jax_scene_walk_tables():
+def test_from_jax_scene_walk_tables(jax_scene):
     """A >16K-triangle scene builds walk tables instead of raising, and
     ``from_jax_scene`` of the JAX dict gives the same tensors, bit for bit,
     as the port's own ``Scene.device``."""
-    jsh, _ = jscenes.dragon_scene(**DRAGON_KW)
+    jsh, _ = jax_scene("dragon_scene", **DRAGON_KW)
     tsh, _ = tscenes.dragon_scene(**DRAGON_KW)
     assert tsh.num_world_tris == jsh.num_world_tris == 24588
     port = tsh.device("cpu")
@@ -145,19 +163,19 @@ def test_from_jax_scene_walk_tables():
 
 
 @pytest.mark.parametrize("packer", [jiwalk.pack_vwalk, jiwalk.pack_iwalk], ids=["vwalk", "iwalk"])
-def test_render_sample_two_level_matches_jax(packer):
+def test_render_sample_two_level_matches_jax(jax_scene, packer):
     """many_instance_scene two-level: every world query through a two-level
     engine on both sides (the shade dict's world normal, rotated by the
     instance's forward rotation, and its model id)."""
-    j, t = _render_both("many_instance_scene", engine=_jax_two_level(packer), **MANY_KW)
+    j, t = _render_both("many_instance_scene", engine=_jax_two_level(packer), build=jax_scene, **MANY_KW)
     _assert_slice_agrees(j, t)
 
 
-def test_from_jax_scene_two_level_tables():
+def test_from_jax_scene_two_level_tables(jax_scene):
     """``from_jax_scene`` of a JAX two-level dict gives the port's own
     two-level ``Scene.device`` tables bit for bit (both engines), an empty
     ``tri``, and the same light tables; a multi-part engine raises."""
-    jsh, _ = jscenes.many_instance_scene(**MANY_KW)
+    jsh, _ = jax_scene("many_instance_scene", **MANY_KW)
     jd = _jax_two_level(jiwalk.pack_vwalk)(jsh)
     parts = jiwalk.pack_vwalk(jsh.models, split_vch=4)
     tsh, _ = tscenes.many_instance_scene(**MANY_KW, two_level=True)

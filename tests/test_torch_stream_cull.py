@@ -180,17 +180,20 @@ def test_lane_cull_cuts(soup, name):
     assert groups.float().mean() < chunks.float().mean()
 
 
-def _tie():
+@pytest.fixture(scope="module")
+def tie():
+    """`dense_stream.tie_soup`'s positions, the port's tables of it and its
+    rays, made once for the module's two tie cases."""
     pos, o, d = ds.tie_soup()
     tables = ds.pack_dense_stream(tri_mod.precompute(pos), None, None, pos)
-    return tables, torch.from_numpy(o), torch.from_numpy(d)
+    return pos, tables, torch.from_numpy(o), torch.from_numpy(d)
 
 
-def test_lowest_index_wins_ties_across_parts():
+def test_lowest_index_wins_ties_across_parts(tie):
     """`dense_stream.tie_soup`: one triangle in parts 0 and 1, twice within
     one group of part 0; the plain version, the culled model and the public
     query pick row 1001 on every ray."""
-    tables, o, d = _tie()
+    _, tables, o, d = tie
     assert tables["meta"]["nparts"] == 2 and o.shape[0] == N_JAX
     eng = ds.upload(tables, "cpu")
     g = np.array(ds.TIE_ROWS) // ds.QH
@@ -204,11 +207,10 @@ def test_lowest_index_wins_ties_across_parts():
     assert (idx == ds.TIE_ROWS[0]).all()
 
 
-def test_tie_soup_matches_jax():
+def test_tie_soup_matches_jax(tie):
     """The tie soup through the JAX streamed engine (Pallas interpreter)
     picks the same lowest index."""
-    tables, o, d = _tie()
-    pos, _, _ = ds.tie_soup()
+    pos, tables, o, d = tie
     j = jds.pack_dense_stream(jtri.precompute(pos), None, None, pos)
     jeng = {k: jnp.asarray(v) for k, v in j.items() if k != "meta"}
     tl = np.full(o.shape[0], np.inf, np.float32)

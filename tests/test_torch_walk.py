@@ -156,16 +156,24 @@ def test_closest_hit_wrapper_matches_jax(engines, query):
         np.testing.assert_allclose(a[hit], b[hit], rtol=RTOL, atol=1e-6)
 
 
-@pytest.mark.parametrize("scale", [0.99, 1.01])
-def test_any_hit_matches_jax(engines, scale):
-    """(d) Shadow windows just short of and just past each ray's closest
-    hit: flags equal to the JAX walk's, and to the closest hit's verdict."""
-    je, te = _both(engines)
+@pytest.fixture(scope="module")
+def window_rays(engines):
+    """The any-hit cases' rays and the port's closest hit on them (hit, t),
+    made once for both windows."""
+    _, te = _both(engines)
     o, d = _rays(512, seed=2)
     ti, tt = twalk.walk_closest_hit_shade(te, torch.from_numpy(o), torch.from_numpy(d),
                                           torch.full((512,), torch.inf))[:2]
-    hit = (ti >= 0).numpy()
-    lim = np.where(hit, tt.numpy() * scale, 1e-3).astype(np.float32)
+    return o, d, (ti >= 0).numpy(), tt.numpy()
+
+
+@pytest.mark.parametrize("scale", [0.99, 1.01])
+def test_any_hit_matches_jax(engines, window_rays, scale):
+    """(d) Shadow windows just short of and just past each ray's closest
+    hit: flags equal to the JAX walk's, and to the closest hit's verdict."""
+    je, te = _both(engines)
+    o, d, hit, tt = window_rays
+    lim = np.where(hit, tt * scale, 1e-3).astype(np.float32)
     j = np.asarray(jwalk.walk_any_hit(je, jnp.asarray(o), jnp.asarray(d), jnp.asarray(lim)))
     t = twalk.walk_any_hit(te, *map(torch.from_numpy, (o, d, lim))).numpy()
     np.testing.assert_array_equal(t, j)

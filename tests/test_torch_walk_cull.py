@@ -74,6 +74,23 @@ def engines():
             "iwalk": (ieng, ieng["ocb"][:, 0:3], ieng["ocb"][:, 3:6], up)}
 
 
+@pytest.fixture(scope="module")
+def ray_sets(engines):
+    """Each (kind, set)'s rays with their exit-clamped limits, made once for
+    the module: the lane-cull and closest-cull cases of a (kind, set) share
+    them (the ulp and shadow sets each take a closest-hit pass to make)."""
+    made = {}
+
+    def get(kind, name):
+        if (kind, name) not in made:
+            eng, lo, hi, light = engines[kind]
+            o, d, tl = _rays(kind, eng, lo, hi, light, name)
+            made[kind, name] = (o, d, walk._exit_clamp(eng, o, d, tl))
+        return made[kind, name]
+
+    return get
+
+
 def _unit(v):
     return v / v.norm(dim=1, keepdim=True)
 
@@ -164,10 +181,9 @@ def _enters(kind, eng, lo, hi, o, d, tw):
 
 @pytest.mark.parametrize("name", SETS)
 @pytest.mark.parametrize("kind", KINDS)
-def test_lane_cull_is_exact(engines, kind, name):
+def test_lane_cull_is_exact(engines, ray_sets, kind, name):
     eng, lo, hi, light = engines[kind]
-    o, d, tl = _rays(kind, eng, lo, hi, light, name)
-    tlc = walk._exit_clamp(eng, o, d, tl)
+    o, d, tlc = ray_sets(kind, name)
     hits, o_, d_, tl_ = _hits_by_chunk(kind, eng, o, d, tlc)
     enter = _enters(kind, eng, lo, hi, o_, d_, tl_)
     lost = hits & ~enter
@@ -200,11 +216,10 @@ def test_lane_enters_edge_cases():
 
 @pytest.mark.parametrize("name", SETS)
 @pytest.mark.parametrize("kind", KINDS)
-def test_closest_cull_is_exact(engines, kind, name):
+def test_closest_cull_is_exact(engines, ray_sets, kind, name):
     eng, lo, hi, light = engines[kind]
     mod = walk if kind == "walk" else iwalk
-    o, d, tl = _rays(kind, eng, lo, hi, light, name)
-    tlc = walk._exit_clamp(eng, o, d, tl)
+    o, d, tlc = ray_sets(kind, name)
     plain = mod.closest_plain(eng, o, d, tlc)
     culled = mod.culled_closest_plain(eng, o, d, tlc)
     assert all(torch.equal(a, b) for a, b in zip(culled, plain)), (kind, name)
