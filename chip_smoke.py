@@ -227,7 +227,14 @@ Phases (any failure raises and the script exits non-zero without the final
     rendered beside the other two with 0 pixels of its film differing, the
     film to ``.webp`` and back (PSNR held to ``WEBP_PSNR_MIN``), the
     2048x4096 sky through the WebP writer and reader (the decode under
-    5 s); and
+    5 s); the JPEG and TIFF variants: the committed arithmetic-coded
+    progressive sky (``sky.jpg``'s coefficients), lossless sky (``sky.png``'s
+    pixels) and JPEG, CCITT G4, LZMA, CMYK, float, YCbCr, CIELab, BigTIFF
+    and orientation-6 TIFF files decoded to the digests in
+    ``assets/variant_digests.json``, the two skies also equal to the decodes
+    of ``sky.jpg`` and ``sky.png``, and ``assets/asset_scene_ljpeg.json``
+    (the asset scene under ``sky_lossless.jpg``) rendered beside the other
+    three with 0 pixels of its film differing; and
     ``--profile-dir`` on a 64x64 render: the trace's events and kernels.
 
 Phases run in the order 1-4, 22, 5-8, 22, 9, 16-21, 10-14, 22, 23, 15, 24, 25, 26.
@@ -817,13 +824,19 @@ def phase_jpeg(sky, card):
 
 TIFF_SCENE = "assets/asset_scene_tiff.json"  # asset_scene.json under assets/sky.tif (sky.png's pixels)
 FORMAT_DIGESTS = "assets/format_digests.json"  # SHA-256 of Pillow's decode of each committed format file
-FORMAT_SPP = 2  # the TIFF-sky and PNG-sky renders of phase_formats
+FORMAT_SPP = 2  # the TIFF-sky, WebP-sky, lossless-JPEG-sky and PNG-sky renders of phase_formats
 FORMAT_OUTS = (".tif", ".bmp", ".dib", ".ppm", ".tga", ".gif", ".apng")
 GIF_PSNR_MIN = 30.0  # dB, the film's GIF against its tonemapped bytes (a CPU render of the scene at 128x72, 2 spp: 40.76)
 WEBP_SCENE = "assets/asset_scene_webp.json"  # asset_scene.json under assets/sky.webp (lossless, sky.png's pixels)
 WEBP_DIGESTS = "assets/webp_digests.json"  # SHA-256 of Pillow's decode of each committed WebP file
 # dB, the film's .webp against its tonemapped bytes (a CPU render of the scene at 64x36, 2 spp, 8 bounces: 35.21)
 WEBP_PSNR_MIN = 30.0
+LJPEG_SCENE = "assets/asset_scene_ljpeg.json"  # asset_scene.json under assets/sky_lossless.jpg (sky.png's pixels)
+# SHA-256 of Pillow's decode of each committed JPEG and TIFF variant (arithmetic, lossless, JPEG / CCITT / LZMA
+# TIFF, CMYK, float, YCbCr, CIELab, BigTIFF, orientation 6)
+VARIANT_DIGESTS = "assets/variant_digests.json"
+# the variants that hold another asset's pixels: sky_arith.jpg sky.jpg's coefficients, sky_lossless.jpg sky.png's
+VARIANT_SOURCES = {"assets/sky_arith.jpg": "assets/sky.jpg", "assets/sky_lossless.jpg": "assets/sky.png"}
 
 
 def phase_formats(sky, card):
@@ -839,7 +852,11 @@ def phase_formats(sky, card):
     ``JPEG_DECODE_LIMIT_S``. WebP (``utils/{webp,vp8,vp8l}.py``): the
     committed WebP files against ``WEBP_DIGESTS`` in (a), the WebP-sky
     scene beside the other two in (b), the film's ``.webp`` held to
-    ``WEBP_PSNR_MIN`` in (c)."""
+    ``WEBP_PSNR_MIN`` in (c). The JPEG and TIFF variants
+    (``utils/{jpeg_arith,jpeg_lossless,ccitt,tiff}.py``): the committed
+    files against ``VARIANT_DIGESTS`` in (a), the arithmetic and lossless
+    skies also equal to the decodes of ``VARIANT_SOURCES``, and the
+    lossless-JPEG-sky scene beside the others in (b)."""
     import hashlib
 
     from path_tracer_tpu_torch import native
@@ -849,25 +866,31 @@ def phase_formats(sky, card):
 
     t_phase = time.perf_counter()
     check(native.available(), "the native library is not available (g++)")
-    digests = {**json.loads(Path(FORMAT_DIGESTS).read_text()), **json.loads(Path(WEBP_DIGESTS).read_text())}
+    digests = {**json.loads(Path(FORMAT_DIGESTS).read_text()), **json.loads(Path(WEBP_DIGESTS).read_text()),
+               **json.loads(Path(VARIANT_DIGESTS).read_text())}
+    decoded = {}
     for path, want in digests.items():
         data = Path(path).read_bytes()
         t0 = time.perf_counter()
-        rgb = imageio.decode_image(data, path)
+        rgb = decoded[path] = imageio.decode_image(data, path)
         seconds = time.perf_counter() - t0
         same = list(rgb.shape) == want["shape"] and hashlib.sha256(rgb.tobytes()).hexdigest() == want["sha256"]
         print(f"  {path}: {len(data)} bytes, {rgb.shape[1]}x{rgb.shape[0]} decoded in {seconds * 1e3:.1f} ms "
               f"(native), {'equal to' if same else 'NOT equal to'} Pillow's digest")
         check(same, path)
+    for path, source in VARIANT_SOURCES.items():
+        same = bool((decoded[path] == imageio.decode_image(Path(source).read_bytes(), source)).all())
+        print(f"  {path} {'equal to' if same else 'NOT equal to'} the port's decode of {source}")
+        check(same, (path, source))
     films, launches = {}, {}
-    for scene in (TIFF_SCENE, WEBP_SCENE, ASSET_SCENE):
+    for scene in (TIFF_SCENE, WEBP_SCENE, LJPEG_SCENE, ASSET_SCENE):
         wavefront.STEPS.update(bounce=0, calls=0, reads=0)
         launches[scene], res = render_cli(scene, FORMAT_SPP, card, ("closest", "any"))
         films[scene] = res["film"]
         print(f"  {scene}: {wavefront.STEPS['bounce']} bounce steps, trace {res['trace_s']:.2f} s, "
               f"scene build {res['phases']['scene build']:.3f} s, launches of PERF.md §6 rows 1-2: "
               f"closest {launches[scene]['closest']}, any {launches[scene]['any']} ({card})")
-    for scene, label in ((TIFF_SCENE, "TIFF"), (WEBP_SCENE, "WebP")):
+    for scene, label in ((TIFF_SCENE, "TIFF"), (WEBP_SCENE, "WebP"), (LJPEG_SCENE, "lossless-JPEG")):
         differ = int((films[scene] != films[ASSET_SCENE]).any(dim=-1).sum())
         print(f"  {label}-sky against PNG-sky film: {differ} of {WIDTH * HEIGHT} pixels differ (limit 0)")
         check(differ == 0, (label, differ))

@@ -2795,3 +2795,442 @@ int64_t vp8_write_modes(const int32_t *bits, int64_t n_bits, const int32_t *mode
 }
 
 }  // extern "C"
+
+// ------------------------------------------- arithmetic and lossless JPEG
+//
+// The scan loops of path_tracer_tpu_torch/utils/jpeg_arith.py and
+// jpeg_lossless.py (libjpeg-turbo's jdarith.c; jdlhuff.c, jddiffct.c and
+// jdpred.c), each with the same output as its Python twin;
+// tests/test_torch_variants.py holds them to each other.
+
+namespace {
+
+// T.81 Annex D's decoder (jdarith.c arith_decode) over one restart
+// interval's unstuffed bytes; past their end it reads zeros, as libjpeg
+// does at a marker.
+struct ArithDec {
+  const uint8_t *d;
+  int64_t pos, end;
+  const int64_t *qe_tab;
+  int64_t a = 0, c = 0;
+  int ct = -16;
+  int decode(uint8_t *st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int64_t byte = pos < end ? d[pos] : 0;
+        pos++;
+        c = (c << 8) | byte;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = qe_tab[sv & 0x7F];
+    int nl = (int)(qe & 0xFF), nm = (int)((qe >> 8) & 0xFF);
+    qe >>= 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// Figures F.23 / F.24 after the first category decision `m` on st: the
+// magnitude v - 1, or -1 on an overflow.
+inline int arith_magnitude(ArithDec &ad, uint8_t *stats, uint8_t *st, int x1, bool ac) {
+  int m = ad.decode(st);
+  if (m) {
+    if (!ac || ad.decode(st)) {
+      if (ac) m <<= 1;
+      st = stats + x1;
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) return -1;
+        st++;
+      }
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (ad.decode(st)) v |= m;
+  return v;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One arithmetic-coded DCT scan; the arguments of jpeg_decode_scan, with
+// per scan component its (DC, AC) statistics tables instead of lookahead
+// tables, the DAC conditioning L, U, Kx (16 each), Table D.2 packed as
+// jpeg_arith.QE and the natural order (64 entries). Returns 0 or -3.
+int64_t jpeg_arith_decode_scan(const uint8_t *data, const int64_t *starts, int64_t n_starts,
+                               int64_t n_comps, int16_t *const *coefs, const int64_t *cols,
+                               const int64_t *hs, const int64_t *vs, const int64_t *dc_tbl,
+                               const int64_t *ac_tbl, const int64_t *cond_l, const int64_t *cond_u,
+                               const int64_t *cond_k, const int64_t *qe_tab, const int64_t *natural,
+                               int64_t mcus_x, int64_t mcus_y, int64_t ss, int64_t se, int64_t ah,
+                               int64_t al, int64_t restart) {
+  const int64_t n_mcu = mcus_x * mcus_y;
+  const int64_t interval = restart ? restart : n_mcu;
+  if (n_starts - 1 != (n_mcu + interval - 1) / interval) return -3;
+  std::vector<int64_t> bc, boff;
+  for (int64_t c = 0; c < n_comps; c++)
+    for (int64_t y = 0; y < vs[c]; y++)
+      for (int64_t x = 0; x < hs[c]; x++) {
+        bc.push_back(c);
+        boff.push_back((y * cols[c] + x) * 64);
+      }
+  const bool progressive = !(ss == 0 && se == 63 && ah == 0 && al == 0);
+  const bool dc_scan = !progressive || (ss == 0 && ah == 0);
+  const bool ac_scan = !progressive || ss > 0;
+  std::vector<uint8_t> dc_stats(16 * 64), ac_stats(16 * 256);
+  uint8_t fixed = 113;
+  const int p1 = 1 << al, m1 = -p1;
+  std::vector<int64_t> pred((size_t)n_comps), ctx((size_t)n_comps);
+  for (int64_t it = 0; it + 1 < n_starts; it++) {
+    ArithDec ad{data, starts[it], starts[it + 1], qe_tab};
+    std::fill(pred.begin(), pred.end(), 0);
+    std::fill(ctx.begin(), ctx.end(), 0);
+    for (int64_t c = 0; c < n_comps; c++) {
+      if (dc_scan) std::fill_n(dc_stats.begin() + dc_tbl[c] * 64, 64, 0);
+      if (ac_scan) std::fill_n(ac_stats.begin() + ac_tbl[c] * 256, 256, 0);
+    }
+    bool broken = false;
+    const int64_t m_end = std::min(n_mcu, (it + 1) * interval);
+    for (int64_t m = it * interval; m < m_end && !broken; m++) {
+      const int64_t my = m / mcus_x, mx = m % mcus_x;
+      for (size_t b = 0; b < bc.size() && !broken; b++) {
+        const int64_t c = bc[b];
+        int16_t *blk = coefs[c] + my * vs[c] * cols[c] * 64 + mx * hs[c] * 64 + boff[b];
+        if (progressive && ss == 0 && ah) {  // DC refinement
+          if (ad.decode(&fixed)) blk[0] = (int16_t)(blk[0] | p1);
+          continue;
+        }
+        if (dc_scan) {  // Figure F.19
+          uint8_t *stats = dc_stats.data() + dc_tbl[c] * 64;
+          uint8_t *st = stats + ctx[c];
+          int64_t d = 0;
+          if (!ad.decode(st)) {
+            ctx[c] = 0;
+          } else {
+            const int sign = ad.decode(st + 1);
+            st += 2 + sign;
+            int m0 = ad.decode(st);
+            if (m0) {
+              st = stats + 20;
+              while (ad.decode(st)) {
+                if ((m0 <<= 1) == 0x8000) {
+                  broken = true;
+                  break;
+                }
+                st++;
+              }
+              if (broken) break;
+            }
+            const int64_t l = dc_tbl[c];
+            if (m0 < (int)((1L << cond_l[l]) >> 1))
+              ctx[c] = 0;
+            else if (m0 > (int)((1L << cond_u[l]) >> 1))
+              ctx[c] = 12 + sign * 4;
+            else
+              ctx[c] = 4 + sign * 4;
+            int v = m0;
+            st += 14;
+            while (m0 >>= 1)
+              if (ad.decode(st)) v |= m0;
+            v += 1;
+            d = sign ? -v : v;
+          }
+          pred[c] = (pred[c] + d) & 0xFFFF;
+          blk[0] = (int16_t)(uint16_t)(progressive ? (pred[c] << al) : pred[c]);
+          if (progressive) continue;
+        }
+        uint8_t *stats = ac_stats.data() + ac_tbl[c] * 256;
+        const int64_t kx = cond_k[ac_tbl[c]];
+        if (!ah) {  // sequential, or the AC first stage (Figure F.20)
+          const int64_t last = progressive ? se : 63;
+          for (int64_t k = progressive ? ss : 1; k <= last; k++) {
+            uint8_t *st = stats + 3 * (k - 1);
+            if (ad.decode(st)) break;  // EOB
+            while (!ad.decode(st + 1)) {
+              st += 3;
+              if (++k > last) {
+                broken = true;
+                break;
+              }
+            }
+            if (broken) break;
+            const int sign = ad.decode(&fixed);
+            int v = arith_magnitude(ad, stats, st + 2, k <= kx ? 189 : 217, true);
+            if (v < 0) {
+              broken = true;
+              break;
+            }
+            v += 1;
+            blk[natural[k]] = (int16_t)(uint16_t)((uint32_t)(sign ? -v : v) << al);
+          }
+          continue;
+        }
+        // AC refinement (G.1.3.3)
+        int64_t kex = se;
+        while (kex > 0 && !blk[natural[kex]]) kex--;
+        for (int64_t k = ss; k <= se; k++) {
+          uint8_t *st = stats + 3 * (k - 1);
+          if (k > kex && ad.decode(st)) break;
+          for (;;) {
+            int16_t *t = blk + natural[k];
+            if (*t) {
+              if (ad.decode(st + 2)) *t = (int16_t)(*t + (*t < 0 ? m1 : p1));
+              break;
+            }
+            if (ad.decode(st + 1)) {
+              *t = (int16_t)(ad.decode(&fixed) ? m1 : p1);
+              break;
+            }
+            st += 3;
+            if (++k > se) {
+              broken = true;
+              break;
+            }
+          }
+          if (broken) break;
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// One lossless scan (Huffman): the arguments of
+// jpeg_lossless.decode_scan_py, per scan component its uint8 plane
+// [heights[c], widths[c]], (hs, vs) samples per MCU, its lookahead table and
+// its rows per iMCU row. Returns 0, -1 (bad code), -2 (data ends early),
+// or -3 (restart intervals do not match).
+int64_t jpeg_lossless_decode_scan(const uint8_t *data, const int64_t *starts, int64_t n_starts,
+                                  int64_t n_comps, uint8_t *const *planes, const int64_t *widths,
+                                  const int64_t *heights, const int64_t *hs, const int64_t *vs,
+                                  const uint16_t *const *luts, const int64_t *rows_per_imcu,
+                                  int64_t mcus_x, int64_t mcus_y, int64_t predictor, int64_t pt,
+                                  int64_t restart) {
+  const int64_t n_mcu = mcus_x * mcus_y;
+  const int64_t interval = restart ? restart : n_mcu;
+  if (n_starts - 1 != (n_mcu + interval - 1) / interval) return -3;
+  // the differences, grown an MCU row at a time (data that ends early allocates little)
+  std::vector<std::vector<int32_t>> diffs((size_t)n_comps);
+  std::vector<int64_t> dw((size_t)n_comps);
+  for (int64_t c = 0; c < n_comps; c++) dw[c] = mcus_x * hs[c];
+  for (int64_t it = 0; it + 1 < n_starts; it++) {
+    BitReader br{data, starts[it] * 8};
+    const int64_t end = starts[it + 1] * 8;
+    const int64_t m_end = std::min(n_mcu, (it + 1) * interval);
+    for (int64_t m = it * interval; m < m_end; m++) {
+      const int64_t my = m / mcus_x, mx = m % mcus_x;
+      if (mx == 0)
+        for (int64_t c = 0; c < n_comps; c++) diffs[c].resize((size_t)(dw[c] * (my + 1) * vs[c]), 0);
+      for (int64_t c = 0; c < n_comps; c++)
+        for (int64_t y = 0; y < vs[c]; y++)
+          for (int64_t x = 0; x < hs[c]; x++) {
+            int s = br.symbol(luts[c]);
+            if (s < 0 || s > 16) return -1;
+            int32_t d = 0;
+            if (s == 16)
+              d = 32768;
+            else if (s)
+              d = extend(br.get(s), s);
+            diffs[c][(size_t)((my * vs[c] + y) * dw[c] + mx * hs[c] + x)] = d;
+          }
+      if (br.pos > end) return -2;
+    }
+  }
+  const int64_t restart_rows = restart ? interval / mcus_x : 0;
+  const int seed = 1 << (8 - pt - 1);
+  for (int64_t c = 0; c < n_comps; c++) {
+    const int64_t w = widths[c], h = heights[c], rpi = rows_per_imcu[c];
+    std::vector<char> reset((size_t)std::max<int64_t>(h, 1), 0);
+    for (int64_t k = 0; k < mcus_y; k += restart_rows ? restart_rows : mcus_y) {
+      const int64_t r = (k * vs[c] / rpi) * rpi;
+      if (r < h) reset[(size_t)r] = 1;
+    }
+    std::vector<int32_t> prev((size_t)w, 0), row((size_t)w, 0);
+    for (int64_t y = 0; y < h; y++) {
+      const int32_t *dr = diffs[c].data() + y * dw[c];
+      if (reset[(size_t)y]) {
+        int32_t ra = (dr[0] + seed) & 0xFFFF;
+        row[0] = ra;
+        for (int64_t x = 1; x < w; x++) row[(size_t)x] = ra = (dr[x] + ra) & 0xFFFF;
+      } else {
+        int32_t rb = prev[0], ra = (dr[0] + rb) & 0xFFFF, rc;
+        row[0] = ra;
+        for (int64_t x = 1; x < w; x++) {
+          rc = rb;
+          rb = prev[(size_t)x];
+          int32_t p;
+          switch (predictor) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1; break;
+          }
+          row[(size_t)x] = ra = (dr[x] + p) & 0xFFFF;
+        }
+      }
+      uint8_t *out = planes[c] + y * w;
+      for (int64_t x = 0; x < w; x++) out[x] = (uint8_t)(row[(size_t)x] << pt);
+      std::swap(prev, row);
+    }
+  }
+  return 0;
+}
+
+
+// CCITT rows of one TIFF strip or tile (path_tracer_tpu_torch/utils/ccitt.py
+// decode_py, libtiff's tif_fax3.c): `code` the TIFF compression (2 modified
+// Huffman, 3 Group 3, 4 Group 4), `options` its T4Options / T6Options; the
+// caller's lookahead tables of both colours (`run << 4 | length`, -1 for
+// EOL, 0 for no code; 12 and 13 bits wide). Writes rows * ceil(width / 8)
+// packed bytes (a run of the second colour as 1 bits). Returns 0 or the
+// negative codes of ccitt.ERRORS.
+int64_t ccitt_decode(const uint8_t *data, int64_t n, int64_t width, int64_t rows, int64_t code,
+                     int64_t options, const int32_t *white_lut, const int32_t *black_lut, uint8_t *out) {
+  const int64_t nbits = n * 8;
+  int64_t pos = 0;
+  auto bit = [&](int64_t p) -> uint32_t { return p < nbits ? (data[p >> 3] >> (7 - (p & 7))) & 1 : 0; };
+  auto peek = [&](int k) -> uint32_t {
+    uint32_t v = 0;
+    for (int i = 0; i < k; i++) v = v << 1 | bit(pos + i);
+    return v;
+  };
+  auto run = [&](const int32_t *lut, int k) -> int64_t {
+    int64_t length = 0;
+    for (;;) {
+      if (pos >= nbits) return -2;
+      const int32_t e = lut[peek(k)];
+      if (e <= 0) return -1;
+      pos += e & 15;
+      length += e >> 4;
+      if ((e >> 4) < 64) return length;
+    }
+  };
+  // 2-D mode codes by (length, value): P 0001, H 001, V0 1, VR1-3 011
+  // 000011 0000011, VL1-3 010 000010 0000010
+  const int64_t row_bytes = (width + 7) / 8;
+  std::memset(out, 0, (size_t)(rows * row_bytes));
+  std::vector<int64_t> ref{width, width}, cur;
+  for (int64_t r = 0; r < rows; r++) {
+    bool two_d = code == 4;
+    if (code == 3) {  // SYNC_EOL
+      while (pos + 11 <= nbits && peek(11) != 0) pos++;
+      if (pos + 11 > nbits) return -2;
+      while (pos < nbits && !bit(pos)) pos++;
+      if (pos >= nbits) return -2;
+      pos++;
+      if (options & 1) {
+        if (pos >= nbits) return -2;
+        two_d = !bit(pos);
+        pos++;
+      }
+    }
+    cur.clear();
+    if (!two_d) {
+      int64_t a0 = 0;
+      int colour = 0;
+      while (a0 < width) {
+        const int64_t len = colour ? run(black_lut, 13) : run(white_lut, 12);
+        if (len < 0) return len;
+        a0 += len;
+        cur.push_back(a0);
+        colour ^= 1;
+      }
+      if (a0 != width) return -3;
+      if (code == 2) pos = (pos + 7) / 8 * 8;
+    } else {
+      int64_t a0 = -1;
+      int colour = 0;
+      while (a0 < width) {
+        size_t i = 0;
+        while (i < ref.size() && (ref[i] <= a0 || (int)(i % 2) != colour)) i++;
+        const int64_t b1 = i < ref.size() ? ref[i] : width;
+        const int64_t b2 = i + 1 < ref.size() ? ref[i + 1] : width;
+        if (pos >= nbits) return -2;
+        int kind = -1, d = 0;  // 0 pass, 1 horizontal, 2 vertical
+        if (bit(pos)) {
+          kind = 2, pos += 1;
+        } else if (peek(3) == 3) {
+          kind = 2, d = 1, pos += 3;
+        } else if (peek(3) == 2) {
+          kind = 2, d = -1, pos += 3;
+        } else if (peek(3) == 1) {
+          kind = 1, pos += 3;
+        } else if (peek(4) == 1) {
+          kind = 0, pos += 4;
+        } else if (peek(6) == 3) {
+          kind = 2, d = 2, pos += 6;
+        } else if (peek(6) == 2) {
+          kind = 2, d = -2, pos += 6;
+        } else if (peek(7) == 3) {
+          kind = 2, d = 3, pos += 7;
+        } else if (peek(7) == 2) {
+          kind = 2, d = -3, pos += 7;
+        } else {
+          if (peek(12) == 1 && code == 4) return -2;  // EOFB before the last row
+          return peek(7) == 1 ? -4 : -1;
+        }
+        if (kind == 0) {
+          a0 = b2;
+        } else if (kind == 1) {
+          const int64_t start = std::max<int64_t>(a0, 0);
+          const int64_t n1 = colour ? run(black_lut, 13) : run(white_lut, 12);
+          if (n1 < 0) return n1;
+          const int64_t n2 = colour ? run(white_lut, 12) : run(black_lut, 13);
+          if (n2 < 0) return n2;
+          if (start + n1 + n2 > width) return -3;
+          cur.push_back(start + n1);
+          cur.push_back(start + n1 + n2);
+          a0 = start + n1 + n2;
+        } else {
+          const int64_t a1 = b1 + d;
+          if (a1 < std::max<int64_t>(a0, 0) || a1 > width) return -3;
+          cur.push_back(a1);
+          a0 = a1;
+          colour ^= 1;
+        }
+      }
+    }
+    uint8_t *row = out + r * row_bytes;
+    for (size_t k = 0; k < cur.size(); k += 2) {
+      const int64_t s = cur[k], t = k + 1 < cur.size() ? cur[k + 1] : width;
+      for (int64_t x = s; x < t; x++) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
+    }
+    ref.clear();
+    for (int64_t c : cur)
+      if (c < width) ref.push_back(c);
+    ref.push_back(width);
+    ref.push_back(width);
+  }
+  return 0;
+}
+
+}  // extern "C"

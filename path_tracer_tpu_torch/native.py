@@ -2,7 +2,8 @@
 parsing, the binned-SAH BVH build, the walk engine's chunk partition, the
 JPEG entropy coder and integer DCTs, and the byte loops of the other raster
 codecs (LZW, PackBits, TGA and BMP run lengths, GIF's median-cut quantizer,
-WebP's VP8L decode loop, VP8 macroblock decode, encode and token coding).
+WebP's VP8L decode loop, VP8 macroblock decode, encode and token coding,
+JPEG's arithmetic and lossless scans, CCITT rows).
 
 The library is host C++ with a plain C interface, compiled at first use
 with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` into ``_build/`` beside
@@ -114,6 +115,14 @@ def _load():
         lib.jpeg_fdct_quantize.restype = None
         _U8P = ctypes.c_void_p
         _I = ctypes.c_int64
+        lib.jpeg_arith_decode_scan.argtypes = [
+            _U8P, _I64P, _I, _I, _VPP, *[_I64P] * 10, *[_I] * 7]
+        lib.jpeg_arith_decode_scan.restype = _I
+        lib.jpeg_lossless_decode_scan.argtypes = [
+            _U8P, _I64P, _I, _I, _VPP, *[_I64P] * 4, _VPP, _I64P, *[_I] * 5]
+        lib.jpeg_lossless_decode_scan.restype = _I
+        lib.ccitt_decode.argtypes = [_U8P, _I, _I, _I, _I, _I, _I32P, _I32P, _U8P]
+        lib.ccitt_decode.restype = _I
         for name, args in (("tiff_lzw_decode", [_U8P, _I, _U8P, _I]),
                            ("gif_lzw_decode", [_U8P, _I, _I, _U8P, _I]),
                            ("gif_lzw_encode", [_U8P, _I, _I, _U8P, _I]),
@@ -219,6 +228,18 @@ def _pointers(arrays) -> ctypes.Array:
     return (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
 
 
+def _arr(values) -> np.ndarray:
+    return np.ascontiguousarray(values, np.int64)
+
+
+def _check_coefs(name, coefs, geom, mcus_x, mcus_y):
+    for c, (h, v) in zip(coefs, geom):
+        if c.dtype != np.int16 or not c.flags.c_contiguous or c.ndim != 3 or c.shape[2] != 64:
+            raise ValueError(f"{name}: coefficients must be C-contiguous int16 [rows, cols, 64]")
+        if c.shape[0] < mcus_y * v or c.shape[1] < mcus_x * h:
+            raise ValueError(f"{name}: coefficient array smaller than the scan's MCUs")
+
+
 def jpeg_decode_scan(data: bytes, starts, coefs, geom, luts, mcus_x: int, mcus_y: int,
                      ss: int, se: int, ah: int, al: int, restart: int) -> int:
     """Native Huffman decode of one JPEG scan, in place; the arguments and
@@ -230,11 +251,7 @@ def jpeg_decode_scan(data: bytes, starts, coefs, geom, luts, mcus_x: int, mcus_y
     st = np.ascontiguousarray(starts, np.int64)
     if len(data) < int(st[-1]) + _SCAN_PAD:
         raise ValueError("jpeg_decode_scan: the scan data lacks its zero padding")
-    for c, (h, v) in zip(coefs, geom):
-        if c.dtype != np.int16 or not c.flags.c_contiguous or c.ndim != 3 or c.shape[2] != 64:
-            raise ValueError("jpeg_decode_scan: coefficients must be C-contiguous int16 [rows, cols, 64]")
-        if c.shape[0] < mcus_y * v or c.shape[1] < mcus_x * h:
-            raise ValueError("jpeg_decode_scan: coefficient array smaller than the scan's MCUs")
+    _check_coefs("jpeg_decode_scan", coefs, geom, mcus_x, mcus_y)
     tables = [np.ascontiguousarray(t, np.uint16) for pair in luts for t in pair]
     if any(t.shape != (1 << 16,) for t in tables):
         raise ValueError("jpeg_decode_scan: lookahead tables must have 65536 entries")
@@ -246,6 +263,60 @@ def jpeg_decode_scan(data: bytes, starts, coefs, geom, luts, mcus_x: int, mcus_y
         buf.ctypes.data, st.ctypes.data_as(_I64P), st.size, len(coefs), _pointers(coefs),
         cols.ctypes.data_as(_I64P), hs.ctypes.data_as(_I64P), vs.ctypes.data_as(_I64P),
         _pointers(tables[0::2]), _pointers(tables[1::2]), mcus_x, mcus_y, ss, se, ah, al, restart))
+
+
+def jpeg_arith_decode_scan(data: bytes, starts, coefs, geom, tables, cond, mcus_x: int, mcus_y: int,
+                           ss: int, se: int, ah: int, al: int, restart: int, natural, qe) -> int:
+    """Native arithmetic decode of one JPEG scan, in place; the arguments
+    and the return code of `utils.jpeg_arith.decode_scan_py`, and ``qe``,
+    Table D.2 packed as `utils.jpeg_arith.QE`."""
+    lib = _load()
+    assert lib is not None
+    _check_coefs("jpeg_arith_decode_scan", coefs, geom, mcus_x, mcus_y)
+    st = _arr(starts)
+    if len(data) < int(st[-1]):
+        raise ValueError("jpeg_arith_decode_scan: the restart intervals run past the data")
+    if any(not (0 <= t < 16) for pair in tables for t in pair):
+        raise ValueError("jpeg_arith_decode_scan: statistics tables are 0 to 15")
+    l, u, k = (_arr(t) for t in cond)
+    qe, nat = _arr(qe), _arr(natural)
+    if l.shape != (16,) or u.shape != (16,) or k.shape != (16,) or qe.shape != (114,) or nat.size < 64:
+        raise ValueError("jpeg_arith_decode_scan: conditioning, Qe or natural-order table of the wrong size")
+    buf = np.frombuffer(bytes(data) + b"\0", np.uint8)
+    cols, hs, vs = (_arr(x) for x in ([c.shape[1] for c in coefs], [g[0] for g in geom], [g[1] for g in geom]))
+    dc, ac = _arr([t[0] for t in tables]), _arr([t[1] for t in tables])
+    ptr = [a.ctypes.data_as(_I64P) for a in (cols, hs, vs, dc, ac, l, u, k, qe, nat)]
+    return int(lib.jpeg_arith_decode_scan(buf.ctypes.data, st.ctypes.data_as(_I64P), st.size, len(coefs),
+                                          _pointers(coefs), *ptr, mcus_x, mcus_y, ss, se, ah, al, restart))
+
+
+def jpeg_lossless_decode_scan(data: bytes, starts, planes, geom, luts, rows_per_imcu, mcus_x: int,
+                              mcus_y: int, predictor: int, pt: int, restart: int) -> int:
+    """Native decode of one lossless JPEG scan into its components' planes;
+    the arguments and the return code of
+    `utils.jpeg_lossless.decode_scan_py`."""
+    lib = _load()
+    assert lib is not None
+    st = _arr(starts)
+    if len(data) < int(st[-1]):
+        raise ValueError("jpeg_lossless_decode_scan: the restart intervals run past the data")
+    for p, (h, v) in zip(planes, geom):
+        if p.dtype != np.uint8 or not p.flags.c_contiguous or p.ndim != 2:
+            raise ValueError("jpeg_lossless_decode_scan: planes must be C-contiguous uint8 [h, w]")
+        if p.shape[0] > mcus_y * v or p.shape[1] > mcus_x * h:
+            raise ValueError("jpeg_lossless_decode_scan: a plane larger than the scan's MCUs")
+    if not (1 <= predictor <= 7 and 0 <= pt < 8) or (restart and restart % mcus_x):
+        raise ValueError("jpeg_lossless_decode_scan: bad predictor, point transform or restart interval")
+    tables = [np.ascontiguousarray(t, np.uint16) for t in luts]
+    if any(t.shape != (1 << 16,) for t in tables):
+        raise ValueError("jpeg_lossless_decode_scan: lookahead tables must have 65536 entries")
+    buf = np.frombuffer(bytes(data) + bytes(1024), np.uint8)  # a scan's reads run at most 40 bytes past
+    widths, heights = _arr([p.shape[1] for p in planes]), _arr([p.shape[0] for p in planes])
+    hs, vs, rows = _arr([g[0] for g in geom]), _arr([g[1] for g in geom]), _arr(rows_per_imcu)
+    ptr = [a.ctypes.data_as(_I64P) for a in (widths, heights, hs, vs)]
+    return int(lib.jpeg_lossless_decode_scan(buf.ctypes.data, st.ctypes.data_as(_I64P), st.size, len(planes),
+                                             _pointers(planes), *ptr, _pointers(tables),
+                                             rows.ctypes.data_as(_I64P), mcus_x, mcus_y, predictor, pt, restart))
 
 
 def jpeg_encode_scan(blocks: np.ndarray, sel: np.ndarray, codes, sizes) -> bytes:
@@ -381,6 +452,22 @@ def median_cut_quantize(rgb8: np.ndarray, colors: int = 256) -> tuple[np.ndarray
     k = lib.median_cut_quantize(px.ctypes.data, px.shape[0] * px.shape[1], colors,
                                 pal.ctypes.data, idx.ctypes.data)
     return pal[:k], idx
+
+
+def ccitt_decode(data: bytes, width: int, rows: int, code: int, options: int,
+                 white_lut, black_lut) -> tuple[bytes, int]:
+    """`utils.ccitt.decode_py` with its lookahead tables (12 and 13 bits
+    wide): (the packed rows, 0), or (b"", a negative code)."""
+    lib = _load()
+    assert lib is not None
+    wl, bl = _i32(white_lut), _i32(black_lut)
+    if wl.shape != (1 << 12,) or bl.shape != (1 << 13,) or code not in (2, 3, 4) or width <= 0 or rows < 0:
+        raise ValueError("ccitt_decode: bad tables, compression or size")
+    src = _buf(data)
+    out = np.zeros(max(rows * ((width + 7) // 8), 1), np.uint8)
+    rc = lib.ccitt_decode(src.ctypes.data, len(data), width, rows, code, options,
+                          wl.ctypes.data_as(_I32P), bl.ctypes.data_as(_I32P), out.ctypes.data)
+    return (b"", int(rc)) if rc else (out[:rows * ((width + 7) // 8)].tobytes(), 0)
 
 
 # --- WebP (their Python twins are in utils/vp8l.py and utils/vp8.py) ---

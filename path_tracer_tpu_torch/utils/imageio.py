@@ -27,8 +27,10 @@ run lengths, GIF's quantizer, WebP's decode and encode loops):
   libjpeg-turbo decode: the integer inverse DCT of ``jidctint.c``, the
   upsampling ``jdsample.c`` picks for each ratio (fancy at 2x, else
   repeated samples) and the fixed-point YCbCr -> RGB of ``jdcolor.c``, all
-  bit for bit. Arithmetic coding, lossless and hierarchical files and
-  12-bit samples raise.
+  bit for bit; arithmetic-coded sequential and progressive files (SOF9,
+  SOF10: `jpeg_arith`) and lossless ones (SOF3: `jpeg_lossless`) too.
+  Hierarchical files, 12-bit samples and arithmetic lossless files (SOF11)
+  raise, as in Pillow.
 * `encode_jpeg`: the file Pillow writes for ``Image.save(..., "JPEG",
   quality=q)``: JFIF, baseline, 4:2:0, the Annex K tables scaled as
   ``jcparam.c`` scales them, the standard Huffman tables, and
@@ -40,9 +42,11 @@ run lengths, GIF's quantizer, WebP's decode and encode loops):
   `write_image` by the extension, with Pillow's extension table; any other
   file or extension raises ``ValueError``, naming it.
 
-The Huffman decode and encode run in `native` (host C++) where g++ built
-it, else in the Python loops here (`_decode_scan_py`, `_encode_scan_py`),
-which give the same output and which the tests hold the native ones to.
+The Huffman decode and encode (and the arithmetic and lossless scans) run
+in `native` (host C++) where g++ built it, else in the Python loops here
+(`_decode_scan_py`, `_encode_scan_py`) and in `jpeg_arith` and
+`jpeg_lossless`, which give the same output and which the tests hold the
+native ones to.
 The stages around them are NumPy over all blocks at once.
 """
 
@@ -56,7 +60,7 @@ import zlib
 import numpy as np
 
 from path_tracer_tpu_torch import native
-from path_tracer_tpu_torch.utils import bmp, gif, netpbm, tga, tiff, webp
+from path_tracer_tpu_torch.utils import bmp, gif, jpeg_arith, jpeg_lossless, netpbm, tga, tiff, webp
 
 # --------------------------------------------------------------------- PNG
 
@@ -703,11 +707,13 @@ def _pad_edge(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
 
 # --- decode ---
 
-_UNSUPPORTED_SOF = {
-    0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
-    0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded", 0xCB: "arithmetic-coded",
-    0xCD: "arithmetic-coded", 0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded",
-}
+# SOF markers: (entropy coding, process); hierarchical ones raise, as in
+# libjpeg-turbo (and so in Pillow)
+_SOF = {0xC0: ("huffman", "sequential"), 0xC1: ("huffman", "sequential"), 0xC2: ("huffman", "progressive"),
+        0xC3: ("huffman", "lossless"), 0xC9: ("arithmetic", "sequential"),
+        0xCA: ("arithmetic", "progressive"), 0xCB: ("arithmetic", "lossless")}
+_UNSUPPORTED_SOF = {0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
+                    0xCD: "hierarchical", 0xCE: "hierarchical", 0xCF: "hierarchical"}
 
 
 def _decode_scan(*args) -> int:
@@ -716,14 +722,74 @@ def _decode_scan(*args) -> int:
     return _decode_scan_py(*args)
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+def _arith_scan(*args) -> int:
+    if native.available():
+        return native.jpeg_arith_decode_scan(*args, jpeg_arith.QE)
+    return jpeg_arith.decode_scan_py(*args)
+
+
+def _lossless_scan(*args) -> int:
+    if native.available():
+        return native.jpeg_lossless_decode_scan(*args)
+    return jpeg_lossless.decode_scan_py(*args)
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>", colour: str | None = None) -> np.ndarray:
     """A JPEG file's bytes -> uint8 RGB ``[H, W, 3]``, equal to Pillow's
     ``Image.open(...).convert("RGB")`` (libjpeg-turbo's defaults). Raises
-    ``ValueError`` naming ``name`` and what it lacks."""
+    ``ValueError`` naming ``name`` and what it lacks.
+
+    ``colour`` overrides the colour space the file's markers imply, as
+    libtiff does for a TIFF's JPEG strips: ``"raw"`` keeps the components
+    as they are (gray, RGB, or CMYK read without inversion), ``"ycc"``
+    converts YCbCr to RGB."""
+    frame, comps, jfif, adobe = _read_jpeg(data, name)
+    hgt, wid, hmax, vmax = frame["hgt"], frame["wid"], frame["hmax"], frame["vmax"]
+    lossless = frame["process"] == "lossless"
+    planes = []
+    for c in comps:
+        if lossless:  # jdsample.c: no fancy upsampling when the DCT size is 1
+            s = c["samples"]
+            planes.append(np.repeat(np.repeat(s, vmax // c["v"], axis=0), hmax // c["h"], axis=1)[:hgt, :wid])
+            continue
+        bh, bw = -(-c["hgt"] // 8), -(-c["w"] // 8)
+        q = c["q"] if c["q"] is not None else np.zeros(64, np.int64)
+        s = _unblocks(_idct_islow(c["coef"][:bh, :bw].reshape(-1, 64), q), bh, bw)
+        s = _upsample(s[:c["hgt"], :c["w"]], hmax // c["h"], vmax // c["v"])
+        planes.append(s[:hgt, :wid])
+    if len(planes) == 1:
+        return np.repeat(planes[0][..., None], 3, axis=2)
+    ids = tuple(c["id"] for c in comps)
+    if colour == "raw":
+        if len(planes) == 4:
+            return _cmyk_to_rgb(np.stack(planes[:3], axis=-1).astype(np.int32), planes[3].astype(np.int32))
+        return np.stack(planes, axis=-1)
+    if colour == "ycc":
+        return _ycc_to_rgb(*planes[:3])
+    # jdapimin.c default_decompress_parms: the file's colour space
+    ycc = jfif or (adobe != 0 if adobe is not None else not lossless and ids != (82, 71, 66))
+    if lossless and ycc and (len(planes) == 3 or adobe):
+        raise ValueError(f"{name}: lossless JPEG in YCbCr or YCCK (a JFIF or Adobe marker); libjpeg-turbo, "
+                         "and so Pillow, converts no colours in lossless mode")
+    if len(planes) == 4:  # Pillow decodes to CMYK and reads it as "CMYK;I"
+        if adobe is not None and adobe != 0:  # YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
+            cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int32)
+        else:
+            cmy = np.stack(planes[:3], axis=-1).astype(np.int32)
+        return _cmyk_to_rgb(255 - cmy, 255 - planes[3].astype(np.int32))
+    return _ycc_to_rgb(*planes) if ycc else np.stack(planes, axis=-1)
+
+
+def _read_jpeg(data: bytes, name: str):
+    """Parse a JPEG file and decode its scans: ``(frame, components, JFIF
+    seen, Adobe transform or None)``, each component with its coefficient
+    blocks (``coef``) and quantization table (``q``), or in a lossless
+    file its samples (``samples``)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file")
     pos, qt, huff, restart = 2, {}, {}, 0
     frame, comps, jfif, adobe, scans = None, [], False, None, 0
+    cond = (np.zeros(16, np.int64), np.ones(16, np.int64), np.full(16, 5, np.int64))  # DAC: L, U, Kx
     while pos < len(data):
         if data[pos] != 0xFF:
             raise ValueError(f"{name}: JPEG marker expected at byte {pos}")
@@ -763,17 +829,36 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
                     raise ValueError(f"{name}: bad JPEG Huffman table")
                 huff[(seg[i] >> 4, seg[i] & 15)] = _decode_lut(counts, seg[i + 17:i + 17 + k], name)
                 i += 17 + k
-        elif m in (0xC0, 0xC1, 0xC2):
+        elif m == 0xCC:  # DAC (jdmarker.c get_dac)
+            if len(seg) % 2:
+                raise ValueError(f"{name}: bad JPEG arithmetic conditioning (DAC) segment")
+            for i in range(0, len(seg), 2):
+                index, val = seg[i], seg[i + 1]
+                if index >= 32 or (index < 16 and (val & 15) > (val >> 4)):
+                    raise ValueError(f"{name}: bad JPEG arithmetic conditioning table {index}")
+                if index >= 16:
+                    cond[2][index - 16] = val
+                else:
+                    cond[0][index], cond[1][index] = val & 15, val >> 4
+        elif m in _SOF:
             if frame is not None or len(seg) < 6 or len(seg) < 6 + 3 * seg[5]:
                 raise ValueError(f"{name}: bad or second JPEG frame header")
             prec, hgt, wid, nf = struct.unpack(">BHHB", seg[:6])
+            coding, process = _SOF[m]
             if prec != 8:
                 raise ValueError(f"{name}: {prec}-bit JPEG; only 8-bit samples are supported")
+            if coding == "arithmetic" and process == "lossless":
+                # libjpeg-turbo has no arithmetic lossless decoder (JERR_ARITH_NOTIMPL)
+                raise ValueError(f"{name}: arithmetic-coded lossless JPEG (SOF11); libjpeg-turbo, "
+                                 "and so Pillow, does not decode it either")
             if nf not in (1, 3, 4):
                 raise ValueError(f"{name}: {nf}-component JPEG; only 1, 3 and 4-component "
                                  "(gray, YCbCr or RGB, CMYK or YCCK) JPEG is supported")
             if hgt == 0 or wid == 0:
                 raise ValueError(f"{name}: JPEG without a frame height (DNL) or width")
+            if wid * hgt > 2 * 89478485:  # Image.MAX_IMAGE_PIXELS: Pillow's decompression bomb error
+                raise ValueError(f"{name}: JPEG of {wid}x{hgt} pixels; Pillow refuses images over "
+                                 "178,956,970 pixels")
             raw = [tuple(seg[6 + 3 * i:9 + 3 * i]) for i in range(nf)]
             factors = [(c[1] >> 4, c[1] & 15) for c in raw]
             hmax = max(f[0] for f in factors) if nf > 1 else factors[0][0]
@@ -783,17 +868,21 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
                    for h, v in factors):
                 raise ValueError(f"{name}: JPEG sampling factors {factors} are not supported "
                                  "(libjpeg: 1 to 4, each dividing the largest)")
-            mx, my = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
+            unit = 1 if process == "lossless" else 8  # a data unit: a sample or a block
+            mx, my = -(-wid // (unit * hmax)), -(-hgt // (unit * vmax))
             for cid, hv, tq in raw:
                 h, v = (hv >> 4, hv & 15) if nf > 1 else (hmax, vmax)
                 cw, chh = -(-wid * h // hmax), -(-hgt * v // vmax)
-                comps.append({"id": cid, "h": h, "v": v, "tq": tq, "w": cw, "hgt": chh,
-                              "coef": np.zeros((my * v, mx * h, 64), np.int16), "q": None})
-            frame = (hgt, wid, hmax, vmax, m == 0xC2)
-        elif m in _UNSUPPORTED_SOF or m == 0xCC:
-            raise ValueError(f"{name}: {_UNSUPPORTED_SOF.get(m, 'arithmetic-coded')} JPEG "
-                             f"(marker 0x{m:02X}); only Huffman-coded baseline, extended "
-                             "and progressive JPEG are supported")
+                c = {"id": cid, "h": h, "v": v, "tq": tq, "w": cw, "hgt": chh, "q": None}
+                if process == "lossless":
+                    c["samples"] = np.zeros((chh, cw), np.uint8)
+                else:
+                    c["coef"] = np.zeros((my * v, mx * h, 64), np.int16)
+                comps.append(c)
+            frame = {"hgt": hgt, "wid": wid, "hmax": hmax, "vmax": vmax, "coding": coding, "process": process}
+        elif m in _UNSUPPORTED_SOF:
+            raise ValueError(f"{name}: {_UNSUPPORTED_SOF[m]} JPEG (marker 0x{m:02X}); libjpeg-turbo, and "
+                             "so Pillow, does not decode it either")
         elif m == 0xDD and len(seg) >= 2:
             (restart,) = struct.unpack(">H", seg[:2])
         elif m == 0xE0 and seg[:5] == b"JFIF\x00" and n >= 16:
@@ -805,34 +894,14 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
                 raise ValueError(f"{name}: bad JPEG scan header, or a scan before the frame")
             end = _END_OF_SCAN.search(data, pos)
             end = end.start() if end else len(data)
-            _scan(seg, data[pos:end], frame, comps, qt, huff, restart, name)
+            if frame["process"] == "lossless":
+                _scan_lossless(seg, data[pos:end], frame, comps, huff, restart, name)
+            else:
+                _scan(seg, data[pos:end], frame, comps, qt, huff, cond, restart, name)
             pos, scans = end, scans + 1
     if frame is None or not scans:
         raise ValueError(f"{name}: JPEG without a frame or a scan")
-    hgt, wid, hmax, vmax, _ = frame
-    planes = []
-    for c in comps:
-        bh, bw = -(-c["hgt"] // 8), -(-c["w"] // 8)
-        q = c["q"] if c["q"] is not None else np.zeros(64, np.int64)
-        s = _unblocks(_idct_islow(c["coef"][:bh, :bw].reshape(-1, 64), q), bh, bw)
-        s = _upsample(s[:c["hgt"], :c["w"]], hmax // c["h"], vmax // c["v"])
-        planes.append(s[:hgt, :wid])
-    if len(planes) == 1:
-        return np.repeat(planes[0][..., None], 3, axis=2)
-    # jdapimin.c default_decompress_parms: the file's colour space
-    if len(planes) == 4:  # Pillow decodes to CMYK and reads it as "CMYK;I"
-        if adobe is not None and adobe != 0:  # YCCK -> CMYK (jdcolor.c ycck_cmyk_convert)
-            cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int32)
-        else:
-            cmy = np.stack(planes[:3], axis=-1).astype(np.int32)
-        return _cmyk_to_rgb(255 - cmy, 255 - planes[3].astype(np.int32))
-    if jfif:
-        rgb = False
-    elif adobe is not None:
-        rgb = adobe == 0  # the APP14 transform flag
-    else:
-        rgb = tuple(c["id"] for c in comps) == (82, 71, 66)  # "RGB"
-    return np.stack(planes, axis=-1) if rgb else _ycc_to_rgb(*planes)
+    return frame, comps, jfif, adobe
 
 
 def _cmyk_to_rgb(cmy: np.ndarray, k: np.ndarray) -> np.ndarray:
@@ -843,10 +912,9 @@ def _cmyk_to_rgb(cmy: np.ndarray, k: np.ndarray) -> np.ndarray:
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
-def _scan(header: bytes, ent: bytes, frame, comps, qt, huff, restart, name):
-    """Parse a SOS header and decode its entropy-coded data ``ent`` into
-    the components' coefficients."""
-    hgt, wid, hmax, vmax, progressive = frame
+def _scan_components(header: bytes, comps, name):
+    """A SOS header's components: ``[(component, Td, Ta)]`` and the bytes
+    after the component list (Ss, Se, Ah/Al)."""
     ns = header[0]
     by_id = {c["id"]: c for c in comps}
     sel = []
@@ -855,9 +923,29 @@ def _scan(header: bytes, ent: bytes, frame, comps, qt, huff, restart, name):
         if cid not in by_id:
             raise ValueError(f"{name}: JPEG scan names an unknown component {cid}")
         sel.append((by_id[cid], tt >> 4, tt & 15))
-    ss, se, a = header[1 + 2 * ns:4 + 2 * ns]
+    return sel, header[1 + 2 * ns:4 + 2 * ns]
+
+
+def _segments(ent: bytes):
+    """A scan's entropy-coded bytes split at its restart markers, the
+    stuffing removed: (the bytes, each interval's start and the end)."""
+    segs = [p.replace(b"\xff\x00", b"\xff") for p in _RESTART.split(ent)]
+    return b"".join(segs), np.cumsum([0] + [len(p) for p in segs]).tolist()
+
+
+_SCAN_ERRORS = {-1: "bad Huffman code in the JPEG data", -2: "JPEG image data is truncated",
+                -3: "JPEG restart markers do not match the restart interval"}
+
+
+def _scan(header: bytes, ent: bytes, frame, comps, qt, huff, cond, restart, name):
+    """Parse a SOS header and decode its entropy-coded data ``ent`` into
+    the components' coefficients (Huffman or arithmetic coding)."""
+    hgt, wid, hmax, vmax = frame["hgt"], frame["wid"], frame["hmax"], frame["vmax"]
+    arith = frame["coding"] == "arithmetic"
+    sel, (ss, se, a) = _scan_components(header, comps, name)
+    ns = len(sel)
     ah, al = a >> 4, a & 15
-    if not progressive:
+    if frame["process"] != "progressive":
         ss, se, ah, al = 0, 63, 0, 0
     elif ss > se or se > 63 or (ss == 0 and se != 0) or (ss and ns != 1) or al > 13:
         raise ValueError(f"{name}: bad progressive JPEG scan (Ss {ss}, Se {se}, Ah {ah}, Al {al})")
@@ -867,12 +955,15 @@ def _scan(header: bytes, ent: bytes, frame, comps, qt, huff, restart, name):
             if c["tq"] not in qt:
                 raise ValueError(f"{name}: JPEG quantization table {c['tq']} is missing")
             c["q"] = qt[c["tq"]].copy()
-        need = ([(0, td)] if ss == 0 and ah == 0 else []) + ([(1, ta)] if se > 0 else [])
-        for key in need:
-            if key not in huff:
-                raise ValueError(f"{name}: JPEG Huffman table {key} is missing")
-        empty = np.zeros(1 << 16, np.uint16)
-        luts.append((huff.get((0, td), empty), huff.get((1, ta), empty)))
+        if arith:
+            luts.append((td, ta))
+        else:
+            need = ([(0, td)] if ss == 0 and ah == 0 else []) + ([(1, ta)] if se > 0 else [])
+            for key in need:
+                if key not in huff:
+                    raise ValueError(f"{name}: JPEG Huffman table {key} is missing")
+            empty = np.zeros(1 << 16, np.uint16)
+            luts.append((huff.get((0, td), empty), huff.get((1, ta), empty)))
         if ns == 1:  # non-interleaved: one block an MCU, the component's own block grid
             bh, bw = -(-c["hgt"] // 8), -(-c["w"] // 8)
             coefs.append(c["coef"][:bh, :bw])
@@ -887,18 +978,51 @@ def _scan(header: bytes, ent: bytes, frame, comps, qt, huff, restart, name):
                          "(libjpeg takes at most 10)")
     else:
         mcus_x, mcus_y = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
-    segs = [p.replace(b"\xff\x00", b"\xff") for p in _RESTART.split(ent)]
-    starts = np.cumsum([0] + [len(p) for p in segs]).tolist()
+    joined, starts = _segments(ent)
     work = [np.ascontiguousarray(c) for c in coefs]
-    rc = _decode_scan(b"".join(segs) + bytes(_SCAN_PAD), starts, work, geom, luts,
-                      mcus_x, mcus_y, ss, se, ah, al, restart)
+    if arith:
+        rc = _arith_scan(joined, starts, work, geom, luts, cond, mcus_x, mcus_y, ss, se, ah, al,
+                         restart, _NATURAL)
+    else:
+        rc = _decode_scan(joined + bytes(_SCAN_PAD), starts, work, geom, luts,
+                          mcus_x, mcus_y, ss, se, ah, al, restart)
     if rc:
-        raise ValueError(f"{name}: " + {-1: "bad Huffman code in the JPEG data",
-                                        -2: "JPEG image data is truncated",
-                                        -3: "JPEG restart markers do not match the restart interval"}
-                         [rc])
+        raise ValueError(f"{name}: " + _SCAN_ERRORS[rc])
     for c, w in zip(coefs, work):
         c[...] = w
+
+
+def _scan_lossless(header: bytes, ent: bytes, frame, comps, huff, restart, name):
+    """Parse a lossless SOS header (Ss the predictor, Al the point
+    transform) and decode its data into the components' samples."""
+    sel, (ss, se, a) = _scan_components(header, comps, name)
+    ah, al = a >> 4, a & 15
+    if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= 8:  # jdlossls.c start_input_pass
+        raise ValueError(f"{name}: bad lossless JPEG scan (predictor {ss}, Se {se}, Ah {ah}, Pt {al})")
+    ns = len(sel)
+    luts, planes, geom, rows = [], [], [], []
+    for c, td, _ in sel:
+        if (0, td) not in huff:
+            raise ValueError(f"{name}: JPEG Huffman table {(0, td)} is missing")
+        luts.append(huff[(0, td)])
+        planes.append(c["samples"])
+        geom.append((1, 1) if ns == 1 else (c["h"], c["v"]))
+        rows.append(c["v"])
+    if ns == 1:
+        mcus_x, mcus_y = sel[0][0]["w"], sel[0][0]["hgt"]
+    elif sum(h * v for h, v in geom) > 10:
+        raise ValueError(f"{name}: JPEG scan of {sum(h * v for h, v in geom)} samples an MCU "
+                         "(libjpeg takes at most 10)")
+    else:
+        mcus_x, mcus_y = -(-frame["wid"] // frame["hmax"]), -(-frame["hgt"] // frame["vmax"])
+    if restart % mcus_x:  # jdlossls.c: restarts at whole MCU rows only
+        raise ValueError(f"{name}: lossless JPEG restart interval {restart} is not a multiple of "
+                         f"the {mcus_x} MCUs in a row")
+    joined, starts = _segments(ent)
+    rc = _lossless_scan(joined + bytes(_SCAN_PAD), starts, planes, geom, luts, rows,
+                        mcus_x, mcus_y, ss, al, restart)
+    if rc:
+        raise ValueError(f"{name}: " + _SCAN_ERRORS[rc])
 
 
 # --- encode ---

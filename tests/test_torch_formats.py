@@ -574,23 +574,26 @@ def test_sixteen_bit_gray_diverges(tmp_path, case):
     assert (value >> 8 != want_pillow).any()
 
 
-@pytest.mark.parametrize("case", ["tiff_float", "tiff_cmyk", "tiff_ycbcr", "tiff_jpeg", "tiff_logluv",
-                                  "tiff_bigtiff", "pf_colour", "avif", "qoi", "jpeg_fractional",
+@pytest.mark.parametrize("case", ["tiff_float_rgb", "tiff_logl", "tiff_ycbcr_uncompressed", "tiff_old_jpeg",
+                                  "tiff_logluv", "tiff_zstd", "pf_colour", "avif", "qoi", "jpeg_fractional",
                                   "jpeg_mcu_of_11_blocks", "gif_ends_early"])
 def test_still_unsupported_raise(tmp_path, case):
     """What the port does not read raises ``ValueError`` naming the file and
-    what it lacks (``ROADMAP.md`` queues them)."""
-    what = {"tiff_float": "floating-point", "tiff_cmyk": "CMYK", "tiff_ycbcr": "YCbCr",
-            "tiff_jpeg": "JPEG", "tiff_logluv": "LogLuv", "tiff_bigtiff": "BigTIFF", "pf_colour": "not an image file",
+    what it lacks (``ROADMAP.md`` queues them; the other TIFF variants:
+    ``tests/test_torch_variants.py``)."""
+    what = {"tiff_float_rgb": "floating-point", "tiff_logl": "LogL", "tiff_ycbcr_uncompressed": "uncompressed YCbCr",
+            "tiff_old_jpeg": "old-style JPEG", "tiff_logluv": "LogLuv", "tiff_zstd": "Zstandard",
+            "pf_colour": "not an image file",
             "avif": "AVIF", "qoi": "QOI", "jpeg_fractional": "sampling factors",
             "jpeg_mcu_of_11_blocks": "11 blocks an MCU", "gif_ends_early": "truncated"}[case]
     data = {
-        "tiff_float": lambda: pillow(Image.fromarray(RGB[..., 0].astype(np.float32)), "TIFF"),
-        "tiff_cmyk": lambda: pillow(Image.fromarray(_CMYK, "CMYK"), "TIFF"),
-        "tiff_ycbcr": lambda: tiff_file(RGB, 8, 6),
-        "tiff_jpeg": lambda: pillow(Image.fromarray(RGB), "TIFF", compression="jpeg"),
+        "tiff_float_rgb": lambda: tiff_file(WIDE, 16, 2, sample_format=3),
+        "tiff_logl": lambda: tiff_file(RGB[..., :1], 8, 32844),
+        "tiff_ycbcr_uncompressed": lambda: tiff_file(RGB, 8, 6),
+        "tiff_old_jpeg": lambda: tiff_file(RGB, 8, 2).replace(struct.pack("<HHIHH", 259, 3, 1, 1, 0),
+                                                              struct.pack("<HHIHH", 259, 3, 1, 6, 0)),
         "tiff_logluv": lambda: tiff_file(RGB, 8, 32845),
-        "tiff_bigtiff": lambda: pillow(Image.fromarray(RGB), "TIFF", big_tiff=True),
+        "tiff_zstd": lambda: pillow(Image.fromarray(RGB), "TIFF", compression="zstd"),
         "pf_colour": lambda: b"PF\n1 1\n-1.0\n" + bytes(12),
         "avif": lambda: pillow(Image.fromarray(RGB), "AVIF"),
         "qoi": lambda: pillow(Image.fromarray(RGB), "QOI"),

@@ -136,21 +136,22 @@ def test_native_jpeg_decode_matches_python(tmp_path, monkeypatch, case):
             np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("case", ["12-bit", "lossless", "hierarchical", "sampling", "two-component"])
+@pytest.mark.parametrize("case", ["12-bit", "lossless-12-bit", "hierarchical", "sampling", "two-component"])
 def test_unsupported_jpeg_raises(tmp_path, case):
     """What the port does not read raises, naming the file and what it
-    lacks (Pillow reads some of them: arithmetic and 12-bit files through
-    libjpeg-turbo)."""
+    lacks (12-bit DCT and lossless files, hierarchical ones: Pillow raises
+    on them too)."""
     buf = io.BytesIO()
     Image.fromarray(_pixels(16, 16, 0)).save(buf, "JPEG", quality=75)
     data = bytearray(buf.getvalue())
     sof = data.index(b"\xff\xc0")
-    what = {"12-bit": "12-bit", "lossless": "lossless", "hierarchical": "hierarchical",
+    what = {"12-bit": "12-bit", "lossless-12-bit": "12-bit", "hierarchical": "hierarchical",
             "sampling": "sampling factors", "two-component": "2-component"}[case]
     if case == "12-bit":
         data[sof + 4] = 12
-    elif case == "lossless":
+    elif case == "lossless-12-bit":
         data[sof + 1] = 0xC3
+        data[sof + 4] = 12
     elif case == "hierarchical":
         data[sof + 1] = 0xC5
     elif case == "sampling":

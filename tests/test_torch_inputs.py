@@ -164,26 +164,27 @@ def test_save_image_round_trip(tmp_path):
     np.testing.assert_array_equal(tenv.load_image(tmp_path / "t.png"), jenv.load_image(tmp_path / "j.png"))
 
 
-@pytest.mark.parametrize("case", ["avif", "arithmetic-jpeg", "jpeg-in-tiff"])
+@pytest.mark.parametrize("case", ["avif", "hierarchical-jpeg", "zstd-tiff"])
 def test_unsupported_images_raise(tmp_path, case):
-    """What the port does not read raises, naming the file: an AVIF, an
-    arithmetic-coded JPEG (its SOF0 marker patched to SOF9) and a TIFF of
-    JPEG strips. (JPEG, PNG, WebP and the other raster formats load:
-    ``tests/test_torch_images.py``, ``tests/test_torch_formats.py``,
-    ``tests/test_torch_webp.py``.)"""
+    """What the port does not read raises, naming the file: an AVIF, a
+    hierarchical JPEG (its SOF0 marker patched to SOF13, which Pillow's
+    libjpeg-turbo does not decode either) and a Zstandard TIFF. (JPEG, PNG,
+    WebP and the other raster formats load: ``tests/test_torch_images.py``,
+    ``tests/test_torch_formats.py``, ``tests/test_torch_webp.py``,
+    ``tests/test_torch_variants.py``.)"""
     path = tmp_path / f"{case}.img"
     px = np.zeros((4, 4, 3), np.uint8)
     if case == "avif":
         Image.fromarray(px).save(path, "AVIF")
         what = "AVIF"
-    elif case == "arithmetic-jpeg":
+    elif case == "hierarchical-jpeg":
         buf = io.BytesIO()
         Image.fromarray(px).save(buf, "JPEG")
-        path.write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
-        what = "arithmetic-coded"
+        path.write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xcd", 1))
+        what = "hierarchical"
     else:
-        Image.fromarray(px).save(path, "TIFF", compression="jpeg")
-        what = "JPEG TIFF"
+        Image.fromarray(px).save(path, "TIFF", compression="zstd")
+        what = "Zstandard TIFF"
     with pytest.raises(ValueError, match=what) as err:
         tenv.load_image(path)
     assert str(path) in str(err.value)
